@@ -1,0 +1,123 @@
+"""Unified message-passing primitive every GNN layer routes through.
+
+* :func:`mp` — gather from the source, reduce into the destination over a
+  destination-sorted ``edge_index``: ``reduce`` ∈ {sum, mean, max} ×
+  {weighted, unweighted}, each one CUDA kernel launch on the card.
+
+* :func:`mp_transform` — message passing composed with a dense transform
+  ``W``, with one of three schedules per layer:
+
+      aggregate(X) @ W        (aggregate-first)   reduce width = d_in
+      aggregate(X @ W)        (transform-first)   reduce width = d_out
+      fused(X, W)             (fused)             SpMM+GEMM, one launch
+
+  ``order="auto"`` is a fixed rule (:func:`choose_order`): fused when the
+  reduce is linear, the backend is the CUDA kernel and the Hopper
+  shared-memory gate :func:`~repro_torch.kernels.fused_transform_reduce.fusable`
+  holds; otherwise aggregate-first iff ``d_in < d_out``; otherwise
+  transform-first. Reordering is valid only for linear reduces (sum / mean
+  commute with ``W``); ``max`` pins transform-first.
+
+``reduce="max"`` fills empty-neighbourhood rows with 0 (exactly the rows
+the kernel reports as ``-inf``) rather than the segment-max identity.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import ops as geot
+from repro_torch.core.config_space import KernelConfig, default_config
+from repro_torch.kernels.fused_transform_reduce import fusable
+from repro_torch.kernels.ops import resolve_impl
+
+__all__ = ["mp", "mp_transform", "choose_order", "resolve_order"]
+
+_LINEAR_REDUCES = ("sum", "mean")
+_ORDERS = ("auto", "aggregate_first", "transform_first", "fused")
+
+
+def choose_order(d_in: int, d_out: int, *, config: Optional[KernelConfig] = None,
+                 allow_fused: bool = False, dtype=torch.float32) -> str:
+    """The deterministic order rule for a linear reduce (no cost model on
+    Hopper yet): ``"fused"`` when allowed and the shared-memory gate
+    holds, else ``"aggregate_first"`` iff ``d_in < d_out``, else
+    ``"transform_first"``."""
+    config = config or default_config(max(d_in, d_out))
+    if allow_fused and fusable(d_in, d_out, dtype, config):
+        return "fused"
+    return "aggregate_first" if d_in < d_out else "transform_first"
+
+
+def resolve_order(reduce: str, order: str, d_in: int, d_out: int, *,
+                  config: Optional[KernelConfig] = None,
+                  allow_fused: bool = False, dtype=torch.float32) -> str:
+    """Validate and resolve the transform/aggregate order for one layer.
+    Non-linear reduces do not commute with ``W`` and pin transform-first;
+    ``"fused"`` needs a linear reduce and the CUDA backend
+    (``allow_fused``)."""
+    if order not in _ORDERS:
+        raise ValueError(f"unknown order: {order!r}")
+    if reduce not in _LINEAR_REDUCES:
+        if order in ("aggregate_first", "fused"):
+            raise ValueError(
+                f"reduce={reduce!r} does not commute with the transform; "
+                f"{order} would compute a different function")
+        return "transform_first"
+    if order == "fused" and not allow_fused:
+        raise ValueError("order='fused' needs the one-launch CUDA kernel "
+                         "(impl='cuda' on CUDA tensors)")
+    if order == "auto":
+        return choose_order(d_in, d_out, config=config,
+                            allow_fused=allow_fused, dtype=dtype)
+    return order
+
+
+def mp(x, edge_index, num_nodes: int, *, reduce: str = "sum",
+       edge_weight=None, plan=None, impl: Optional[str] = None,
+       config: Optional[KernelConfig] = None):
+    """Message passing: Y[d] = reduce_{(s,d) ∈ E} (w_e ·) X[s].
+
+    ``edge_index``: (2, E) with ``edge_index[1]`` sorted non-decreasing;
+    ``plan``: SegmentPlan over the destinations, shared by every layer."""
+    if reduce not in ("sum", "mean", "max"):
+        raise ValueError(f"unknown reduce: {reduce!r}")
+    src, dst = edge_index[0], edge_index[1]
+    if edge_weight is None:
+        y = geot.index_segment_reduce(x, src, dst, num_nodes, reduce, impl,
+                                      config, plan)
+    else:
+        y = geot.index_weight_segment_reduce(x, src, edge_weight, dst,
+                                             num_nodes, reduce, impl, config,
+                                             plan)
+    if reduce == "max":
+        # replace exactly -inf (empty neighbourhoods), so a legitimate
+        # +inf/NaN aggregate still surfaces downstream
+        y = torch.where(y == float("-inf"), torch.zeros_like(y), y)
+    return y
+
+
+def mp_transform(x, w, edge_index, num_nodes: int, *, reduce: str = "sum",
+                 edge_weight=None, plan=None, impl: Optional[str] = None,
+                 config: Optional[KernelConfig] = None, order: str = "auto"):
+    """Message passing with a dense transform: aggregate(X·W),
+    aggregate(X)·W, or the one-launch fused SpMM+GEMM (``order="auto"``
+    applies :func:`choose_order`)."""
+    impl = resolve_impl(x, impl)
+    if config is None and plan is not None:
+        config = plan.config
+    order = resolve_order(reduce, order, int(x.shape[-1]), int(w.shape[-1]),
+                          config=config, allow_fused=(impl == "cuda"),
+                          dtype=x.dtype)
+    if order == "fused":
+        src, dst = edge_index[0], edge_index[1]
+        return geot.fused_transform_reduce(x, w, src, edge_weight, dst,
+                                           num_nodes, reduce, impl, config,
+                                           plan)
+    if order == "aggregate_first":
+        agg = mp(x, edge_index, num_nodes, reduce=reduce,
+                 edge_weight=edge_weight, plan=plan, impl=impl, config=config)
+        return agg @ w
+    return mp(x @ w, edge_index, num_nodes, reduce=reduce,
+              edge_weight=edge_weight, plan=plan, impl=impl, config=config)

@@ -1,0 +1,229 @@
+"""Public wrappers around the kernels: backend choice, config resolution,
+plan metadata, and launch accounting.
+
+Backend (``impl``):
+
+  * ``None`` — ``"cuda"`` for CUDA tensors, ``"ref"`` for CPU tensors;
+  * ``"cuda"`` — the hand-written Hopper kernel; raises on CPU tensors;
+  * ``"ref"`` — the plain PyTorch version, on any device (on the card it is
+    only ever asked for explicitly, as an oracle);
+  * ``"blocked"`` — gather_segment_reduce only: its kernel's
+    ownership-window schedule in plain PyTorch.
+
+There is no fallback: a CUDA tensor reaches the kernel or the call raises.
+
+Config precedence: ``plan`` > explicit ``config=`` > the Hopper default.
+A plan's tiling is authoritative; an explicit config must agree with it.
+
+Accounting: each kernel module keeps a plain-int launch counter
+(:func:`launch_counts`, :func:`reset_launch_counts`), bumped only where
+its kernel launches. :func:`account` / :func:`fusion_scope` record which
+kernels (``fused:<op>``) or plain versions (``unfused:<op>:<impl>``) a
+block of work ran, so a served step can report what it launched.
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+import contextvars
+import threading
+from typing import Optional
+
+import torch
+
+from repro_torch.core.config_space import KernelConfig, default_config
+from repro_torch.kernels import fused_transform_reduce as _ftr
+from repro_torch.kernels import gather_segment_reduce as _gsr
+from repro_torch.kernels import segment_softmax as _ssm
+from repro_torch.kernels.segment_reduce import _resolve_plan, _round_up, chunk_metadata
+
+IMPLS = ("cuda", "ref", "blocked")
+_KERNEL_MODULES = {"gather_segment_reduce": _gsr,
+                   "segment_softmax": _ssm,
+                   "fused_transform_reduce": _ftr}
+
+
+def resolve_impl(t: torch.Tensor, impl: Optional[str],
+                 impls: tuple = IMPLS) -> str:
+    """``impl`` for an op whose data lies in ``t`` and that offers
+    ``impls``."""
+    if impl is None:
+        return "cuda" if t.is_cuda else "ref"
+    if impl not in impls:
+        raise ValueError(f"unknown impl {impl!r}; one of {impls}")
+    if impl == "cuda" and not t.is_cuda:
+        raise ValueError(f"impl='cuda' needs CUDA tensors, got {t.device}; "
+                         "pass CPU tensors with impl=None or 'ref'")
+    return impl
+
+
+# ---------------------------------------------------------------------------
+# launch counters (one plain int per kernel, kept by its module)
+# ---------------------------------------------------------------------------
+
+def launch_counts() -> dict:
+    """Launches of each CUDA kernel since the last reset."""
+    return {name: mod.launches for name, mod in _KERNEL_MODULES.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in _KERNEL_MODULES.values():
+        mod.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# fusion accounting: "<kind>:<op>" counters, scoped per thread/context
+# ---------------------------------------------------------------------------
+
+_FUSION_LOCK = threading.Lock()
+_FUSION_GLOBAL: collections.Counter = collections.Counter()
+_FUSION_SCOPES: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_fusion_scopes", default=())
+
+
+def _fusion_sink() -> collections.Counter:
+    scopes = _FUSION_SCOPES.get()
+    return scopes[-1] if scopes else _FUSION_GLOBAL
+
+
+def account(kind: str, op: str) -> None:
+    """Record one ``kind`` ∈ {"fused", "unfused"} event on ``op``."""
+    with _FUSION_LOCK:
+        _fusion_sink()[f"{kind}:{op}"] += 1
+
+
+def fusion_counts() -> dict:
+    """Snapshot of the innermost scope of this context, else the global."""
+    with _FUSION_LOCK:
+        return dict(_fusion_sink())
+
+
+@contextlib.contextmanager
+def fusion_scope():
+    """Inside the block the counters start at zero and record only the
+    block's events; on exit they fold into the enclosing counters. Yields
+    the scope's live Counter."""
+    inner = collections.Counter()
+    outer_scopes = _FUSION_SCOPES.get()
+    token = _FUSION_SCOPES.set(outer_scopes + (inner,))
+    try:
+        yield inner
+    finally:
+        _FUSION_SCOPES.reset(token)
+        with _FUSION_LOCK:
+            (outer_scopes[-1] if outer_scopes else _FUSION_GLOBAL
+             ).update(inner)
+
+
+# ---------------------------------------------------------------------------
+# plan metadata
+# ---------------------------------------------------------------------------
+
+def _resolve(plan, num_rows: int, num_segments: int,
+             config: Optional[KernelConfig], feat: int) -> KernelConfig:
+    config, _ = _resolve_plan(plan, num_rows, num_segments, config, None)
+    return config if config is not None else default_config(feat)
+
+
+def _metadata(plan, seg_idx, num_segments: int, config: KernelConfig):
+    """(chunk_first, chunk_count) on seg_idx's device: the plan's, or
+    computed on the device from the padded index (no host round trip)."""
+    if plan is not None:
+        plan = plan.to(seg_idx.device)
+        return plan.chunk_first, plan.chunk_count
+    m = int(seg_idx.shape[0])
+    m_pad = _round_up(max(m, 1), config.m_b)
+    idxp = torch.full((m_pad,), num_segments, dtype=torch.int32,
+                      device=seg_idx.device)
+    idxp[:m] = seg_idx
+    return chunk_metadata(idxp, num_segments, config.s_b, config.m_b, m_pad)
+
+
+def _index32(t):
+    return t if t.dtype == torch.int32 and t.is_contiguous() else \
+        t.to(torch.int32).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def gather_segment_reduce(h, gather_idx, seg_idx, num_segments: int,
+                          weight=None, reduce: str = "sum",
+                          config: Optional[KernelConfig] = None, plan=None,
+                          impl: Optional[str] = None):
+    """Y[s] = reduce_{seg[i]==s} (w[i]·) H[gather_idx[i]], one launch for
+    every reduce ∈ {sum, mean, max}, weighted or not. ``seg_idx`` must be
+    sorted non-decreasing."""
+    if reduce not in _gsr.REDUCES:
+        raise ValueError(f"unknown reduce: {reduce!r}")
+    impl = resolve_impl(h, impl)
+    op = ("gather_segment_reduce" if reduce == "sum"
+          else f"gather_segment_reduce_{reduce}")
+    if weight is not None:
+        op += "_weighted"
+        weight = weight.to(h.dtype)
+    if impl == "ref":
+        account("unfused", f"{op}:ref")
+        return _gsr.gather_segment_reduce_ref(h, gather_idx, seg_idx,
+                                              num_segments, weight, reduce)
+    config = _resolve(plan, int(seg_idx.shape[0]), num_segments, config,
+                      int(h.shape[1]))
+    cf, cc = _metadata(plan, seg_idx, num_segments, config)
+    if impl == "blocked":
+        account("unfused", f"{op}:blocked")
+        return _gsr.gather_segment_reduce_blocked(
+            h, gather_idx, seg_idx, num_segments, weight, reduce, cf, cc,
+            config.s_b, config.m_b)
+    account("fused", op)
+    return _gsr.gather_segment_reduce_cuda(
+        h.contiguous(), _index32(gather_idx), _index32(seg_idx), num_segments,
+        None if weight is None else weight.contiguous(), reduce, cf, cc,
+        config.s_b, config.m_b, config.n_b)
+
+
+def segment_softmax(x, idx, num_segments: int,
+                    config: Optional[KernelConfig] = None, plan=None,
+                    impl: Optional[str] = None):
+    """Softmax within sorted segments, (E,) or (E, H) logits, one launch."""
+    impl = resolve_impl(x, impl, ("cuda", "ref"))
+    if impl == "ref":
+        account("unfused", "segment_softmax:ref")
+        return _ssm.segment_softmax_ref(x, idx, num_segments)
+    feat = int(x.shape[1]) if x.dim() > 1 else 1
+    config = _resolve(plan, int(idx.shape[0]), num_segments, config, feat)
+    cf, cc = _metadata(plan, idx, num_segments, config)
+    account("fused", "segment_softmax")
+    return _ssm.segment_softmax_cuda(x.contiguous(), _index32(idx),
+                                     num_segments, cf, cc, config.s_b,
+                                     config.m_b)
+
+
+def fused_transform_reduce(h, w, gather_idx, seg_idx, num_segments: int,
+                           weight=None, reduce: str = "sum",
+                           config: Optional[KernelConfig] = None, plan=None,
+                           impl: Optional[str] = None):
+    """One-launch SpMM+GEMM: Y[s] = (reduce_{seg[i]==s} wt[i]·H[gidx[i]]) @ W
+    for reduce ∈ {sum, mean}; neither the (|E|, d) edge tensor nor the
+    (S, d_in) aggregate is materialized."""
+    if reduce not in ("sum", "mean"):
+        raise ValueError(f"unknown reduce: {reduce!r} "
+                         "(fused transform-reduce supports sum/mean)")
+    impl = resolve_impl(h, impl, ("cuda", "ref"))
+    op = ("fused_transform_reduce" if weight is None
+          else "fused_transform_reduce_weighted")
+    if weight is not None:
+        weight = weight.to(h.dtype)
+    if impl == "ref":
+        account("unfused", f"{op}:ref")
+        return _ftr.fused_transform_reduce_ref(h, w, gather_idx, seg_idx,
+                                               num_segments, weight, reduce)
+    config = _resolve(plan, int(seg_idx.shape[0]), num_segments, config,
+                      int(h.shape[1]))
+    cf, cc = _metadata(plan, seg_idx, num_segments, config)
+    account("fused", op)
+    return _ftr.fused_transform_reduce_cuda(
+        h.contiguous(), w.to(h.dtype).contiguous(), _index32(gather_idx),
+        _index32(seg_idx), num_segments,
+        None if weight is None else weight.contiguous(), reduce, cf, cc,
+        config)

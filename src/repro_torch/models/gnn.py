@@ -1,0 +1,204 @@
+"""Message-passing GNNs on the unified :mod:`repro_torch.core.mp` primitive
+(paper §V: GCN, GIN, GraphSAGE; plus multi-head GAT), as ``nn.Module``s.
+
+Graphs are tensors: ``edge_index`` (2, E) with ``edge_index[1]``
+(destinations) sorted non-decreasing. Every layer takes
+
+    layer(x, edge_index, num_nodes, deg_inv_sqrt=None, *, impl=None, plan=None)
+
+and routes its aggregation through ``mp`` / ``mp_transform``. Parameters
+keep the reference's ``(d_in, d_out)`` layout (``y = x @ w``), so weights
+carry across from the JAX package unchanged
+(:func:`repro_torch.models.params.from_jax_params`).
+
+Padded edges carry ``dst = num_nodes`` (the drop id); the per-node lookups
+of GCN and GAT clamp it to a real node, and the kernels drop those rows.
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence
+
+import torch
+from torch import nn
+
+from repro_torch.core import ops as geot
+from repro_torch.core.mp import mp, mp_transform
+
+__all__ = ["GCNLayer", "GINLayer", "SAGELayer", "GATLayer", "GNN", "MODELS",
+           "init", "forward", "make_model_plan"]
+
+# the homogeneous families every graph supports (the serving model space)
+MODELS = ("gcn", "gin", "sage", "gat")
+
+
+def _dense(d_in: int, d_out: int, generator, dtype):
+    std = 1.0 / math.sqrt(d_in)
+    return nn.Parameter(torch.randn(d_in, d_out, generator=generator,
+                                    dtype=dtype) * std)
+
+
+def _zeros(shape, dtype):
+    return nn.Parameter(torch.zeros(shape, dtype=dtype))
+
+
+def _node_ids(dst, num_nodes: int):
+    """Destinations as per-node lookup ids: drop-id edges clamp to a real
+    node (their values never reach an output)."""
+    return dst.clamp_max(max(num_nodes - 1, 0)).long()
+
+
+class GCNLayer(nn.Module):
+    """GCN: Y = D^{-1/2} A D^{-1/2} X W + b — a weighted sum with the
+    transform/aggregate order of ``mp_transform``."""
+
+    def __init__(self, d_in: int, d_out: int, *, generator=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.w = _dense(d_in, d_out, generator, dtype)
+        self.b = _zeros((d_out,), dtype)
+
+    def forward(self, x, edge_index, num_nodes: int, deg_inv_sqrt=None, *,
+                impl=None, plan=None):
+        if deg_inv_sqrt is None:
+            raise ValueError("GCNLayer needs deg_inv_sqrt")
+        src, dst = edge_index[0], edge_index[1]
+        w_e = (deg_inv_sqrt[src.long()]
+               * deg_inv_sqrt[_node_ids(dst, num_nodes)])
+        out = mp_transform(x, self.w, edge_index, num_nodes, reduce="sum",
+                           edge_weight=w_e, plan=plan, impl=impl)
+        return out + self.b
+
+
+class GINLayer(nn.Module):
+    """GIN: h' = MLP((1+ε)·h + Σ_neighbours h) — an unweighted sum; the MLP
+    is non-linear, so there is no reordering."""
+
+    def __init__(self, d_in: int, d_out: int, *, generator=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.mlp1 = _dense(d_in, d_out, generator, dtype)
+        self.mlp2 = _dense(d_out, d_out, generator, dtype)
+        self.b1 = _zeros((d_out,), dtype)
+        self.b2 = _zeros((d_out,), dtype)
+        self.eps = _zeros((), torch.float32)
+
+    def forward(self, x, edge_index, num_nodes: int, deg_inv_sqrt=None, *,
+                impl=None, plan=None):
+        agg = mp(x, edge_index, num_nodes, reduce="sum", plan=plan, impl=impl)
+        h = (1.0 + self.eps) * x + agg
+        h = torch.relu(h @ self.mlp1 + self.b1)
+        return h @ self.mlp2 + self.b2
+
+
+class SAGELayer(nn.Module):
+    """GraphSAGE (mean aggregator); the neighbour transform may reorder
+    (mean commutes with W)."""
+
+    def __init__(self, d_in: int, d_out: int, *, generator=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.w_self = _dense(d_in, d_out, generator, dtype)
+        self.w_neigh = _dense(d_in, d_out, generator, dtype)
+        self.b = _zeros((d_out,), dtype)
+
+    def forward(self, x, edge_index, num_nodes: int, deg_inv_sqrt=None, *,
+                impl=None, plan=None):
+        neigh = mp_transform(x, self.w_neigh, edge_index, num_nodes,
+                             reduce="mean", plan=plan, impl=impl)
+        return x @ self.w_self + neigh + self.b
+
+
+class GATLayer(nn.Module):
+    """Multi-head GAT: attention by one multi-head ``segment_softmax``
+    launch, then one α-weighted sum per head; head outputs are averaged,
+    so the output width is ``d_out`` for any number of heads."""
+
+    def __init__(self, d_in: int, d_out: int, *, heads: int = 1,
+                 generator=None, dtype=torch.float32):
+        super().__init__()
+        self.heads, self.d_out = heads, d_out
+        scale = 1.0 / math.sqrt(d_out)
+        self.w = _dense(d_in, heads * d_out, generator, dtype)
+        self.a_src = nn.Parameter(torch.randn(
+            heads, d_out, generator=generator, dtype=dtype) * scale)
+        self.a_dst = nn.Parameter(torch.randn(
+            heads, d_out, generator=generator, dtype=dtype) * scale)
+
+    def forward(self, x, edge_index, num_nodes: int, deg_inv_sqrt=None, *,
+                impl=None, plan=None):
+        src, dst = edge_index[0], edge_index[1]
+        h = x @ self.w                                       # (V, heads*d)
+        hh = h.reshape(h.shape[0], self.heads, self.d_out)
+        logit_src = torch.einsum("vhd,hd->vh", hh, self.a_src)
+        logit_dst = torch.einsum("vhd,hd->vh", hh, self.a_dst)
+        e = nn.functional.leaky_relu(
+            logit_src[src.long()] + logit_dst[_node_ids(dst, num_nodes)],
+            0.2)                                             # (E, heads)
+        alpha = geot.segment_softmax(e.contiguous(), dst, num_nodes, impl,
+                                     None, plan)
+        out = 0.0
+        for i in range(self.heads):
+            out = out + mp(hh[:, i, :].contiguous(), edge_index, num_nodes,
+                           reduce="sum", edge_weight=alpha[:, i].contiguous(),
+                           plan=plan, impl=impl)
+        return out / self.heads
+
+
+_LAYER = {"gcn": GCNLayer, "gin": GINLayer, "sage": SAGELayer,
+          "gat": GATLayer}
+
+
+class GNN(nn.Module):
+    """A stack of one family's layers with ReLU between them (paper §V-F:
+    node classification, 3 layers). ``dims`` = [d_in, hidden..., classes]."""
+
+    def __init__(self, family: str, dims: Sequence[int], *, heads: int = 1,
+                 generator=None, dtype=torch.float32):
+        super().__init__()
+        if family not in _LAYER:
+            raise ValueError(f"unknown model {family!r}; one of {MODELS}")
+        self.family = family
+        self.dims = [int(d) for d in dims]
+        kw = {"heads": heads} if family == "gat" else {}
+        self.layers = nn.ModuleList(
+            _LAYER[family](self.dims[i], self.dims[i + 1], generator=generator,
+                           dtype=dtype, **kw)
+            for i in range(len(self.dims) - 1))
+
+    def forward(self, x, edge_index, num_nodes: int, deg_inv_sqrt=None, *,
+                impl: Optional[str] = None, plan=None):
+        h = x
+        for i, layer in enumerate(self.layers):
+            h = layer(h, edge_index, num_nodes, deg_inv_sqrt, impl=impl,
+                      plan=plan)
+            if i < len(self.layers) - 1:
+                h = torch.relu(h)
+        return h
+
+
+def init(family: str, d_in: int, hidden: int, num_classes: int,
+         num_layers: int = 3, *, heads: int = 1, seed: int = 0,
+         device=None) -> GNN:
+    """A ``num_layers`` model with random weights drawn on the CPU from a
+    ``torch.Generator`` seeded with ``seed`` (the same weights on any
+    ``device``). ``heads`` > 1 builds multi-head attention layers (GAT)."""
+    generator = torch.Generator().manual_seed(seed)
+    dims: List[int] = [d_in] + [hidden] * (num_layers - 1) + [num_classes]
+    model = GNN(family, dims, heads=heads, generator=generator)
+    return model.to(device) if device is not None else model
+
+
+def forward(model: GNN, x, edge_index, num_nodes: int, deg_inv_sqrt=None,
+            impl: Optional[str] = None, plan=None):
+    """Logits (V, C) of ``model`` on one graph; ``plan`` is one
+    :class:`~repro_torch.core.plan.SegmentPlan` over the destinations,
+    reused by every layer."""
+    return model(x, edge_index, num_nodes, deg_inv_sqrt, impl=impl, plan=plan)
+
+
+def make_model_plan(edge_index, num_nodes: int, feat: int, config=None):
+    """One :class:`~repro_torch.core.plan.SegmentPlan` for every layer of a
+    model on this graph (``feat``: the widest layer width)."""
+    from repro_torch.core.plan import make_graph_plan
+    return make_graph_plan(edge_index, num_nodes, feat=feat, config=config)
