@@ -2,12 +2,16 @@
 NVIDIA H100 (Hopper, sm_90a).
 
 This package serves 3-layer GCN / GIN / GraphSAGE / multi-head GAT node
-classification in the forward pass. Three hand-written CUDA kernels carry
-it: ``gather_segment_reduce`` (every aggregation), ``segment_softmax``
-(GAT attention) and ``fused_transform_reduce`` (SpMM + GEMM in one launch).
-Each sits beside a plain PyTorch version of the same function; CPU tensors
-take the plain version, CUDA tensors the kernel (built with ``nvcc`` on
-first use).
+classification and runs relation-typed RGCN / RGAT inference, in the
+forward pass, and offers the library's public segment ops. Six
+hand-written CUDA kernels carry it: ``gather_segment_reduce`` (every
+aggregation), ``segment_softmax`` (attention), ``fused_transform_reduce``
+(SpMM + GEMM in one launch), ``segment_matmul`` (the per-relation
+transforms of a typed layer as one grouped launch), ``segment_reduce`` and
+``sddmm`` (the public ops). Each sits beside a plain PyTorch version of the
+same function; CPU tensors take the plain version, CUDA tensors the kernel
+(built with ``nvcc`` on first use). Plans and models are built on the card
+unless the caller passes ``device="cpu"``.
 
     import repro_torch as rt
 
@@ -16,27 +20,42 @@ first use).
     server.submit(rt.dataset("ogbn-arxiv"))
     (result,) = server.step(flush=True)
 
+    y = rt.segment_reduce(x, idx, num_segments, "mean")   # x, idx on the card
+
 The JAX package ``repro`` is the reference this port is tested against;
 this package imports neither it nor JAX.
 """
 from repro_torch.core.config_space import KernelConfig, default_config
-from repro_torch.core.mp import choose_order, mp, mp_transform
+from repro_torch.core.mp import choose_order, mp, mp_transform, mp_typed
 from repro_torch.core.ops import (
     fused_transform_reduce,
+    gather,
+    grouped_segment_matmul,
     index_segment_reduce,
     index_weight_segment_reduce,
+    sddmm,
+    segment_matmul,
+    segment_reduce,
     segment_softmax,
 )
-from repro_torch.core.plan import SegmentPlan, make_graph_plan, make_plan
+from repro_torch.core.plan import (
+    RelationPlan,
+    SegmentPlan,
+    make_graph_plan,
+    make_plan,
+    make_relation_plan,
+)
 from repro_torch.data.graphs import (
     Graph,
+    TypedGraph,
     batch_graphs,
     dataset,
     pad_graph,
     synth_graph,
+    synth_typed_graph,
 )
 from repro_torch.kernels.ops import launch_counts, reset_launch_counts
-from repro_torch.models.gnn import GNN, MODELS
+from repro_torch.models.gnn import GNN, MODELS, TYPED_MODELS
 from repro_torch.models.gnn import forward as gnn_forward
 from repro_torch.models.gnn import init as gnn_init
 from repro_torch.models.params import from_jax_params
@@ -44,17 +63,19 @@ from repro_torch.serve import GNNServer
 
 __all__ = [
     # graphs
-    "Graph", "synth_graph", "dataset", "batch_graphs", "pad_graph",
+    "Graph", "TypedGraph", "synth_graph", "synth_typed_graph", "dataset",
+    "batch_graphs", "pad_graph",
     # plans + config
-    "SegmentPlan", "make_plan", "make_graph_plan", "KernelConfig",
-    "default_config",
+    "SegmentPlan", "RelationPlan", "make_plan", "make_graph_plan",
+    "make_relation_plan", "KernelConfig", "default_config",
     # ops + message passing
-    "index_segment_reduce", "index_weight_segment_reduce",
+    "segment_reduce", "gather", "sddmm", "grouped_segment_matmul",
+    "segment_matmul", "index_segment_reduce", "index_weight_segment_reduce",
     "fused_transform_reduce", "segment_softmax", "mp", "mp_transform",
-    "choose_order",
+    "mp_typed", "choose_order",
     # kernel launch accounting
     "launch_counts", "reset_launch_counts",
     # models + serving
-    "GNN", "MODELS", "gnn_init", "gnn_forward", "from_jax_params",
+    "GNN", "MODELS", "TYPED_MODELS", "gnn_init", "gnn_forward", "from_jax_params",
     "GNNServer",
 ]

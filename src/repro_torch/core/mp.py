@@ -18,6 +18,10 @@
   transform-first. Reordering is valid only for linear reduces (sum / mean
   commute with ``W``); ``max`` pins transform-first.
 
+* :func:`mp_typed` — relation-typed message passing: the per-relation
+  transforms of every edge as one grouped ``segment_matmul`` launch, then
+  one gather-reduce whose gather operand is the inverse type permutation.
+
 ``reduce="max"`` fills empty-neighbourhood rows with 0 (exactly the rows
 the kernel reports as ``-inf``) rather than the segment-max identity.
 """
@@ -32,7 +36,8 @@ from repro_torch.core.config_space import KernelConfig, default_config
 from repro_torch.kernels.fused_transform_reduce import fusable
 from repro_torch.kernels.ops import resolve_impl
 
-__all__ = ["mp", "mp_transform", "choose_order", "resolve_order"]
+__all__ = ["mp", "mp_transform", "mp_typed", "type_permutation",
+           "choose_order", "resolve_order"]
 
 _LINEAR_REDUCES = ("sum", "mean")
 _ORDERS = ("auto", "aggregate_first", "transform_first", "fused")
@@ -74,6 +79,12 @@ def resolve_order(reduce: str, order: str, d_in: int, d_out: int, *,
     return order
 
 
+def _drop_empty_max(y):
+    """Replace exactly -inf (empty neighbourhoods of a max), so a
+    legitimate +inf/NaN aggregate still surfaces downstream."""
+    return torch.where(y == float("-inf"), torch.zeros_like(y), y)
+
+
 def mp(x, edge_index, num_nodes: int, *, reduce: str = "sum",
        edge_weight=None, plan=None, impl: Optional[str] = None,
        config: Optional[KernelConfig] = None):
@@ -91,11 +102,7 @@ def mp(x, edge_index, num_nodes: int, *, reduce: str = "sum",
         y = geot.index_weight_segment_reduce(x, src, edge_weight, dst,
                                              num_nodes, reduce, impl, config,
                                              plan)
-    if reduce == "max":
-        # replace exactly -inf (empty neighbourhoods), so a legitimate
-        # +inf/NaN aggregate still surfaces downstream
-        y = torch.where(y == float("-inf"), torch.zeros_like(y), y)
-    return y
+    return _drop_empty_max(y) if reduce == "max" else y
 
 
 def mp_transform(x, w, edge_index, num_nodes: int, *, reduce: str = "sum",
@@ -121,3 +128,56 @@ def mp_transform(x, w, edge_index, num_nodes: int, *, reduce: str = "sum",
         return agg @ w
     return mp(x @ w, edge_index, num_nodes, reduce=reduce,
               edge_weight=edge_weight, plan=plan, impl=impl, config=config)
+
+
+def type_permutation(edge_type, num_types: int, type_perm=None,
+                     inv_type_perm=None, type_counts=None):
+    """The (type_perm, inv_type_perm, type_counts) triple of dst-aligned
+    ``edge_type``, each computed here only when not given: a stable argsort
+    (rows in (type, dst) order), its inverse, and rows per relation."""
+    if type_perm is None:
+        type_perm = torch.argsort(edge_type, stable=True)
+    if type_counts is None:
+        type_counts = torch.bincount(edge_type.long(), minlength=num_types)
+    if inv_type_perm is None:
+        inv_type_perm = torch.empty_like(type_perm)
+        inv_type_perm[type_perm] = torch.arange(
+            type_perm.shape[0], dtype=type_perm.dtype,
+            device=type_perm.device)
+    return type_perm, inv_type_perm, type_counts
+
+
+def mp_typed(x, w, edge_index, edge_type, num_nodes: int, *,
+             type_perm=None, inv_type_perm=None, type_counts=None,
+             reduce: str = "sum", edge_weight=None, plan=None, rplan=None,
+             impl: Optional[str] = None,
+             config: Optional[KernelConfig] = None):
+    """Heterogeneous message passing:
+
+        Y[d] = reduce_{(s,d,r) ∈ E} (w_e ·) X[s] @ W[r]
+
+    ``edge_index`` (2, E) destination-sorted; ``edge_type`` (E,) aligned
+    with it; ``w`` (R, d_in, d_out). The sources are gathered in (type, dst)
+    order, so each relation's rows are contiguous, and transformed by ONE
+    grouped ``segment_matmul`` launch; the reduce then gathers those rows
+    back through ``inv_type_perm``, so the un-permute costs no launch.
+
+    The permutation triple comes precomputed from a
+    :class:`~repro_torch.data.graphs.TypedGraph` or is derived here.
+    ``plan``: SegmentPlan over the destinations; ``rplan``: RelationPlan
+    over the type groups."""
+    if reduce not in ("sum", "mean", "max"):
+        raise ValueError(f"unknown reduce: {reduce!r}")
+    src, dst = edge_index[0], edge_index[1]
+    type_perm, inv_type_perm, type_counts = type_permutation(
+        edge_type, int(w.shape[0]), type_perm, inv_type_perm, type_counts)
+    msg = geot.gather(x, src.index_select(0, type_perm))
+    msg = geot.grouped_segment_matmul(msg, type_counts, w, impl, None, rplan)
+    if edge_weight is None:
+        y = geot.index_segment_reduce(msg, inv_type_perm, dst, num_nodes,
+                                      reduce, impl, config, plan)
+    else:
+        y = geot.index_weight_segment_reduce(msg, inv_type_perm, edge_weight,
+                                             dst, num_nodes, reduce, impl,
+                                             config, plan)
+    return _drop_empty_max(y) if reduce == "max" else y

@@ -51,13 +51,15 @@ class Graph:
     def num_graphs(self) -> int:
         return 1 if self.node_ptr is None else len(self.node_ptr) - 1
 
-    def make_plan(self, feat: Optional[int] = None, config=None):
+    def make_plan(self, feat: Optional[int] = None, config=None,
+                  device=None):
         """The reduction schedule for this graph (see
-        :mod:`repro_torch.core.plan`), on the CPU."""
+        :mod:`repro_torch.core.plan`), on ``device`` (``None``: the card;
+        ``"cpu"`` for the plain versions)."""
         from repro_torch.core.plan import make_graph_plan
         feat = self.x.shape[1] if feat is None else feat
         return make_graph_plan(self.edge_index, self.num_nodes, feat=feat,
-                               config=config)
+                               config=config, device=device)
 
 
 def synth_graph(name: str, num_nodes: int, num_edges: int, feat: int = 32,
@@ -86,6 +88,100 @@ def synth_graph(name: str, num_nodes: int, num_edges: int, feat: int = 32,
         labels=rng.integers(0, num_classes, num_nodes, dtype=np.int32),
         deg_inv_sqrt=(1.0 / np.sqrt(np.maximum(deg, 1.0))).astype(np.float32),
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class TypedGraph(Graph):
+    """A :class:`Graph` whose edges carry relation types (RGCN, relational
+    GAT).
+
+    ``edge_index`` stays destination-sorted and ``edge_type`` is aligned
+    with those edges. The grouped ``segment_matmul`` needs each relation's
+    rows contiguous instead, so construction precomputes the reconciling
+    permutation triple once:
+
+      * ``type_perm`` — stable argsort of ``edge_type``: edges in (type,
+        dst) order, each relation one contiguous group;
+      * ``inv_type_perm`` — its inverse, the reduce's gather operand in
+        :func:`repro_torch.core.mp.mp_typed`;
+      * ``type_counts`` — rows per relation (zeros for unused relations).
+
+    Construction validates the layout and round-trips the permutation, so
+    a malformed typed graph fails at build time."""
+    edge_type: Optional[np.ndarray] = None       # (E,) int32, dst-aligned
+    num_relations: int = 1
+    type_perm: Optional[np.ndarray] = None       # derived; see __post_init__
+    inv_type_perm: Optional[np.ndarray] = None
+    type_counts: Optional[np.ndarray] = None
+
+    def __post_init__(self):
+        if self.edge_type is None:
+            raise ValueError("TypedGraph requires edge_type")
+        et = np.asarray(self.edge_type, np.int32)
+        if et.shape != (self.num_edges,):
+            raise ValueError(
+                f"edge_type shape {et.shape} != (num_edges={self.num_edges},)")
+        if et.size and (et.min() < 0 or et.max() >= self.num_relations):
+            raise ValueError(
+                f"edge_type ids must lie in [0, {self.num_relations}); "
+                f"got range [{et.min()}, {et.max()}]")
+        if np.any(np.diff(self.edge_index[1]) < 0):
+            raise ValueError("edge_index[1] (destinations) must be sorted "
+                             "non-decreasing")
+        object.__setattr__(self, "edge_type", et)
+        if self.type_perm is None:
+            perm = np.argsort(et, kind="stable").astype(np.int32)
+            inv = np.empty_like(perm)
+            inv[perm] = np.arange(perm.size, dtype=np.int32)
+            counts = np.bincount(et, minlength=self.num_relations)
+            object.__setattr__(self, "type_perm", perm)
+            object.__setattr__(self, "inv_type_perm", inv)
+            object.__setattr__(self, "type_counts", counts.astype(np.int32))
+        perm, inv, counts = self.type_perm, self.inv_type_perm, self.type_counts
+        if not np.array_equal(perm[inv], np.arange(perm.size)):
+            raise ValueError("type_perm/inv_type_perm do not round-trip")
+        if np.any(np.diff(et[perm]) < 0):
+            raise ValueError("type_perm does not sort edge_type")
+        if int(counts.sum()) != et.size or not np.array_equal(
+                counts, np.bincount(et, minlength=self.num_relations)):
+            raise ValueError("type_counts disagree with edge_type")
+
+    @property
+    def typed_src(self) -> np.ndarray:
+        """Source ids in (type, dst) order — the grouped matmul's gather."""
+        return self.edge_index[0][self.type_perm]
+
+    def make_relation_plan(self, feat: Optional[int] = None, config=None,
+                           device=None):
+        """The grouped-matmul schedule over the relation groups (see
+        :func:`repro_torch.core.plan.make_relation_plan`), on ``device``."""
+        from repro_torch.core.plan import make_relation_plan
+        feat = self.x.shape[1] if feat is None else feat
+        return make_relation_plan(self.type_counts, num_rows=self.num_edges,
+                                  feat=feat, config=config, device=device)
+
+
+def synth_typed_graph(name: str, num_nodes: int, num_edges: int,
+                      num_relations: int = 4, feat: int = 32,
+                      num_classes: int = 16, alpha: float = 1.3,
+                      type_alpha: float = 1.2, seed: int = 0) -> TypedGraph:
+    """A :func:`synth_graph` whose edges also carry zipf-skewed relation ids
+    (``type_alpha`` sets the skew: large values leave most relations
+    nearly empty)."""
+    g = synth_graph(name, num_nodes, num_edges, feat=feat,
+                    num_classes=num_classes, alpha=alpha, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    if num_edges > 0:
+        w = np.minimum(rng.zipf(type_alpha, size=num_relations)
+                       .astype(np.float64), max(num_edges / 2.0, 1.0))
+        et = rng.choice(num_relations, size=num_edges,
+                        p=w / w.sum()).astype(np.int32)
+    else:
+        et = np.zeros(0, np.int32)
+    return TypedGraph(
+        name=g.name, edge_index=g.edge_index, num_nodes=g.num_nodes,
+        x=g.x, labels=g.labels, deg_inv_sqrt=g.deg_inv_sqrt,
+        edge_type=et, num_relations=num_relations)
 
 
 def pad_graph(g: Graph, num_nodes: int, num_edges: int) -> Graph:

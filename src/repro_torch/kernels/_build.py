@@ -25,7 +25,8 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).parent / "csrc"
-KERNELS = ("gather_segment_reduce", "segment_softmax", "fused_transform_reduce")
+KERNELS = ("gather_segment_reduce", "segment_softmax", "fused_transform_reduce",
+           "segment_reduce", "sddmm", "segment_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -52,6 +53,21 @@ SIGNATURES = {
         # num_rows, d_in, d_out, num_segments, s_b, m_b, out_blocks, stream
         "ftr_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                        _L, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "segment_reduce": {
+        # dtype, reduce, x, seg, cf, cc, out, num_rows, feat, num_segments,
+        # s_b, m_b, out_blocks, n_b, stream
+        "srd_launch": [_I, _I, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I,
+                       _P],
+    },
+    "sddmm": {
+        # dtype, a, b, row, col, out, m, n, stream
+        "sddmm_launch": [_I, _P, _P, _P, _P, _P, _L, _I, _P],
+    },
+    "segment_matmul": {
+        # dtype, x, w, offsets, first_group, group_count, out, num_rows,
+        # k_dim, n_dim, num_groups, m_b, m_blocks, stream
+        "smm_launch": [_I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
     },
 }
 

@@ -21,9 +21,10 @@
 // written out at each segment boundary (the SR walk). Rows of a foreign
 // segment are skipped and the walk stops at the first row past the window,
 // so no atomics are needed and the result does not depend on scheduling.
-// Loads are issued U rows at a time so each thread keeps U gathers in
-// flight; the threads of a warp read neighbouring columns of one H row, so
-// every gather is coalesced. A "PR" schedule request runs this same walk:
+// The walk is common.cuh's window_walk, shared with segment_reduce.cu; it
+// keeps 4 gathers in flight a thread. The
+// threads of a warp read neighbouring columns of one H row, so every gather
+// is coalesced. A "PR" schedule request runs this same walk:
 // a one-hot matmul has no use on the CUDA cores.
 //
 // Semantics kept from the reference: mean divides by max(count, 1); an
@@ -31,11 +32,7 @@
 // count. The weight stays in the io dtype and the multiply is done in fp32.
 #include "common.cuh"
 
-#include <limits.h>
-
 namespace {
-
-constexpr int U = 4;  // rows whose loads are in flight together
 
 template <typename T, int RED, bool WEIGHTED>
 __global__ void gsr_kernel(const T* __restrict__ h, const int* __restrict__ gidx,
@@ -50,55 +47,14 @@ __global__ void gsr_kernel(const T* __restrict__ h, const int* __restrict__ gidx
   const int hi = min(lo + s_b, num_segments);
   int64_t r0, r1;
   block_rows(cf, cc, b, m_b, num_rows, &r0, &r1);
-  const float empty = RED == RED_MAX ? -CUDART_INF_F : 0.f;
-
-  int next = lo;   // first output row of the window not written yet
-  int open = -1;   // segment of the running value, -1 while none is open
-  float acc = 0.f;
-  int cnt = 0;
-
-  auto flush = [&]() {
-    for (; next < open; ++next) out[(int64_t)next * feat + f] = from_f<T>(empty);
-    const float v = RED == RED_MEAN ? acc / (float)max(cnt, 1) : acc;
-    out[(int64_t)open * feat + f] = from_f<T>(v);
-    next = open + 1;
-  };
-
-  bool done = false;
-  for (int64_t i = r0; i < r1 && !done; i += U) {
-    int s[U];
-    float v[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) s[u] = (i + u < r1) ? seg[i + u] : INT_MAX;
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      v[u] = 0.f;
-      if (s[u] >= lo && s[u] < hi) {
-        float x = to_f(h[(int64_t)gidx[i + u] * feat + f]);
-        if (WEIGHTED) x *= to_f(w[i + u]);
-        v[u] = x;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (s[u] < lo) continue;
-      if (s[u] >= hi) {  // sorted: every later row is past the window
-        done = true;
-        break;
-      }
-      if (s[u] != open) {
-        if (open >= 0) flush();
-        open = s[u];
-        acc = v[u];
-        cnt = 1;
-      } else {
-        acc = RED == RED_MAX ? max_nan(acc, v[u]) : acc + v[u];
-        ++cnt;
-      }
-    }
-  }
-  if (open >= 0) flush();
-  for (; next < hi; ++next) out[(int64_t)next * feat + f] = from_f<T>(empty);
+  window_walk<RED>(
+      seg, r0, r1, lo, hi,
+      [&](int64_t i) {
+        float x = to_f(h[(int64_t)gidx[i] * feat + f]);
+        if (WEIGHTED) x *= to_f(w[i]);
+        return x;
+      },
+      [&](int s, float v) { out[(int64_t)s * feat + f] = from_f<T>(v); });
 }
 
 template <typename T, int RED, bool WEIGHTED>

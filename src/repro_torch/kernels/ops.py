@@ -14,6 +14,8 @@ There is no fallback: a CUDA tensor reaches the kernel or the call raises.
 
 Config precedence: ``plan`` > explicit ``config=`` > the Hopper default.
 A plan's tiling is authoritative; an explicit config must agree with it.
+A plan's metadata must lie on the data's device: no call copies it (build
+plans with ``device=``, or move one once with ``plan.to``).
 
 Accounting: each kernel module keeps a plain-int launch counter
 (:func:`launch_counts`, :func:`reset_launch_counts`), bumped only where
@@ -34,13 +36,19 @@ import torch
 from repro_torch.core.config_space import KernelConfig, default_config
 from repro_torch.kernels import fused_transform_reduce as _ftr
 from repro_torch.kernels import gather_segment_reduce as _gsr
+from repro_torch.kernels import sddmm as _sdd
+from repro_torch.kernels import segment_matmul as _smm
+from repro_torch.kernels import segment_reduce as _srd
 from repro_torch.kernels import segment_softmax as _ssm
 from repro_torch.kernels.segment_reduce import _resolve_plan, _round_up, chunk_metadata
 
 IMPLS = ("cuda", "ref", "blocked")
 _KERNEL_MODULES = {"gather_segment_reduce": _gsr,
                    "segment_softmax": _ssm,
-                   "fused_transform_reduce": _ftr}
+                   "fused_transform_reduce": _ftr,
+                   "segment_reduce": _srd,
+                   "sddmm": _sdd,
+                   "segment_matmul": _smm}
 
 
 def resolve_impl(t: torch.Tensor, impl: Optional[str],
@@ -125,11 +133,21 @@ def _resolve(plan, num_rows: int, num_segments: int,
     return config if config is not None else default_config(feat)
 
 
+def _on_device(plan, t) -> None:
+    """Refuse a plan whose metadata lies elsewhere than the data: copying
+    it would cost a host-to-device transfer on every launch."""
+    if plan.device != t.device:
+        raise ValueError(
+            f"{type(plan).__name__} metadata lies on {plan.device}, the data "
+            f"on {t.device}; build the plan with device={str(t.device)!r} "
+            "or move it once with plan.to(...)")
+
+
 def _metadata(plan, seg_idx, num_segments: int, config: KernelConfig):
     """(chunk_first, chunk_count) on seg_idx's device: the plan's, or
     computed on the device from the padded index (no host round trip)."""
     if plan is not None:
-        plan = plan.to(seg_idx.device)
+        _on_device(plan, seg_idx)
         return plan.chunk_first, plan.chunk_count
     m = int(seg_idx.shape[0])
     m_pad = _round_up(max(m, 1), config.m_b)
@@ -227,3 +245,80 @@ def fused_transform_reduce(h, w, gather_idx, seg_idx, num_segments: int,
         _index32(seg_idx), num_segments,
         None if weight is None else weight.contiguous(), reduce, cf, cc,
         config)
+
+
+def segment_reduce(x, idx, num_segments: int, reduce: str = "sum",
+                   config: Optional[KernelConfig] = None, plan=None,
+                   impl: Optional[str] = None):
+    """Y[s] = reduce_{idx[i]==s} X[i], one launch for reduce ∈ {sum, mean,
+    max} (the mean's count lives in the kernel). ``idx`` must be sorted
+    non-decreasing."""
+    if reduce not in _gsr.REDUCES:
+        raise ValueError(f"unknown reduce: {reduce!r}")
+    impl = resolve_impl(x, impl, ("cuda", "ref"))
+    op = f"segment_reduce_{reduce}"
+    if impl == "ref":
+        account("unfused", f"{op}:ref")
+        return _srd.segment_reduce_ref(x, idx, num_segments, reduce)
+    config = _resolve(plan, int(idx.shape[0]), num_segments, config,
+                      int(x.shape[1]))
+    cf, cc = _metadata(plan, idx, num_segments, config)
+    account("fused", op)
+    return _srd.segment_reduce_cuda(x.contiguous(), _index32(idx),
+                                    num_segments, reduce, cf, cc, config.s_b,
+                                    config.m_b, config.n_b)
+
+
+def sddmm(a, b, row_idx, col_idx, impl: Optional[str] = None):
+    """out[i] = <A[row_idx[i]], B[col_idx[i]]>, one launch; fp32 products,
+    output in ``a.dtype``. An index out of range raises before the launch."""
+    impl = resolve_impl(a, impl, ("cuda", "ref"))
+    if impl == "ref":
+        account("unfused", "sddmm:ref")
+        return _sdd.sddmm_ref(a, b, row_idx, col_idx)
+    account("fused", "sddmm")
+    return _sdd.sddmm_cuda(a.contiguous(), b.contiguous(), _index32(row_idx),
+                           _index32(col_idx))
+
+
+def segment_matmul(x, group_sizes, w, config: Optional[KernelConfig] = None,
+                   plan=None, impl: Optional[str] = None):
+    """Grouped GEMM over contiguous row groups, one launch for every
+    relation: out[rows of g] = X[rows of g] @ W[g]; rows past
+    ``sum(group_sizes)`` are 0.
+
+    ``plan`` may be a :class:`~repro_torch.core.plan.RelationPlan`: its
+    ``offsets`` / ``first_group`` / ``group_count`` feed the kernel (no
+    per-call search) and its config wins; an explicit config must agree on
+    (m_b, n_b). A :class:`~repro_torch.core.plan.SegmentPlan` contributes
+    its config only. Without a RelationPlan the metadata is computed on
+    the device from ``group_sizes``."""
+    impl = resolve_impl(x, impl, ("cuda", "ref"))
+    if impl == "ref":
+        account("unfused", "segment_matmul:ref")
+        return _smm.segment_matmul_ref(x, group_sizes, w)
+    num_rows, num_groups = int(x.shape[0]), int(w.shape[0])
+    if plan is not None and hasattr(plan, "first_group"):
+        plan.validate(num_rows, num_groups)
+        if config is None:
+            config = plan.config
+        elif (config.m_b, config.n_b) != (plan.config.m_b, plan.config.n_b):
+            raise ValueError(
+                f"explicit config (m_b={config.m_b}, n_b={config.n_b}) "
+                f"conflicts with RelationPlan tiling "
+                f"(m_b={plan.config.m_b}, n_b={plan.config.n_b})")
+        _on_device(plan, x)
+        meta = (plan.offsets, plan.first_group, plan.group_count)
+    else:
+        if config is None and plan is not None:
+            config = plan.config
+        config = config or default_config(int(w.shape[-1]))
+        sizes = torch.as_tensor(group_sizes, device=x.device)
+        if sizes.shape != (num_groups,):
+            raise ValueError(f"group_sizes must be ({num_groups},), got "
+                             f"{tuple(sizes.shape)}")
+        meta = _smm.group_metadata(sizes, num_rows, config.m_b)
+    account("fused", "segment_matmul")
+    return _smm.segment_matmul_cuda(x.contiguous(),
+                                    w.to(x.dtype).contiguous(), *meta,
+                                    config.m_b)

@@ -1,4 +1,17 @@
-"""Chunk metadata shared by every segment kernel of the port.
+"""Segment reduction (paper Fig. 2) and the chunk metadata shared by every
+segment kernel of the port:
+
+    Y[s] = reduce_{i: idx[i]==s} X[i]      reduce ∈ {sum, mean, max}
+
+  * :func:`segment_reduce_cuda` — the hand-written Hopper kernel
+    (``csrc/segment_reduce.cu``). Replaces the TPU kernel
+    ``repro/kernels/segment_reduce.py:segment_reduce_pallas``.
+  * :func:`segment_reduce_ref` — the plain PyTorch version.
+
+Semantics of both: ``idx`` sorted non-decreasing; fp32 accumulation,
+output in the io dtype of ``X``; an empty segment is ``-inf`` for max and 0
+otherwise; mean is the sum over ``max(count, 1)``; rows with
+``idx >= num_segments`` are dropped.
 
 Each output block ``b`` owns segment ids ``[b·S_b, (b+1)·S_b)``. Because
 the segment index is sorted, the rows feeding block ``b`` form one
@@ -6,9 +19,6 @@ contiguous range; ``chunk_metadata`` maps ``b`` to the range of ``M_b``-row
 chunks that covers it. Chunks shared with a neighbouring block are read by
 both, and each block skips the rows outside its window, so no atomics are
 needed.
-
-The standalone segment-reduce kernel itself is not ported yet (see
-ROADMAP Queue B); only the helpers every ported kernel consumes live here.
 """
 from __future__ import annotations
 
@@ -17,6 +27,12 @@ from typing import Optional
 import torch
 
 from repro_torch.core.config_space import KernelConfig
+from repro_torch.kernels import _build
+from repro_torch.kernels.gather_segment_reduce import (DTYPE_CODE, REDUCES,
+                                                       _REDUCE_CODE,
+                                                       _reduce_rows)
+
+launches = 0    # launches of the CUDA kernel in this process
 
 
 def chunk_metadata(idx, num_segments: int, s_b: int, m_b: int, m_pad: int):
@@ -64,3 +80,51 @@ def _resolve_plan(plan, num_rows: int, num_segments: int,
     if max_chunks is None:
         max_chunks = plan.max_chunks
     return config, max_chunks
+
+
+def segment_reduce_ref(x, idx, num_segments: int, reduce: str = "sum"):
+    """The plain version (``index_add_`` / ``scatter_reduce_`` in fp32);
+    dropped rows land in a guard row that is sliced away."""
+    seg = idx.long().clamp_max(num_segments)
+    out = _reduce_rows(x.float(), seg, num_segments + 1, reduce)
+    return out[:num_segments].to(x.dtype)
+
+
+def segment_reduce_cuda(x, idx, num_segments: int, reduce: str, chunk_first,
+                        chunk_count, s_b: int, m_b: int, n_b: int = 256):
+    """Launch the Hopper kernel on the current stream (asynchronous).
+    ``chunk_first`` / ``chunk_count`` are the plan metadata on x's device;
+    ``n_b`` caps the threads (feature columns) of one block."""
+    global launches
+    if reduce not in REDUCES:
+        raise ValueError(f"unknown reduce: {reduce!r}")
+    if not x.is_cuda:
+        raise ValueError(f"segment_reduce: impl='cuda' needs CUDA tensors, "
+                         f"got x on {x.device}")
+    if x.dtype not in DTYPE_CODE:
+        raise TypeError(f"segment_reduce: io dtype must be float32 or "
+                        f"bfloat16, got {x.dtype}")
+    if x.dim() != 2 or not x.is_contiguous():
+        raise ValueError("segment_reduce: x must be a contiguous 2-D tensor")
+    num_rows, feat = (int(d) for d in x.shape)
+    out_blocks = (num_segments + s_b - 1) // s_b
+    for label, t, n in (("idx", idx, num_rows),
+                        ("chunk_first", chunk_first, out_blocks),
+                        ("chunk_count", chunk_count, out_blocks)):
+        if (t.device != x.device or t.dtype != torch.int32
+                or t.shape != (n,) or not t.is_contiguous()):
+            raise ValueError(f"segment_reduce: {label} must be a contiguous "
+                             f"({n},) int32 tensor on {x.device}")
+    out = torch.empty((num_segments, feat), dtype=x.dtype, device=x.device)
+    if num_segments == 0 or feat == 0:
+        return out
+    lib = _build.load("segment_reduce")
+    with torch.cuda.device(x.device):
+        err = lib.srd_launch(
+            DTYPE_CODE[x.dtype], _REDUCE_CODE[reduce], _build.ptr(x),
+            _build.ptr(idx), _build.ptr(chunk_first), _build.ptr(chunk_count),
+            _build.ptr(out), num_rows, feat, num_segments, s_b, m_b,
+            out_blocks, n_b, _build.stream_of(x))
+    _build.check(err, "segment_reduce")
+    launches += 1
+    return out

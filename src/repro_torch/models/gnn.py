@@ -1,5 +1,6 @@
 """Message-passing GNNs on the unified :mod:`repro_torch.core.mp` primitive
-(paper §V: GCN, GIN, GraphSAGE; plus multi-head GAT), as ``nn.Module``s.
+(paper §V: GCN, GIN, GraphSAGE; plus multi-head GAT; and the relation-typed
+RGCN and relational GAT), as ``nn.Module``s.
 
 Graphs are tensors: ``edge_index`` (2, E) with ``edge_index[1]``
 (destinations) sorted non-decreasing. Every layer takes
@@ -13,6 +14,12 @@ carry across from the JAX package unchanged
 
 Padded edges carry ``dst = num_nodes`` (the drop id); the per-node lookups
 of GCN and GAT clamp it to a real node, and the kernels drop those rows.
+
+The typed families (``TYPED_MODELS``) also take ``edge_type`` and, from a
+:class:`~repro_torch.data.graphs.TypedGraph`, the permutation triple
+``type_perm`` / ``inv_type_perm`` / ``type_counts`` and an ``rplan``
+(:class:`~repro_torch.core.plan.RelationPlan`); each of their layers runs
+its per-relation transforms as one grouped ``segment_matmul`` launch.
 """
 from __future__ import annotations
 
@@ -23,13 +30,17 @@ import torch
 from torch import nn
 
 from repro_torch.core import ops as geot
-from repro_torch.core.mp import mp, mp_transform
+from repro_torch.core.device import resolve_device
+from repro_torch.core.mp import mp, mp_transform, mp_typed, type_permutation
 
-__all__ = ["GCNLayer", "GINLayer", "SAGELayer", "GATLayer", "GNN", "MODELS",
-           "init", "forward", "make_model_plan"]
+__all__ = ["GCNLayer", "GINLayer", "SAGELayer", "GATLayer", "RGCNLayer",
+           "RGATLayer", "GNN", "MODELS", "TYPED_MODELS", "init", "forward",
+           "make_model_plan"]
 
-# the homogeneous families every graph supports (the serving model space)
+# the homogeneous families every graph supports (the serving model space);
+# relation-typed families need a TypedGraph and are listed apart
 MODELS = ("gcn", "gin", "sage", "gat")
+TYPED_MODELS = ("rgcn", "rgat")
 
 
 def _dense(d_in: int, d_out: int, generator, dtype):
@@ -145,8 +156,97 @@ class GATLayer(nn.Module):
         return out / self.heads
 
 
+def _require_typed(name: str, edge_type) -> None:
+    if edge_type is None:
+        raise ValueError(f"{name} needs edge_type (a relation-typed graph; "
+                         "see repro_torch.data.graphs.TypedGraph)")
+
+
+class RGCNLayer(nn.Module):
+    """RGCN: h' = h·W_self + mean_{(s,d,r)} h_s·W_r + b — the mean over all
+    incoming typed messages (the reference's single-normalizer form of
+    Schlichtkrull's per-relation 1/c_{i,r}): one grouped matmul and one
+    mean reduce per layer."""
+
+    def __init__(self, d_in: int, d_out: int, *, num_relations: int = 4,
+                 generator=None, dtype=torch.float32):
+        super().__init__()
+        self.w_rel = nn.Parameter(torch.randn(
+            num_relations, d_in, d_out, generator=generator, dtype=dtype)
+            / math.sqrt(d_in))
+        self.w_self = _dense(d_in, d_out, generator, dtype)
+        self.b = _zeros((d_out,), dtype)
+
+    def forward(self, x, edge_index, num_nodes: int, deg_inv_sqrt=None, *,
+                impl=None, plan=None, edge_type=None, type_perm=None,
+                inv_type_perm=None, type_counts=None, rplan=None):
+        _require_typed("RGCNLayer", edge_type)
+        agg = mp_typed(x, self.w_rel, edge_index, edge_type, num_nodes,
+                       type_perm=type_perm, inv_type_perm=inv_type_perm,
+                       type_counts=type_counts, reduce="mean", plan=plan,
+                       rplan=rplan, impl=impl)
+        return x @ self.w_self + agg + self.b
+
+
+class RGATLayer(nn.Module):
+    """Relational multi-head GAT (the reference's one-launch variant):
+
+        e = LeakyReLU( a_src[r]·(h_s W_r) + a_dst[r]·h_d )
+
+    scores the transformed source against the relation's view of the raw
+    destination, so only sources need the per-relation transform: one
+    grouped ``segment_matmul`` launch per layer. The softmax normalizes over
+    each destination's incoming edges (all relations together) in one
+    multi-head launch; the α-weighted sums gather the type-ordered messages
+    through ``inv_type_perm``. Head outputs are averaged."""
+
+    def __init__(self, d_in: int, d_out: int, *, heads: int = 1,
+                 num_relations: int = 4, generator=None, dtype=torch.float32):
+        super().__init__()
+        self.heads, self.d_out = heads, d_out
+        self.w_rel = nn.Parameter(torch.randn(
+            num_relations, d_in, heads * d_out, generator=generator,
+            dtype=dtype) / math.sqrt(d_in))
+        self.a_src = nn.Parameter(torch.randn(
+            num_relations, heads, d_out, generator=generator, dtype=dtype)
+            / math.sqrt(d_out))
+        self.a_dst = nn.Parameter(torch.randn(
+            num_relations, heads, d_in, generator=generator, dtype=dtype)
+            / math.sqrt(d_in))
+
+    def forward(self, x, edge_index, num_nodes: int, deg_inv_sqrt=None, *,
+                impl=None, plan=None, edge_type=None, type_perm=None,
+                inv_type_perm=None, type_counts=None, rplan=None):
+        _require_typed("RGATLayer", edge_type)
+        src, dst = edge_index[0], edge_index[1]
+        type_perm, inv_type_perm, type_counts = type_permutation(
+            edge_type, int(self.w_rel.shape[0]), type_perm, inv_type_perm,
+            type_counts)
+        et_t = edge_type.index_select(0, type_perm).long()  # per typed row
+        # transformed sources in (type, dst) order: the layer's ONE grouped
+        # launch
+        msg = geot.grouped_segment_matmul(
+            geot.gather(x, src.index_select(0, type_perm)), type_counts,
+            self.w_rel, impl, None, rplan)
+        msg_h = msg.reshape(msg.shape[0], self.heads, self.d_out)
+        logit_src = torch.einsum("ehd,ehd->eh", msg_h, self.a_src[et_t])
+        logit_dst = torch.einsum(
+            "ek,ehk->eh", geot.gather(x, dst.index_select(0, type_perm)),
+            self.a_dst[et_t])
+        e_t = nn.functional.leaky_relu(logit_src + logit_dst, 0.2)
+        e = e_t.index_select(0, inv_type_perm)     # back to dst order
+        alpha = geot.segment_softmax(e, dst, num_nodes, impl, None, plan)
+        out = 0.0
+        for i in range(self.heads):
+            out = out + geot.index_weight_segment_reduce(
+                msg_h[:, i, :].contiguous(), inv_type_perm,
+                alpha[:, i].contiguous(), dst, num_nodes, "sum", impl, None,
+                plan)
+        return out / self.heads
+
+
 _LAYER = {"gcn": GCNLayer, "gin": GINLayer, "sage": SAGELayer,
-          "gat": GATLayer}
+          "gat": GATLayer, "rgcn": RGCNLayer, "rgat": RGATLayer}
 
 
 class GNN(nn.Module):
@@ -154,51 +254,74 @@ class GNN(nn.Module):
     node classification, 3 layers). ``dims`` = [d_in, hidden..., classes]."""
 
     def __init__(self, family: str, dims: Sequence[int], *, heads: int = 1,
-                 generator=None, dtype=torch.float32):
+                 num_relations: int = 4, generator=None,
+                 dtype=torch.float32):
         super().__init__()
         if family not in _LAYER:
-            raise ValueError(f"unknown model {family!r}; one of {MODELS}")
+            raise ValueError(f"unknown model {family!r}; one of "
+                             f"{MODELS + TYPED_MODELS}")
         self.family = family
         self.dims = [int(d) for d in dims]
-        kw = {"heads": heads} if family == "gat" else {}
+        kw = {"heads": heads} if family in ("gat", "rgat") else {}
+        if family in TYPED_MODELS:
+            kw["num_relations"] = num_relations
         self.layers = nn.ModuleList(
             _LAYER[family](self.dims[i], self.dims[i + 1], generator=generator,
                            dtype=dtype, **kw)
             for i in range(len(self.dims) - 1))
 
     def forward(self, x, edge_index, num_nodes: int, deg_inv_sqrt=None, *,
-                impl: Optional[str] = None, plan=None):
+                impl: Optional[str] = None, plan=None, edge_type=None,
+                type_perm=None, inv_type_perm=None, type_counts=None,
+                rplan=None):
+        typed = {}
+        if self.family in TYPED_MODELS:
+            typed = dict(edge_type=edge_type, type_perm=type_perm,
+                         inv_type_perm=inv_type_perm,
+                         type_counts=type_counts, rplan=rplan)
         h = x
         for i, layer in enumerate(self.layers):
             h = layer(h, edge_index, num_nodes, deg_inv_sqrt, impl=impl,
-                      plan=plan)
+                      plan=plan, **typed)
             if i < len(self.layers) - 1:
                 h = torch.relu(h)
         return h
 
 
 def init(family: str, d_in: int, hidden: int, num_classes: int,
-         num_layers: int = 3, *, heads: int = 1, seed: int = 0,
-         device=None) -> GNN:
+         num_layers: int = 3, *, heads: int = 1, num_relations: int = 4,
+         seed: int = 0, device=None) -> GNN:
     """A ``num_layers`` model with random weights drawn on the CPU from a
     ``torch.Generator`` seeded with ``seed`` (the same weights on any
-    ``device``). ``heads`` > 1 builds multi-head attention layers (GAT)."""
+    device), then moved to ``device``: the card for ``None`` (raising
+    without one), the CPU only for ``device="cpu"``. ``heads`` > 1 builds
+    multi-head attention layers (GAT/RGAT); ``num_relations`` sizes the
+    per-relation transforms of the typed families."""
+    device = resolve_device(device, "gnn.init")
     generator = torch.Generator().manual_seed(seed)
     dims: List[int] = [d_in] + [hidden] * (num_layers - 1) + [num_classes]
-    model = GNN(family, dims, heads=heads, generator=generator)
-    return model.to(device) if device is not None else model
+    model = GNN(family, dims, heads=heads, num_relations=num_relations,
+                generator=generator)
+    return model.to(device)
 
 
 def forward(model: GNN, x, edge_index, num_nodes: int, deg_inv_sqrt=None,
-            impl: Optional[str] = None, plan=None):
+            impl: Optional[str] = None, plan=None, *, edge_type=None,
+            type_perm=None, inv_type_perm=None, type_counts=None, rplan=None):
     """Logits (V, C) of ``model`` on one graph; ``plan`` is one
     :class:`~repro_torch.core.plan.SegmentPlan` over the destinations,
-    reused by every layer."""
-    return model(x, edge_index, num_nodes, deg_inv_sqrt, impl=impl, plan=plan)
+    reused by every layer. Typed families also take ``edge_type`` (plus the
+    optional permutation triple and ``rplan``)."""
+    return model(x, edge_index, num_nodes, deg_inv_sqrt, impl=impl, plan=plan,
+                 edge_type=edge_type, type_perm=type_perm,
+                 inv_type_perm=inv_type_perm, type_counts=type_counts,
+                 rplan=rplan)
 
 
-def make_model_plan(edge_index, num_nodes: int, feat: int, config=None):
+def make_model_plan(edge_index, num_nodes: int, feat: int, config=None,
+                    device=None):
     """One :class:`~repro_torch.core.plan.SegmentPlan` for every layer of a
-    model on this graph (``feat``: the widest layer width)."""
+    model on this graph (``feat``: the widest layer width), on ``device``."""
     from repro_torch.core.plan import make_graph_plan
-    return make_graph_plan(edge_index, num_nodes, feat=feat, config=config)
+    return make_graph_plan(edge_index, num_nodes, feat=feat, config=config,
+                           device=device)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.config_space import default_config
+from repro_torch.core.device import resolve_device
 from repro_torch.data.graphs import (Graph, batch_graphs, synth_graph,
                                      unbatch_nodes, unpad_nodes)
 from repro_torch.kernels.ops import fusion_scope
@@ -61,15 +62,6 @@ class ServedResult:
     #                               logits back to the host)
 
 
-def _resolve_device(device) -> torch.device:
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("GNNServer runs on the card by default and no "
-                           "CUDA device is available; pass device='cpu' to "
-                           "serve with the plain versions")
-    return device
-
-
 class GNNServer:
     """Synchronous serving engine for one model.
 
@@ -96,7 +88,7 @@ class GNNServer:
         if family not in MODELS or family != model.family:
             raise ValueError(f"model is a {model.family!r}; family must be "
                              f"that one of {MODELS}, got {family!r}")
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device, "GNNServer")
         self.model = model.to(self.device).eval()
         self.family = family
         self.feat = max(model.dims)     # sizes the bucket's kernel config

@@ -167,3 +167,111 @@ def test_bucket_stamp_on_device_matches_host(dev):
     assert card.chunk_first.is_cuda and card.chunk_count.is_cuda
     assert torch.equal(card.chunk_first.cpu(), host.chunk_first)
     assert torch.equal(card.chunk_count.cpu(), host.chunk_count)
+
+
+# ---------------------------------------------------------------------------
+# the kernels of the typed path and of the public ops
+# ---------------------------------------------------------------------------
+
+SMM_CASES = {
+    # zipf-skewed relations with many empty groups, K and N off the tiles
+    "zipf": dict(sizes=lambda rng: rng.zipf(1.3, 40).clip(max=4000) *
+                 (rng.random(40) < 0.6), pad=0, k=40, n=72),
+    # rows past the last group, groups straddling every row block
+    "padded": dict(sizes=lambda rng: rng.integers(0, 9, 300), pad=100, k=64,
+                   n=64),
+    "single": dict(sizes=lambda rng: np.array([5000]), pad=0, k=32, n=128),
+    "all_empty": dict(sizes=lambda rng: np.zeros(7, np.int64), pad=300, k=16,
+                      n=16),
+}
+
+
+@pytest.mark.parametrize("case", list(SMM_CASES))
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_plan", [False, True])
+def test_segment_matmul_kernel(dev, case, dtype, with_plan):
+    from repro_torch.core.plan import make_relation_plan
+    c = SMM_CASES[case]
+    rng = np.random.default_rng(len(case))
+    sizes = torch.from_numpy(c["sizes"](rng).astype(np.int32)).to(dev)
+    m = int(sizes.sum()) + c["pad"]
+    x = torch.randn(m, c["k"], device=dev).to(dtype)
+    w = (torch.randn(sizes.numel(), c["k"], c["n"], device=dev)
+         / c["k"] ** 0.5).to(dtype)
+    plan = make_relation_plan(sizes, num_rows=m, feat=c["n"]) \
+        if with_plan else None
+    before = kops.launch_counts()["segment_matmul"]
+    got = kops.segment_matmul(x, sizes, w, plan=plan, impl="cuda")
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["segment_matmul"] == before + 1
+    assert got.dtype == dtype and got.shape == (m, c["n"])
+    _close(got, kops.segment_matmul(x.float(), sizes, w.float(), impl="ref"),
+           dtype)
+    if c["pad"]:
+        assert bool((got[m - c["pad"]:] == 0).all()), "rows of no group"
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("reduce", ["sum", "mean", "max"])
+@pytest.mark.parametrize("shape", range(len(SHAPES)))
+def test_segment_reduce_kernel(dev, dtype, reduce, shape):
+    s = SHAPES[shape]
+    _, dst, _, _ = _graph(dev, s["v"], s["e"], 1, seed=shape,
+                          gapped=s.get("gapped", False), pad=s.get("pad", 0))
+    x = torch.randn(dst.numel(), s["f"], device=dev).to(dtype)
+    plan = make_plan(dst, s["v"], config=s["cfg"])
+    for p in (plan, None):
+        got = kops.segment_reduce(x, dst, s["v"], reduce, plan=p, impl="cuda")
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (s["v"], s["f"])
+        _close(got, kops.segment_reduce(x.float(), dst, s["v"], reduce,
+                                        impl="ref"), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [8, 64, 300])
+def test_sddmm_kernel(dev, dtype, n):
+    a = torch.randn(900, n, device=dev).to(dtype)
+    b = torch.randn(700, n, device=dev).to(dtype)
+    row = torch.randint(0, 900, (20000,), device=dev, dtype=torch.int32)
+    col = torch.randint(0, 700, (20000,), device=dev, dtype=torch.int32)
+    got = kops.sddmm(a, b, row, col, impl="cuda")
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (20000,)
+    _close(got, kops.sddmm(a.float(), b.float(), row, col, impl="ref"), dtype)
+    with pytest.raises(ValueError, match="sddmm"):
+        kops.sddmm(a, b, row, col.clone().fill_(700), impl="cuda")
+
+
+def test_plan_on_the_host_is_refused_for_card_data(dev):
+    _, dst, _, _ = _graph(dev, 500, 3000, 8, seed=3)
+    host_plan = make_plan(dst, 500, device="cpu")
+    with pytest.raises(ValueError, match="lies on cpu"):
+        kops.segment_reduce(torch.randn(3000, 8, device=dev), dst, 500,
+                            plan=host_plan, impl="cuda")
+    card_plan = make_plan(dst, 500)
+    assert card_plan.chunk_first.is_cuda and host_plan.to(dev).chunk_first.is_cuda
+
+
+@pytest.mark.parametrize("family", ["rgcn", "rgat"])
+def test_typed_model_forward_kernels_match_plain(dev, family):
+    from repro_torch.data.graphs import synth_typed_graph
+    g = synth_typed_graph("t", 3000, 30000, num_relations=133, feat=32)
+    model = gnn.init(family, 32, 64, 16, heads=2 if family == "rgat" else 1,
+                     num_relations=133, device=dev)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    typed = dict(edge_type=t(g.edge_type), type_perm=t(g.type_perm),
+                 inv_type_perm=t(g.inv_type_perm),
+                 type_counts=t(g.type_counts))
+    x, ei = t(g.x), t(g.edge_index)
+    with torch.inference_mode():
+        kops.reset_launch_counts()
+        with kops.fusion_scope() as fusion:
+            got = model(x, ei, g.num_nodes, plan=g.make_plan(feat=128),
+                        rplan=g.make_relation_plan(feat=128), **typed)
+        launched = kops.launch_counts()
+        want = model(x, ei, g.num_nodes, impl="ref", **typed)
+    assert fusion and all(k.startswith("fused:") for k in fusion)
+    assert launched["segment_matmul"] == 3
+    assert launched["gather_segment_reduce"] >= 3
+    _close(got, want, torch.float32)

@@ -167,7 +167,7 @@ def _windowed_graph():
 def test_blocked_schedule_matches_plain(reduce, weighted, tiling):
     src, dst, x, w, v = _windowed_graph()
     cfg = TConfig("SR", tiling[0], 128, tiling[1], 1)
-    plan = make_plan(dst, v, config=cfg)
+    plan = make_plan(dst, v, config=cfg, device="cpu")
     if cfg.s_b == 32:
         assert int(plan.chunk_count[1]) == 0, "block 1 must own no rows"
     wt = _t(w) if weighted else None
@@ -263,7 +263,7 @@ def test_cpu_default_is_plain_and_counts_no_launch():
 def test_import_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import repro_torch, repro_torch.serve, repro_torch.models.params, "
-            "repro_torch.kernels.ops; "
+            "repro_torch.kernels.ops, repro_torch.hetero_inference; "
             "assert not any(m == 'repro' or m.startswith(('repro.', 'jax')) "
             "for m in sys.modules if sys.modules[m] is not None); print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -62,8 +62,8 @@ def test_from_jax_params_rejects_bad_shapes():
 
 
 def test_init_is_seeded_and_forward_only():
-    a = gnn.init("gat", 8, 16, 4, heads=2, seed=3)
-    b = gnn.init("gat", 8, 16, 4, heads=2, seed=3)
+    a = gnn.init("gat", 8, 16, 4, heads=2, seed=3, device="cpu")
+    b = gnn.init("gat", 8, 16, 4, heads=2, seed=3, device="cpu")
     for pa, pb in zip(a.parameters(), b.parameters()):
         assert torch.equal(pa, pb)
     g = synth_graph("g", 40, 120, feat=8, seed=0)
@@ -79,7 +79,8 @@ def test_init_is_seeded_and_forward_only():
 
 @pytest.mark.parametrize("family", gnn.MODELS)
 def test_server_matches_direct_forward(family):
-    model = gnn.init(family, 8, 16, 4, heads=2 if family == "gat" else 1)
+    model = gnn.init(family, 8, 16, 4, heads=2 if family == "gat" else 1,
+                     device="cpu")
     srv = GNNServer(model, family, device="cpu",
                     policy=BucketPolicy(min_nodes=32, min_edges=32),
                     max_batch_nodes=128, max_batch_graphs=3)
@@ -111,7 +112,7 @@ def test_server_matches_direct_forward(family):
 
 
 def test_server_cache_hit_builds_nothing():
-    model = gnn.init("gin", 8, 16, 4)
+    model = gnn.init("gin", 8, 16, 4, device="cpu")
     srv = GNNServer(model, "gin", device="cpu",
                     policy=BucketPolicy(min_nodes=32, min_edges=32))
     srv.submit(synth_graph("a", 30, 60, feat=8, seed=0))
@@ -124,7 +125,8 @@ def test_server_cache_hit_builds_nothing():
 
 
 def test_server_warmup_reset_and_stats():
-    srv = GNNServer(gnn.init("sage", 8, 16, 4), "sage", device="cpu",
+    srv = GNNServer(gnn.init("sage", 8, 16, 4, device="cpu"), "sage",
+                    device="cpu",
                     policy=BucketPolicy(min_nodes=32, min_edges=32),
                     max_batch_graphs=1)
     assert srv.stats()["throughput_rps"] == 0.0
@@ -142,7 +144,7 @@ def test_server_warmup_reset_and_stats():
 
 
 def test_server_needs_a_card_unless_cpu_is_asked_for():
-    model = gnn.init("gcn", 8, 16, 4)
+    model = gnn.init("gcn", 8, 16, 4, device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA"):

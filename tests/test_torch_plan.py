@@ -85,13 +85,15 @@ def _assert_plans_equal(tp, jp):
 def test_make_plan_matches_reference(kind, tiling):
     s_b, m_b = tiling
     idx, s = _index(kind)
-    tp = tplan.make_plan(idx, s, config=TConfig("SR", s_b, 128, m_b, 1))
+    tp = tplan.make_plan(idx, s, config=TConfig("SR", s_b, 128, m_b, 1),
+                         device="cpu")
     jp = jplan.make_plan(idx, s, config=JConfig("SR", s_b, 128, m_b, 1))
     _assert_plans_equal(tp, jp)
     # a tensor index gives the same plan as a numpy one
     _assert_plans_equal(
         tplan.make_plan(torch.from_numpy(idx), s,
-                        config=TConfig("SR", s_b, 128, m_b, 1)), jp)
+                        config=TConfig("SR", s_b, 128, m_b, 1),
+                        device="cpu"), jp)
 
 
 @pytest.mark.parametrize("tiling", TILINGS[:3])
@@ -99,7 +101,8 @@ def test_make_graph_plan_matches_reference(tiling):
     s_b, m_b = tiling
     g = jgraphs.synth_graph("g", 333, 2000, feat=8, seed=3)
     tp = tplan.make_graph_plan(g.edge_index, g.num_nodes,
-                               config=TConfig("SR", s_b, 128, m_b, 1))
+                               config=TConfig("SR", s_b, 128, m_b, 1),
+                               device="cpu")
     jp = jplan.make_graph_plan(g.edge_index, g.num_nodes,
                                config=JConfig("SR", s_b, 128, m_b, 1))
     _assert_plans_equal(tp, jp)
@@ -107,11 +110,12 @@ def test_make_graph_plan_matches_reference(tiling):
 
 def test_plan_validation_and_misuse():
     idx, s = _index("ragged")
-    p = tplan.make_plan(idx, s, config=TConfig("SR", 32, 128, 64, 1))
+    p = tplan.make_plan(idx, s, config=TConfig("SR", 32, 128, 64, 1),
+                        device="cpu")
     with pytest.raises(ValueError, match="rebuild the plan"):
         p.validate(idx.size + 1, s)
     with pytest.raises(ValueError, match="sorted"):
-        tplan.make_plan(idx[::-1].copy(), s)
+        tplan.make_plan(idx[::-1].copy(), s, device="cpu")
     assert p.to("cpu") is p
 
 
