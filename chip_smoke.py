@@ -10,7 +10,9 @@ Phases (any failure exits non-zero before the result line):
    CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc (one process
    per source, all started together) and prints the build time. TF32 is
    off for matmuls and cuDNN.
-2. Kernels against their plain PyTorch versions on the card. Tolerances:
+2. Kernels against their plain PyTorch versions on the card, and the two
+   redesigned kernels (gather_segment_reduce, segment_matmul) launched
+   twice on the same inputs, which must give the same bits. Tolerances:
    fp32 rtol = 1e-4, atol = 1e-4·max|plain| (sums are taken in another
    order); bf16 rtol = 2e-2, atol = 2e-2·max|plain| against the fp32 plain
    version of the same upcast inputs. Each configuration prints kernel_ms
@@ -20,15 +22,21 @@ Phases (any failure exits non-zero before the result line):
 
    a. The serving kernels at the served ogbn-arxiv bucket (V = 262,144,
       E = 2,097,152 padded edges): every reduce and weighting of
-      gather_segment_reduce at F = 32 and 64, the 4-head softmax, the fused
-      kernel at the GCN/SAGE layer widths, in fp32 and bf16, plus an empty
-      graph and num_segments % s_b != 0. Yardsticks: ``torch.sparse.mm`` of
-      a CSR for the weighted sum, ``torch.sparse.softmax`` of a COO.
+      gather_segment_reduce at F = 32 and 64 and, weighted sum and max, at
+      F = 16, 40 and 3 (widths that are not a multiple of the 16-byte
+      vector), a hub of 150,000 rows into one segment amid 400,000 rows into
+      50,000 others, the 4-head softmax, the fused kernel at the GCN/SAGE
+      layer widths, in fp32 and bf16, plus an empty graph and
+      num_segments % s_b != 0. Yardsticks: ``torch.sparse.mm`` of a CSR for
+      the weighted sum, ``torch.sparse.softmax`` of a COO.
    b. segment_matmul at the typed rows of the AM graph (M = 5,988,321
-      edges in 133 zipf-skewed relation groups) at K->N = 64->64, 32->128
-      and 64->128, plus empty groups, a single group and rows past the
-      groups; the gather kernel with H = the (E, 64) typed messages and the
-      inverse type permutation as its gather index, as ``mp_typed`` runs it;
+      edges in 133 zipf-skewed relation groups) at K->N = 64->64, 32->128,
+      64->128, 64->16 and 64->32, plus, in fp32 and bf16, empty groups, a
+      single group, rows past the groups, 3,000 groups of 1-3 rows, and
+      N = 16 and 32, and K = 512, 1001 and 1024 (deeper than one pass of
+      shared memory holds); the gather kernel with H = the (E, 64) typed messages
+      and the inverse type permutation as its gather index, as ``mp_typed``
+      runs it, with its bound;
       segment_reduce (sum, mean, max at F = 32 and 64) on the ogbn-arxiv
       destinations (M = 1,166,243 rows, S = 169,343 segments); sddmm on
       arxiv's (dst, src) pairs at F = 64. Yardsticks:
@@ -54,17 +62,22 @@ Phases (any failure exits non-zero before the result line):
       segment_matmul exactly once and the gather kernel, every rgat layer
       the softmax, and no op may take a plain version. Prints each
       family's warm forward time (CUDA events, median of 3) and one
-      forward under ``torch.profiler``: device-busy time, idle share and
-      the ops that take the most device time.
+      forward under ``torch.profiler``: device-busy time, idle share, the
+      ops that take the most device time, and the gather's two kernels
+      (gsr_runs, gsr_fix) summed over the forward.
    c. The public ops: ``segment_reduce`` (sum, mean, max) and ``sddmm`` on
       arxiv's card tensors, as ``examples/quickstart.py`` calls them.
 4. A ``{"kernels": [...]}`` line: per kernel its launches on the main paths
-   (and per path), the max abs error and times of its representative
+   (and per path; one gather_segment_reduce launch is two CUDA kernels, the
+   row runs and the fix-up pass of the segments they cut, and its times
+   cover both), the max abs error and times of its representative
    configuration, and ``bound_ms``, the least time the card could take for
    that work: the larger of (bytes it must move) / 3.35 TB/s and (flops) /
-   67 TFLOP/s (fp32 outside the tensor cores, where these kernels compute).
-   The bytes count each input read once (a gathered operand at its
-   distinct rows) and each output row written once.
+   the peak of the unit that does them: 67 TFLOP/s fp32 outside the tensor
+   cores for five kernels; for segment_matmul the tensor cores, 495 TFLOP/s
+   TF32 with the flops counted three times for the 3xTF32 split of fp32,
+   989 TFLOP/s bf16. The bytes count each input read once (a gathered
+   operand at its distinct rows) and each output row written once.
 5. The last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -81,6 +94,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+TF32_FLOPS = 495e12            # H100 SXM tensor cores, TF32 dense
+BF16_FLOPS = 989e12            # H100 SXM tensor cores, bf16 dense
 FEAT, HIDDEN, CLASSES = 32, 64, 16
 SEED = 0
 # the AM graph of the R-GCN paper (Schlichtkrull et al. 2018, Table 1)
@@ -137,6 +152,37 @@ def compare(torch, what: str, got, want, dtype) -> float:
     return float(err.max())
 
 
+def deterministic(torch, what: str, fn) -> None:
+    """Fails unless two launches of ``fn`` give the same bits."""
+    first = fn()
+    again = fn()
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        fail(f"{what}: two launches differ (not bitwise deterministic)")
+    print(f"  {what}: bitwise equal over two launches", flush=True)
+
+
+def bound(nbytes, flops, peak=FP32_FLOPS, unit="fp32"):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the flops over the peak of the unit that does them."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / peak
+    print(f"  bound: {nbytes} bytes, {flops} flops on {unit} -> "
+          f"{max(t_b, t_o) * 1e3:.4f} ms", flush=True)
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+
+
+def smm_bound(torch, m, k, n, groups, dtype, plan_bytes):
+    """segment_matmul's bound: X read and out written once, W once; fp32
+    runs as 3xTF32 (three TF32 products), bf16 as one bf16 product."""
+    es = 4 if dtype == torch.float32 else 2
+    flops = 2 * m * k * n
+    if dtype == torch.float32:
+        return bound(m * (k + n) * es + groups * k * n * es + plan_bytes,
+                     3 * flops, TF32_FLOPS, "TF32 tensor cores, 3 passes")
+    return bound(m * (k + n) * es + groups * k * n * es + plan_bytes, flops,
+                 BF16_FLOPS, "bf16 tensor cores")
+
+
 def library(what: str, call):
     """(result, None) of one library call, or (None, reason) when this
     PyTorch build lacks or refuses it. A library call is a yardstick that is
@@ -151,8 +197,8 @@ def library(what: str, call):
 
 
 def profiled(torch, fn):
-    """(wall ms, device-busy ms, top device ops) of one call of ``fn`` under
-    ``torch.profiler``: device events only (kernels and copies), so a host
+    """(wall ms, device-busy ms, device ops by time) of one call of ``fn``
+    under ``torch.profiler``: device events only (kernels and copies), so a host
     op's attributed device time is not counted twice."""
     from torch.autograd import DeviceType
     act = [torch.profiler.ProfilerActivity.CPU,
@@ -173,7 +219,7 @@ def profiled(torch, fn):
         if us > 0:
             rows.append((evt.key, us / 1e3))
     rows.sort(key=lambda r: -r[1])
-    return wall_ms, sum(ms for _, ms in rows), rows[:8]
+    return wall_ms, sum(ms for _, ms in rows), rows
 
 
 def card_line() -> str:
@@ -265,6 +311,54 @@ def main() -> None:
                             impl="ref"))
                     results[(feat, dtype, reduce, weighted)] = res
 
+    h64 = torch.randn(v, HIDDEN, generator=gen, device=dev)
+    deterministic(torch, f"gather_segment_reduce weighted sum F={HIDDEN} "
+                  "float32", lambda: kops.gather_segment_reduce(
+                      h64, src, dst, v, wts, "sum", plan=plan, impl="cuda"))
+
+    # widths that are not a multiple of the 16-byte vector
+    for feat in (16, 40, 3):
+        h32 = torch.randn(v, feat, generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            h, w = h32.to(dtype), wts.to(dtype)
+            for reduce in ("sum", "max"):
+                run(lambda: kops.gather_segment_reduce(
+                        h, src, dst, v, w, reduce, plan=plan, impl="cuda"),
+                    lambda: kops.gather_segment_reduce(
+                        h, src, dst, v, w, reduce, impl="ref"),
+                    f"gather_segment_reduce {reduce} weighted F={feat} "
+                    f"{str(dtype)[6:]}", dtype,
+                    lambda: kops.gather_segment_reduce(
+                        h.float(), src, dst, v, w.float(), reduce,
+                        impl="ref"))
+
+    # a hub: one segment of 150,000 rows amid 400,000 rows into short ones
+    hub_s = 50_000
+    hub_dst = torch.cat([
+        torch.randint(0, hub_s, (400_000,), generator=gen, device=dev),
+        torch.full((150_000,), hub_s // 2, device=dev)]).sort().values.int()
+    hub_src = torch.randint(0, hub_s, (hub_dst.numel(),), generator=gen,
+                            device=dev).int()
+    hub_w = torch.rand(hub_dst.numel(), generator=gen, device=dev)
+    hub_plan = make_plan(hub_dst, hub_s, feat=HIDDEN, device=dev)
+    hub_h32 = torch.randn(hub_s, HIDDEN, generator=gen, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        h, w = hub_h32.to(dtype), hub_w.to(dtype)
+        for reduce in ("sum", "mean", "max"):
+            fn = (lambda: kops.gather_segment_reduce(
+                h, hub_src, hub_dst, hub_s, w, reduce, plan=hub_plan,
+                impl="cuda"))
+            run(fn, lambda: kops.gather_segment_reduce(
+                    h, hub_src, hub_dst, hub_s, w, reduce, impl="ref"),
+                f"gather_segment_reduce {reduce} weighted F={HIDDEN} hub of "
+                f"150000 rows {str(dtype)[6:]}", dtype,
+                lambda: kops.gather_segment_reduce(
+                    h.float(), hub_src, hub_dst, hub_s, w.float(), reduce,
+                    impl="ref"))
+            deterministic(torch, f"gather_segment_reduce {reduce} hub "
+                          f"{str(dtype)[6:]}", fn)
+    del hub_dst, hub_src, hub_w, hub_plan, hub_h32
+
     heads = 4
     logits32 = torch.randn(e, heads, generator=gen, device=dev) * 5
     for dtype in (torch.float32, torch.bfloat16):
@@ -349,7 +443,6 @@ def main() -> None:
 
     # library yardstick for the weighted sum: one torch.sparse.mm of a CSR
     # built from the real edges (timed only; the port never calls it)
-    h64 = torch.randn(v, HIDDEN, generator=gen, device=dev)
     csr = torch.sparse_coo_tensor(
         torch.stack([dst[:e_real].long(), src[:e_real].long()]),
         wts[:e_real], (v, v)).coalesce().to_sparse_csr()
@@ -393,9 +486,11 @@ def main() -> None:
     sizes = torch.from_numpy(am.type_counts).to(dev)
     rplan = am.make_relation_plan(feat=HIDDEN, device=dev)
     offs = rplan.offsets[1:].contiguous()          # cumulative group ends
-    library_smm = {}
+    library_smm, smm_bounds = {}, {}
+    smm_plan_bytes = rplan.offsets.numel() * 4 + rplan.first_group.numel() * 8
     for k_dim, n_dim in ((HIDDEN, HIDDEN), (FEAT, 2 * HIDDEN),
-                         (HIDDEN, 2 * HIDDEN)):
+                         (HIDDEN, 2 * HIDDEN), (HIDDEN, CLASSES),
+                         (HIDDEN, 2 * CLASSES)):
         x32 = torch.randn(m_typed, k_dim, generator=gen, device=dev)
         w32 = torch.randn(AM_RELATIONS, k_dim, n_dim, generator=gen,
                           device=dev) / k_dim ** 0.5
@@ -409,6 +504,14 @@ def main() -> None:
                 f"G={AM_RELATIONS} {str(dtype)[6:]}", dtype,
                 lambda: kops.segment_matmul(x.float(), sizes, w.float(),
                                             impl="ref"))
+            smm_bounds[(k_dim, n_dim, dtype)] = smm_bound(
+                torch, m_typed, k_dim, n_dim, AM_RELATIONS, dtype,
+                smm_plan_bytes)
+            if (k_dim, n_dim) == (HIDDEN, HIDDEN):
+                deterministic(torch, f"segment_matmul {k_dim}->{n_dim} "
+                              f"{str(dtype)[6:]}",
+                              lambda: kops.segment_matmul(
+                                  x, sizes, w, plan=rplan, impl="cuda"))
             # yardstick: one torch._grouped_mm with the group offsets
             # (timed only)
             out, reason = library(
@@ -434,6 +537,9 @@ def main() -> None:
     am_inv = torch.from_numpy(am.inv_type_perm).to(dev)
     am_plan = am.make_plan(feat=HIDDEN, device=dev)
     msg = torch.randn(m_typed, HIDDEN, generator=gen, device=dev)
+    typed_fn = (lambda: kops.gather_segment_reduce(
+        msg, am_inv, am_dst, am.num_nodes, None, "mean", plan=am_plan,
+        impl="cuda"))
     results["gather typed"] = run(
         lambda: kops.gather_segment_reduce(msg, am_inv, am_dst, am.num_nodes,
                                            None, "mean", plan=am_plan,
@@ -444,23 +550,49 @@ def main() -> None:
         f"by inv_type_perm", torch.float32,
         lambda: kops.gather_segment_reduce(msg, am_inv, am_dst, am.num_nodes,
                                            None, "mean", impl="ref"))
+    deterministic(torch, "gather_segment_reduce typed mean", typed_fn)
+    # its bound: gather index and segment words of every row, H read once,
+    # the output written once, the plan's int64 row offsets
+    print(f"bound of the typed-path gather (mean F={HIDDEN}, H=({m_typed}, "
+          f"{HIDDEN}) fp32 into {am.num_nodes} rows):", flush=True)
+    results["gather typed bound"] = bound(
+        m_typed * 8 + m_typed * HIDDEN * 4 + am.num_nodes * HIDDEN * 4
+        + (am.num_nodes + 1) * 8, m_typed * HIDDEN)
     del msg
 
-    # edge cases: empty groups, a single group, rows past the groups
-    for label, gs, pad in (("empty groups", [0, 300, 0, 0, 77, 0, 1000, 0], 0),
-                           ("single group", [4096], 0),
-                           ("rows past the groups", [0, 513, 64, 0, 3], 200),
-                           ("no rows in any group", [0, 0, 0], 129)):
+    # edge cases: empty groups, a single group, rows past the groups, groups
+    # of 1-3 rows (every 128-row tile overlaps some 60 groups), N = 16 and
+    # 32, and K deeper than one pass of shared memory holds
+    tiny = torch.randint(1, 4, (3000,), generator=gen, device=dev).tolist()
+    for label, gs, pad, k_e, n_e in (
+            ("empty groups", [0, 300, 0, 0, 77, 0, 1000, 0], 0, HIDDEN,
+             2 * HIDDEN),
+            ("single group", [4096], 0, HIDDEN, 2 * HIDDEN),
+            ("rows past the groups", [0, 513, 64, 0, 3], 200, HIDDEN,
+             2 * HIDDEN),
+            ("no rows in any group", [0, 0, 0], 129, HIDDEN, 2 * HIDDEN),
+            ("groups of 1-3 rows", tiny, 77, HIDDEN, HIDDEN),
+            ("N=16, rows past the groups", [0, 513, 64, 0, 3000], 70,
+             HIDDEN, CLASSES),
+            ("N=32, empty groups", [0, 900, 0, 0, 4000, 0], 0, HIDDEN,
+             2 * CLASSES),
+            ("K=512, N=128", [0, 3000, 700, 0, 5000], 33, 512, 2 * HIDDEN),
+            ("K=1001, N=40", [1200, 0, 900, 1], 5, 1001, 40),
+            ("K=1024, N=16", [2000, 77, 0, 4000], 0, 1024, CLASSES)):
         gs_t = torch.tensor(gs, dtype=torch.int32, device=dev)
         m_e = sum(gs) + pad
-        xe = torch.randn(m_e, HIDDEN, generator=gen, device=dev)
-        we = torch.randn(len(gs), HIDDEN, 2 * HIDDEN, generator=gen,
-                         device=dev)
-        got = kops.segment_matmul(xe, gs_t, we, impl="cuda")
-        compare(torch, f"segment_matmul {label}", got,
-                kops.segment_matmul(xe, gs_t, we, impl="ref"), torch.float32)
-        if pad and not bool((got[m_e - pad:] == 0).all()):
-            fail(f"segment_matmul {label}: rows past the groups are not 0")
+        xe32 = torch.randn(m_e, k_e, generator=gen, device=dev)
+        we32 = torch.randn(len(gs), k_e, n_e, generator=gen,
+                           device=dev) / k_e ** 0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            xe, we = xe32.to(dtype), we32.to(dtype)
+            got = kops.segment_matmul(xe, gs_t, we, impl="cuda")
+            compare(torch, f"segment_matmul {label} {str(dtype)[6:]}", got,
+                    kops.segment_matmul(xe.float(), gs_t, we.float(),
+                                        impl="ref"), dtype)
+            if pad and not bool((got[m_e - pad:] == 0).all()):
+                fail(f"segment_matmul {label}: rows past the groups are "
+                     "not 0")
 
     # segment_reduce on the ogbn-arxiv destinations (unpadded), and sddmm on
     # its (dst, src) pairs
@@ -650,11 +782,16 @@ def main() -> None:
                       torch.float32)
         fwd_ms = time_ms(torch, forward, reps=3, warmup=1)
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-        wall_ms, busy_ms, top = profiled(torch, forward)
+        wall_ms, busy_ms, rows = profiled(torch, forward)
+        # the gather's two kernels, summed over the forward's launches
+        gsr = {p: sum(ms for key, ms in rows if p in key)
+               for p in ("gsr_runs", "gsr_fix")}
         typed.append({"family": family, "heads": n_heads, "layers": layers,
                       "forward_ms": fwd_ms, "max_abs_err": err,
                       "peak_alloc_gib": peak_gb, "profiled_wall_ms": wall_ms,
-                      "device_busy_ms": busy_ms or None})
+                      "device_busy_ms": busy_ms or None,
+                      "gather_runs_ms": gsr["gsr_runs"] if busy_ms else None,
+                      "gather_fix_ms": gsr["gsr_fix"] if busy_ms else None})
         print(f"  typed {family} (heads={n_heads}) on AM: forward_ms="
               f"{fwd_ms:.3f} max_abs_err={err:.3g} peak_alloc_gib="
               f"{peak_gb:.2f}", flush=True)
@@ -662,8 +799,12 @@ def main() -> None:
             print(f"  profiled {family} forward: wall_ms={wall_ms:.3f} "
                   f"device_busy_ms={busy_ms:.3f} idle_share="
                   f"{1 - busy_ms / wall_ms:.3f}; top device ops:", flush=True)
-            for key, ms in top:
+            for key, ms in rows[:8]:
                 print(f"    {ms:9.3f} ms  {key[:90]}", flush=True)
+            print(f"  profiled {family} forward: gather_segment_reduce "
+                  f"gsr_runs {gsr['gsr_runs']:.3f} ms + gsr_fix "
+                  f"{gsr['gsr_fix']:.3f} ms = "
+                  f"{gsr['gsr_runs'] + gsr['gsr_fix']:.3f} ms", flush=True)
         else:
             print(f"  profiled {family} forward: device time not measured "
                   "(the profiler recorded no device events)", flush=True)
@@ -694,18 +835,15 @@ def main() -> None:
     del xo
 
     # -- 4. the kernels line ----------------------------------------------------
-    def bound(nbytes, flops):
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-        print(f"  bound: {nbytes} bytes, {flops} flops", flush=True)
-        return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
-
     print(f"bounds over {e_real} real edges, {h_rows} distinct source rows, "
           f"{v} output rows (gather, softmax, fused):", flush=True)
 
     meta = 2 * out_blocks * 4
     idx_bytes = e_real * (4 + 4 + 4)          # gather idx, segment, fp32 weight
-    g_bound = bound(idx_bytes + h_rows * HIDDEN * 4 + v * HIDDEN * 4 + meta,
-                    2 * e_real * HIDDEN)
+    # the gather kernel reads the plan's int64 row offsets, not its chunk
+    # ranges
+    g_bound = bound(idx_bytes + h_rows * HIDDEN * 4 + v * HIDDEN * 4
+                    + (v + 1) * 8, 2 * e_real * HIDDEN)
     s_bound = bound(e_real * (4 + heads * 4) + e * heads * 4 + meta,
                     4 * e_real * heads)
     f_bound = bound(idx_bytes + h_rows * FEAT * 4 + FEAT * HIDDEN * 4
@@ -716,9 +854,7 @@ def main() -> None:
           f"M={a_e} rows into S={a_v}, F={HIDDEN}; sddmm over {a_e} pairs "
           f"reading {sd_rows} distinct rows of A and B, F={HIDDEN}:",
           flush=True)
-    smm_meta = rplan.offsets.numel() * 4 + rplan.first_group.numel() * 8
-    m_bound = bound(m_typed * HIDDEN * 4 * 2 + AM_RELATIONS * HIDDEN * HIDDEN
-                    * 4 + smm_meta, 2 * m_typed * HIDDEN * HIDDEN)
+    m_bound = smm_bounds[(HIDDEN, HIDDEN, torch.float32)]
     r_bound = bound(a_e * 4 + a_e * HIDDEN * 4 + a_v * HIDDEN * 4
                     + srd_plan_bytes, a_e * HIDDEN)
     d_bound = bound(a_e * 8 + sd_rows * HIDDEN * 4 + a_e * 4,
@@ -774,6 +910,9 @@ def main() -> None:
               f"{sd_pairs} distinct pairs (duplicates merged)"
               if isinstance(library_sddmm, float) else None),
     ]
+    # the gather kernel as the typed path runs it, beside its own bound
+    kernels[0]["typed_mean_ms"] = results["gather typed"][1]
+    kernels[0]["typed_mean_bound_ms"] = results["gather typed bound"][0]
     print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

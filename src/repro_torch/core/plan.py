@@ -6,6 +6,9 @@ kernels otherwise derive on every call:
   * ``chunk_first`` / ``chunk_count`` — int32 tensors (out_blocks,): the
     chunk range each CUDA block walks (see
     :func:`repro_torch.kernels.segment_reduce.chunk_metadata`);
+  * ``row_ptr`` — int64 tensor (num_segments + 1,): each segment's row
+    offsets in the index, which the gather kernel's row-run schedule reads
+    (:func:`repro_torch.kernels.gather_segment_reduce.row_offsets`);
   * a tight ``max_chunks`` — the most chunks any block owns. The CUDA
     kernels bound their loop by the block's own ``chunk_count`` and do not
     need it; it is kept so plans compare one to one with the reference;
@@ -30,6 +33,7 @@ import torch
 
 from repro_torch.core.config_space import KernelConfig, default_config
 from repro_torch.core.device import resolve_device
+from repro_torch.kernels.gather_segment_reduce import row_offsets
 from repro_torch.kernels.segment_matmul import group_metadata
 from repro_torch.kernels.segment_reduce import chunk_metadata
 
@@ -79,6 +83,7 @@ class SegmentPlan:
     """Precomputed schedule for one (sorted idx, num_segments) instance."""
     chunk_first: torch.Tensor    # (out_blocks,) int32
     chunk_count: torch.Tensor    # (out_blocks,) int32
+    row_ptr: torch.Tensor        # (num_segments + 1,) int64
     num_rows: int
     num_segments: int
     max_chunks: int              # tight: max(chunk_count), >= 1
@@ -96,7 +101,8 @@ class SegmentPlan:
             return self
         return dataclasses.replace(
             self, chunk_first=self.chunk_first.to(device),
-            chunk_count=self.chunk_count.to(device))
+            chunk_count=self.chunk_count.to(device),
+            row_ptr=self.row_ptr.to(device))
 
     @property
     def worst_case_chunks(self) -> int:
@@ -153,6 +159,7 @@ def make_plan(idx, num_segments: int, feat: int = 128,
     return SegmentPlan(
         chunk_first=chunk_first.to(device),
         chunk_count=chunk_count.to(device),
+        row_ptr=row_offsets(torch.from_numpy(idxp), num_segments).to(device),
         num_rows=m,
         num_segments=int(num_segments),
         max_chunks=max_chunks,

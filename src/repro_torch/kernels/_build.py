@@ -38,10 +38,10 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
     "gather_segment_reduce": {
-        # dtype, reduce, weighted, h, gidx, seg, w, cf, cc, out,
-        # num_rows, feat, num_segments, s_b, m_b, out_blocks, n_b, stream
+        # dtype, reduce, weighted, h, gidx, seg, w, row_ptr, part, out,
+        # num_rows, feat, num_segments, run_rows, stream
         "gsr_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                       _L, _I, _I, _I, _I, _I, _I, _P],
+                       _L, _I, _I, _I, _P],
     },
     "segment_softmax": {
         # dtype, x, seg, cf, cc, out, num_rows, heads, num_segments,
@@ -66,8 +66,8 @@ SIGNATURES = {
     },
     "segment_matmul": {
         # dtype, x, w, offsets, first_group, group_count, out, num_rows,
-        # k_dim, n_dim, num_groups, m_b, m_blocks, stream
-        "smm_launch": [_I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
+        # k_dim, n_dim, num_groups, m_b, stream
+        "smm_launch": [_I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
     },
 }
 

@@ -1,7 +1,10 @@
 // Shared helpers of the segment kernels: io-dtype conversion (fp32 / bf16
 // in device memory, fp32 arithmetic), enum codes of the C interface, the
 // NaN-propagating max the reference's jnp.maximum computes, and the
-// ownership-window walk every segment reduction runs.
+// ownership-window walk of the window kernels (segment_reduce.cu runs
+// window_walk; segment_softmax.cu and fused_transform_reduce.cu read their
+// rows with block_rows and keep walks of their own). The gather kernel left
+// the walk for row runs (gather_segment_reduce.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -45,9 +48,10 @@ __device__ __forceinline__ void block_rows(const int* cf, const int* cc, int b, 
 // max and 0 otherwise, mean as the sum over max(count, 1). Rows of a
 // foreign segment are skipped, and the walk stops at the first row past the
 // window (the index is sorted), so neighbouring windows need no atomics.
-// Loads are issued U rows at a time so each thread keeps U in flight.
-// (fused_transform_reduce.cu keeps its own walk into a zeroed aggregate:
-// built on this one, its weighted fp32 kernel ran 1.4x slower.)
+// Loads are issued U rows at a time so each thread keeps U in flight. Only
+// segment_reduce.cu runs it. (fused_transform_reduce.cu keeps its own walk
+// into a zeroed aggregate: built on this one, its weighted fp32 kernel ran
+// 1.4x slower.)
 template <int RED, typename Load, typename Store>
 __device__ __forceinline__ void window_walk(const int* __restrict__ seg, int64_t r0,
                                             int64_t r1, int lo, int hi, Load load,

@@ -10,10 +10,10 @@
 // element; the floor is (4 + N * io) bytes a row plus N * io an output row
 // at 3.35 TB/s.
 //
-// Design: the ownership window of the plan, as in gather_segment_reduce.cu
-// but reading X[i] in place instead of gathering. CUDA block (b, y) owns
-// segments [b*s_b, (b+1)*s_b) and feature columns [y*blockDim,
-// (y+1)*blockDim), and runs common.cuh's window_walk over its chunk range,
+// Design: the ownership window of the plan, reading X[i] in place. CUDA
+// block (b, y) owns segments [b*s_b, (b+1)*s_b) and feature columns
+// [y*blockDim, (y+1)*blockDim), and runs common.cuh's window_walk over its
+// chunk range,
 // one thread per column: the threads of a warp read neighbouring columns of
 // one X row, so every load is coalesced, and X is streamed in row order.
 // The mean's count lives in the walk (sum over max(count, 1) in one

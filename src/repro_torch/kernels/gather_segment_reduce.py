@@ -14,9 +14,10 @@ the io dtype of ``h``):
   * :func:`gather_segment_reduce_ref` — the plain PyTorch version
     (``index_select`` + ``index_add_`` / ``scatter_reduce_`` in fp32).
   * :func:`gather_segment_reduce_blocked` — the kernel's schedule in plain
-    PyTorch: block by block over the plan's chunk ranges, masking the rows
-    outside each ownership window exactly as the kernel does. It is the CPU
-    evidence that the kernel's use of the plan metadata is right.
+    PyTorch: runs of :data:`RUN_ROWS` rows that write whole segments or keep partials
+    of cut ones, then a pass over the plan's row offsets that writes empty
+    segments and folds the partials in run order. It is the CPU evidence
+    that the kernel's use of the plan metadata is right.
 
 The weight rides the io dtype of ``h``; the multiply is done in fp32.
 """
@@ -30,7 +31,11 @@ REDUCES = ("sum", "mean", "max")
 _REDUCE_CODE = {"sum": 0, "mean": 1, "max": 2}
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0    # launches of the CUDA kernel in this process
+# rows of one run of the kernel's schedule: the constant RUN of
+# csrc/gather_segment_reduce.cu, which the launch checks against this copy
+RUN_ROWS = 64
+
+launches = 0    # wrapper launches in this process (each is two kernels)
 
 
 def _empty_value(reduce: str) -> float:
@@ -74,27 +79,63 @@ def gather_segment_reduce_ref(h, gather_idx, seg_idx, num_segments: int,
     return out[:num_segments].to(h.dtype)
 
 
+def row_offsets(seg_idx, num_segments: int):
+    """``(num_segments + 1,)`` int64 row offsets of a sorted segment index,
+    computed where it lies: segment s owns rows ``[row_ptr[s],
+    row_ptr[s+1])``; rows with ``seg >= num_segments`` lie past
+    ``row_ptr[num_segments]``."""
+    seg = torch.as_tensor(seg_idx)
+    bounds = torch.arange(num_segments + 1, dtype=seg.dtype, device=seg.device)
+    return torch.searchsorted(seg, bounds)
+
+
 def gather_segment_reduce_blocked(h, gather_idx, seg_idx, num_segments: int,
-                                  weight, reduce: str, chunk_first,
-                                  chunk_count, s_b: int, m_b: int):
-    """The CUDA kernel's ownership-window schedule in plain PyTorch: block b
-    reads rows ``[chunk_first[b]·m_b, (chunk_first[b]+chunk_count[b])·m_b)``
-    clipped to the real rows, keeps those whose segment lies in
-    ``[b·s_b, min((b+1)·s_b, num_segments))``, and writes exactly that
-    window of the output."""
+                                  weight, reduce: str, row_ptr,
+                                  run_rows: int = RUN_ROWS):
+    """The CUDA kernel's row-run schedule in plain PyTorch. Pass 1: the rows
+    are cut into runs of ``run_rows`` (the kernel's, unless a test asks for
+    shorter runs to cut more segments at a small size); each run reduces its rows per segment, and
+    writes a segment that lies wholly inside it to the output, or keeps the
+    value as a partial (slot 0: the segment of the run's first row, slot 1:
+    that of its last row) if the run's ends cut it. Pass 2, per segment from
+    ``row_ptr``: an empty one is written as the empty value, a cut one as its
+    partials folded in run order (a mean divided by its row count)."""
     num_rows, feat = int(seg_idx.shape[0]), int(h.shape[1])
     out = torch.empty((num_segments, feat), dtype=torch.float32,
                       device=h.device)
-    for b, (cf, cc) in enumerate(zip(chunk_first.tolist(),
-                                     chunk_count.tolist())):
-        lo, hi = b * s_b, min((b + 1) * s_b, num_segments)
-        r0 = cf * m_b
-        r1 = min(r0 + cc * m_b, num_rows)
+    rp = row_ptr.tolist()
+    partial = {}
+    for run in range((num_rows + run_rows - 1) // run_rows):
+        r0, r1 = run * run_rows, min((run + 1) * run_rows, num_rows)
         seg = seg_idx[r0:r1].long()
-        keep = (seg >= lo) & (seg < hi)
-        rows = torch.arange(r0, max(r0, r1), device=h.device)[keep]
-        out[lo:hi] = _reduce_rows(_messages(h, gather_idx, weight, rows),
-                                  seg[keep] - lo, hi - lo, reduce)
+        keep = seg < num_segments
+        if not bool(keep.any()):
+            continue
+        rows = torch.arange(r0, r1, device=h.device)[keep]
+        lo = int(seg[keep][0])
+        vals = _reduce_rows(_messages(h, gather_idx, weight, rows),
+                            seg[keep] - lo, int(seg[keep][-1]) - lo + 1,
+                            "sum" if reduce == "mean" else reduce)
+        for s in torch.unique_consecutive(seg[keep]).tolist():
+            a, e = rp[s], rp[s + 1]
+            if a < r0 or e > r1:
+                partial[(run, 0 if s == lo else 1)] = vals[s - lo]
+            else:
+                out[s] = vals[s - lo] / (e - a) if reduce == "mean" \
+                    else vals[s - lo]
+    for s in range(num_segments):
+        a, e = rp[s], rp[s + 1]
+        if a == e:
+            out[s] = _empty_value(reduce)
+            continue
+        ka, kb = a // run_rows, (e - 1) // run_rows
+        if ka == kb:
+            continue
+        acc = partial[(ka, 0 if a == ka * run_rows else 1)]
+        for k in range(ka + 1, kb + 1):
+            acc = (torch.maximum(acc, partial[(k, 0)]) if reduce == "max"
+                   else acc + partial[(k, 0)])
+        out[s] = acc / (e - a) if reduce == "mean" else acc
     return out.to(h.dtype)
 
 
@@ -122,38 +163,40 @@ def check_rows(name: str, h, index_args, weight, num_rows: int) -> None:
 
 
 def gather_segment_reduce_cuda(h, gather_idx, seg_idx, num_segments: int,
-                               weight, reduce: str, chunk_first, chunk_count,
-                               s_b: int, m_b: int, n_b: int = 256):
-    """Launch the Hopper kernel on the current stream (asynchronous).
-    ``chunk_first`` / ``chunk_count`` are the plan metadata on h's device;
-    ``n_b`` caps the threads (feature columns) of one block."""
+                               weight, reduce: str, row_ptr):
+    """Launch the Hopper kernel on the current stream (asynchronous): two
+    kernels, the runs and the fix-up pass, counted as one launch.
+    ``row_ptr`` is :func:`row_offsets` of ``seg_idx`` on h's device (the
+    plan's)."""
     global launches
     if reduce not in REDUCES:
         raise ValueError(f"unknown reduce: {reduce!r}")
     num_rows = int(seg_idx.shape[0])
     check_rows("gather_segment_reduce", h,
-               {"gather_idx": gather_idx, "seg_idx": seg_idx,
-                "chunk_first": chunk_first, "chunk_count": chunk_count},
-               weight, num_rows)
+               {"gather_idx": gather_idx, "seg_idx": seg_idx}, weight,
+               num_rows)
     if gather_idx.shape[0] != num_rows:
         raise ValueError("gather_idx and seg_idx must have the same length")
-    out_blocks = (num_segments + s_b - 1) // s_b
-    if chunk_first.shape[0] != out_blocks or chunk_count.shape[0] != out_blocks:
-        raise ValueError(f"plan metadata has {chunk_first.shape[0]} blocks, "
-                         f"expected {out_blocks}")
+    if (row_ptr.device != h.device or row_ptr.dtype != torch.int64
+            or row_ptr.shape != (num_segments + 1,)
+            or not row_ptr.is_contiguous()):
+        raise ValueError(f"gather_segment_reduce: row_ptr must be a "
+                         f"contiguous ({num_segments + 1},) int64 tensor on "
+                         f"{h.device}")
     feat = int(h.shape[1])
     out = torch.empty((num_segments, feat), dtype=h.dtype, device=h.device)
     if num_segments == 0 or feat == 0:
         return out
+    runs = (num_rows + RUN_ROWS - 1) // RUN_ROWS
+    part = torch.empty((2 * runs, feat), dtype=torch.float32, device=h.device)
     lib = _build.load("gather_segment_reduce")
     with torch.cuda.device(h.device):
         err = lib.gsr_launch(
             DTYPE_CODE[h.dtype], _REDUCE_CODE[reduce], int(weight is not None),
             _build.ptr(h), _build.ptr(gather_idx), _build.ptr(seg_idx),
             _build.ptr(weight if weight is not None else h),
-            _build.ptr(chunk_first), _build.ptr(chunk_count), _build.ptr(out),
-            num_rows, feat, num_segments, s_b, m_b, out_blocks, n_b,
-            _build.stream_of(h))
+            _build.ptr(row_ptr), _build.ptr(part), _build.ptr(out),
+            num_rows, feat, num_segments, RUN_ROWS, _build.stream_of(h))
     _build.check(err, "gather_segment_reduce")
     launches += 1
     return out

@@ -7,8 +7,8 @@ Backend (``impl``):
   * ``"cuda"`` — the hand-written Hopper kernel; raises on CPU tensors;
   * ``"ref"`` — the plain PyTorch version, on any device (on the card it is
     only ever asked for explicitly, as an oracle);
-  * ``"blocked"`` — gather_segment_reduce only: its kernel's
-    ownership-window schedule in plain PyTorch.
+  * ``"blocked"`` — gather_segment_reduce only: its kernel's row-run
+    schedule in plain PyTorch.
 
 There is no fallback: a CUDA tensor reaches the kernel or the call raises.
 
@@ -157,6 +157,15 @@ def _metadata(plan, seg_idx, num_segments: int, config: KernelConfig):
     return chunk_metadata(idxp, num_segments, config.s_b, config.m_b, m_pad)
 
 
+def _row_ptr(plan, seg_idx, num_segments: int):
+    """The segments' row offsets on seg_idx's device: the plan's, or
+    computed on the device from the index (no host round trip)."""
+    if plan is not None:
+        _on_device(plan, seg_idx)
+        return plan.row_ptr
+    return _gsr.row_offsets(_index32(seg_idx), num_segments)
+
+
 def _index32(t):
     return t if t.dtype == torch.int32 and t.is_contiguous() else \
         t.to(torch.int32).contiguous()
@@ -185,19 +194,19 @@ def gather_segment_reduce(h, gather_idx, seg_idx, num_segments: int,
         account("unfused", f"{op}:ref")
         return _gsr.gather_segment_reduce_ref(h, gather_idx, seg_idx,
                                               num_segments, weight, reduce)
-    config = _resolve(plan, int(seg_idx.shape[0]), num_segments, config,
-                      int(h.shape[1]))
-    cf, cc = _metadata(plan, seg_idx, num_segments, config)
+    # the kernel's run length is its own; the tiling is only checked
+    # against the plan's
+    _resolve(plan, int(seg_idx.shape[0]), num_segments, config,
+             int(h.shape[1]))
+    row_ptr = _row_ptr(plan, seg_idx, num_segments)
     if impl == "blocked":
         account("unfused", f"{op}:blocked")
         return _gsr.gather_segment_reduce_blocked(
-            h, gather_idx, seg_idx, num_segments, weight, reduce, cf, cc,
-            config.s_b, config.m_b)
+            h, gather_idx, seg_idx, num_segments, weight, reduce, row_ptr)
     account("fused", op)
     return _gsr.gather_segment_reduce_cuda(
         h.contiguous(), _index32(gather_idx), _index32(seg_idx), num_segments,
-        None if weight is None else weight.contiguous(), reduce, cf, cc,
-        config.s_b, config.m_b, config.n_b)
+        None if weight is None else weight.contiguous(), reduce, row_ptr)
 
 
 def segment_softmax(x, idx, num_segments: int,

@@ -96,7 +96,7 @@ def segment_matmul_cuda(x, w, offsets, first_group, group_count, m_b: int):
                 or t.shape != (n,) or not t.is_contiguous()):
             raise ValueError(f"segment_matmul: {label} must be a contiguous "
                              f"({n},) int32 tensor on {x.device}")
-    if num_rows == 0 or n_dim == 0 or num_groups == 0:
+    if num_rows == 0 or k_dim == 0 or n_dim == 0 or num_groups == 0:
         return torch.zeros((num_rows, n_dim), dtype=x.dtype, device=x.device)
     out = torch.empty((num_rows, n_dim), dtype=x.dtype, device=x.device)
     lib = _build.load("segment_matmul")
@@ -105,7 +105,7 @@ def segment_matmul_cuda(x, w, offsets, first_group, group_count, m_b: int):
             DTYPE_CODE[x.dtype], _build.ptr(x), _build.ptr(w),
             _build.ptr(offsets), _build.ptr(first_group),
             _build.ptr(group_count), _build.ptr(out), num_rows, k_dim, n_dim,
-            num_groups, m_b, m_blocks, _build.stream_of(x))
+            num_groups, m_b, _build.stream_of(x))
     _build.check(err, "segment_matmul")
     launches += 1
     return out

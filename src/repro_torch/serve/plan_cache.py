@@ -9,8 +9,8 @@ A :class:`BucketEntry` canonicalizes everything static per bucket:
     (skew 1), so every decision made from the template is a function of the
     bucket, not of the request.
 
-Per request only the plan's chunk metadata changes:
-:meth:`BucketEntry.stamp` recomputes it (one ``searchsorted`` over the
+Per request only the plan's chunk metadata and row offsets change:
+:meth:`BucketEntry.stamp` recomputes them (``searchsorted`` over the
 padded destinations) under the template — no plan or config work on a
 cache hit. There is no compiled program to keep: PyTorch runs eagerly,
 so an entry is "built" once per bucket and then reused.
@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.core.config_space import KernelConfig
 from repro_torch.core.plan import SegmentPlan, SegmentStats
+from repro_torch.kernels.gather_segment_reduce import row_offsets
 from repro_torch.kernels.segment_reduce import chunk_metadata
 from repro_torch.serve.buckets import ShapeBucket
 
@@ -79,17 +80,18 @@ class BucketEntry:
                           device=dst.device)
         idxp[:dst.numel()] = dst
         cf, cc = chunk_metadata(idxp, v, cfg.s_b, cfg.m_b, self.m_pad)
+        rp = row_offsets(idxp, v)
         if template is not None:
             return dataclasses.replace(template, chunk_first=cf,
-                                       chunk_count=cc)
-        return SegmentPlan(chunk_first=cf, chunk_count=cc,
+                                       chunk_count=cc, row_ptr=rp)
+        return SegmentPlan(chunk_first=cf, chunk_count=cc, row_ptr=rp,
                            num_rows=self.bucket.num_edges, num_segments=v,
                            max_chunks=self.max_chunks, config=cfg,
                            stats=_canonical_stats(self.bucket))
 
     def stamp(self, dst) -> SegmentPlan:
         """A servable plan for one padded graph: the request's chunk
-        metadata under the bucket's static fields. It is computed where
+        metadata and row offsets under the bucket's static fields. It is computed where
         ``dst`` lies (a numpy array gives CPU tensors), so a server stamps
         on the card from the destinations it has already copied there."""
         dst = torch.as_tensor(dst)

@@ -44,14 +44,17 @@ def _close(got, want, dtype):
                                atol=tol * max(scale, 1.0), equal_nan=True)
 
 
-def _graph(dev, v, e, f, seed, gapped=False, pad=0):
-    """Sorted dst (optionally gapped), src, x (v, f), w (e,), plus ``pad``
-    drop-id rows (dst = v) at the end."""
+def _graph(dev, v, e, f, seed, gapped=False, pad=0, hub=0):
+    """Sorted dst (optionally gapped), src, x (v, f), w (e,), plus ``hub``
+    extra rows into segment v // 2 and ``pad`` drop-id rows (dst = v) at
+    the end."""
     rng = np.random.default_rng(seed)
-    dst = np.sort(rng.integers(0, v, e))
+    dst = np.sort(np.concatenate([rng.integers(0, v, e),
+                                  np.full(hub, v // 2)]))
     if gapped:
         dst = dst - dst % 3
     dst = np.concatenate([dst, np.full(pad, v)]).astype(np.int32)
+    e += hub
     src = rng.integers(0, v, e + pad).astype(np.int32)
     x = rng.standard_normal((v, f)).astype(np.float32)
     w = rng.standard_normal(e + pad).astype(np.float32)
@@ -65,6 +68,14 @@ SHAPES = [
     # num_segments % s_b != 0, gapped ids, padding rows, F above one block
     dict(v=1001, e=6000, f=300, cfg=KernelConfig("SR", 32, 128, 32, 1),
          gapped=True, pad=77),
+    # a hub of 100,000 rows (1,563 runs of 64) amid short segments
+    dict(v=3000, e=20000, f=16, cfg=KernelConfig("SR", 32, 128, 64, 1),
+         hub=100_000),
+    # widths that are not a multiple of the 16-byte vector
+    dict(v=2000, e=15000, f=40, cfg=KernelConfig("SR", 32, 128, 64, 1),
+         gapped=True, pad=50),
+    dict(v=2000, e=15000, f=3, cfg=KernelConfig("SR", 32, 128, 16, 1),
+         pad=5),
 ]
 
 
@@ -75,7 +86,8 @@ SHAPES = [
 def test_gather_segment_reduce_kernel(dev, shape, dtype, reduce, weighted):
     s = SHAPES[shape]
     src, dst, x, w = _graph(dev, s["v"], s["e"], s["f"], seed=shape,
-                            gapped=s.get("gapped", False), pad=s.get("pad", 0))
+                            gapped=s.get("gapped", False), pad=s.get("pad", 0),
+                            hub=s.get("hub", 0))
     plan = make_plan(dst, s["v"], config=s["cfg"])
     xi = x.to(dtype)
     wi = w.to(dtype) if weighted else None
@@ -89,6 +101,22 @@ def test_gather_segment_reduce_kernel(dev, shape, dtype, reduce, weighted):
         xi.float(), src, dst, s["v"], weight=None if wi is None else wi.float(),
         reduce=reduce, impl="ref")
     _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("reduce", ["sum", "mean", "max"])
+def test_gather_segment_reduce_deterministic(dev, dtype, reduce):
+    """Two launches on the hub graph give the same bits: cut segments are
+    folded in run order, with no atomics."""
+    src, dst, x, w = _graph(dev, 3000, 20000, 64, seed=11, hub=100_000,
+                            pad=9)
+    plan = make_plan(dst, 3000, config=KernelConfig("SR", 32, 128, 64, 1))
+    xi, wi = x.to(dtype), w.to(dtype)
+    first = kops.gather_segment_reduce(xi, src, dst, 3000, wi, reduce,
+                                       plan=plan, impl="cuda")
+    again = kops.gather_segment_reduce(xi, src, dst, 3000, wi, reduce,
+                                       plan=plan, impl="cuda")
+    assert torch.equal(first, again)
 
 
 def test_gather_segment_reduce_empty_graph(dev):
@@ -183,6 +211,28 @@ SMM_CASES = {
     "single": dict(sizes=lambda rng: np.array([5000]), pad=0, k=32, n=128),
     "all_empty": dict(sizes=lambda rng: np.zeros(7, np.int64), pad=300, k=16,
                       n=16),
+    # the narrow output widths of the typed layers
+    "n16": dict(sizes=lambda rng: rng.integers(0, 3000, 20), pad=17, k=64,
+                n=16),
+    "n32": dict(sizes=lambda rng: rng.integers(0, 3000, 20), pad=0, k=32,
+                n=32),
+    # groups of 1-3 rows: every 128-row tile overlaps some 60 groups
+    "tiny_groups": dict(sizes=lambda rng: rng.integers(1, 4, 2000), pad=40,
+                        k=64, n=64),
+    # a row of an odd number of elements (no 4-byte copies in bf16)
+    "odd_k": dict(sizes=lambda rng: rng.integers(0, 500, 9), pad=3, k=7,
+                  n=24),
+    # K deeper than shared memory holds in one pass: taken in chunks of K
+    # (fp32 already at 160 with N = 128)
+    "deep_k": dict(sizes=lambda rng: rng.integers(0, 2000, 10), pad=5,
+                   k=160, n=128),
+    "k512": dict(sizes=lambda rng: rng.integers(0, 700, 12), pad=9, k=512,
+                 n=128),
+    "k1024": dict(sizes=lambda rng: rng.integers(0, 300, 8), pad=3, k=1024,
+                  n=16),
+    # a deep odd K: a short last chunk, and 2-byte copies in bf16
+    "k1001": dict(sizes=lambda rng: rng.integers(0, 300, 6), pad=0, k=1001,
+                  n=40),
 }
 
 
@@ -212,12 +262,29 @@ def test_segment_matmul_kernel(dev, case, dtype, with_plan):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [16, 64, 128])
+def test_segment_matmul_deterministic(dev, dtype, n):
+    from repro_torch.core.plan import make_relation_plan
+    rng = np.random.default_rng(n)
+    sizes = torch.from_numpy(rng.integers(0, 5000, 40).astype(np.int32)
+                             ).to(dev)
+    m = int(sizes.sum()) + 33
+    x = torch.randn(m, 64, device=dev).to(dtype)
+    w = (torch.randn(40, 64, n, device=dev) / 8).to(dtype)
+    plan = make_relation_plan(sizes, num_rows=m, feat=n)
+    first = kops.segment_matmul(x, sizes, w, plan=plan, impl="cuda")
+    again = kops.segment_matmul(x, sizes, w, plan=plan, impl="cuda")
+    assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("reduce", ["sum", "mean", "max"])
 @pytest.mark.parametrize("shape", range(len(SHAPES)))
 def test_segment_reduce_kernel(dev, dtype, reduce, shape):
     s = SHAPES[shape]
     _, dst, _, _ = _graph(dev, s["v"], s["e"], 1, seed=shape,
-                          gapped=s.get("gapped", False), pad=s.get("pad", 0))
+                          gapped=s.get("gapped", False), pad=s.get("pad", 0),
+                          hub=s.get("hub", 0))
     x = torch.randn(dst.numel(), s["f"], device=dev).to(dtype)
     plan = make_plan(dst, s["v"], config=s["cfg"])
     for p in (plan, None):

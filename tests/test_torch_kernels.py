@@ -8,6 +8,7 @@ cast-then-reduce oracle (the port's plain version on the upcast inputs).
 bf16 is not compared with the reference's bf16 ``impl="ref"``, whose mean
 counts in bf16.
 """
+import functools
 import os
 import re
 import subprocess
@@ -31,6 +32,7 @@ from repro_torch.core.plan import make_plan  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.fused_transform_reduce import (  # noqa: E402
     fusable, fused_transform_reduce_cuda)
+from repro_torch.kernels import gather_segment_reduce as tgsr  # noqa: E402
 from repro_torch.kernels.gather_segment_reduce import (  # noqa: E402
     gather_segment_reduce_cuda)
 from repro_torch.kernels.segment_softmax import segment_softmax_cuda  # noqa: E402
@@ -144,7 +146,8 @@ def test_fused_transform_reduce_plain_matches_pallas(dtype, reduce, weighted):
 
 # ---------------------------------------------------------------------------
 # the blocked schedule: the CPU evidence that the kernel reads the plan
-# metadata right (ownership windows, ragged last block, padding, empty blocks)
+# metadata right (runs of rows that start inside segments, segments cut by
+# run ends, a hub over several runs, empty segments, padding)
 # ---------------------------------------------------------------------------
 
 def _windowed_graph():
@@ -161,25 +164,90 @@ def _windowed_graph():
     return src, dst, x, w, v
 
 
+def _hub_graph():
+    """A hub of 300 rows into segment 40, alone in the empty stretch
+    [20, 60], between short segments, plus 6 padding rows."""
+    rng = np.random.default_rng(12)
+    v = 90
+    dst = rng.integers(0, v, 400)
+    dst = np.sort(np.concatenate([dst[(dst < 20) | (dst > 60)],
+                                  np.full(300, 40)]))
+    dst = np.concatenate([dst, np.full(6, v)]).astype(np.int32)
+    src = rng.integers(0, v, dst.size).astype(np.int32)
+    x = rng.standard_normal((v, 9)).astype(np.float32)
+    w = rng.standard_normal(dst.size).astype(np.float32)
+    return src, dst, x, w, v
+
+
+_GRAPHS = {"windowed": _windowed_graph, "hub": _hub_graph}
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_gather(graph, reduce, weighted):
+    """The reference's gather kernel (interpret mode) on the same inputs."""
+    src, dst, x, w, v = _GRAPHS[graph]()
+    if weighted:
+        out = jops.index_weight_segment_reduce(_j(x), _j(src), _j(w), _j(dst),
+                                               v, reduce, "pallas", JCFG)
+    else:
+        out = jops.index_segment_reduce(_j(x), _j(src), _j(dst), v, reduce,
+                                        "pallas", JCFG)
+    return _np(out)
+
+
+@pytest.mark.parametrize("graph", list(_GRAPHS))
 @pytest.mark.parametrize("reduce", ["sum", "mean", "max"])
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("tiling", [(32, 64), (32, 7), (64, 1000)])
-def test_blocked_schedule_matches_plain(reduce, weighted, tiling):
-    src, dst, x, w, v = _windowed_graph()
+def test_blocked_schedule_matches_plain(graph, reduce, weighted, tiling):
+    """Through the wrapper the schedule runs the kernel's runs of
+    RUN_ROWS; called directly it also runs runs of the tiling's m_b rows,
+    which cut more segments at this small size."""
+    src, dst, x, w, v = _GRAPHS[graph]()
     cfg = TConfig("SR", tiling[0], 128, tiling[1], 1)
+    run = cfg.m_b
     plan = make_plan(dst, v, config=cfg, device="cpu")
-    if cfg.s_b == 32:
+    rp = plan.row_ptr.numpy()
+    assert plan.row_ptr.dtype == torch.int64
+    np.testing.assert_array_equal(
+        rp, np.searchsorted(dst, np.arange(v + 1), side="left"))
+    if graph == "windowed" and cfg.s_b == 32:
         assert int(plan.chunk_count[1]) == 0, "block 1 must own no rows"
+    if graph == "hub":      # the hub is cut by a run end, or spans several
+        assert rp[41] // tgsr.RUN_ROWS > rp[40] // tgsr.RUN_ROWS
+        if run < 300:
+            assert rp[41] // run - rp[40] // run >= 2
     wt = _t(w) if weighted else None
     want = kops.gather_segment_reduce(_t(x), _t(src), _t(dst), v, weight=wt,
                                       reduce=reduce, impl="ref")
+    # the hub's 300 rows are summed in partials of a run, folded in run
+    # order, so its sum differs from index_add_'s order by fp32 rounding:
+    # held to the fp32 tier of tests/test_precision.py there
+    tol = 1e-6 if graph == "windowed" else 1e-5
     for p in (plan, None):      # plan metadata, or derived per call
         got = kops.gather_segment_reduce(_t(x), _t(src), _t(dst), v,
                                          weight=wt, reduce=reduce, config=cfg,
                                          plan=p, impl="blocked")
-        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    got_run = tgsr.gather_segment_reduce_blocked(
+        _t(x), _t(src), _t(dst), v, wt, reduce, plan.row_ptr, run)
+    torch.testing.assert_close(got_run, want, rtol=tol, atol=tol)
+    for out in (got, got_run):
+        np.testing.assert_allclose(_np(out), _pallas_gather(graph, reduce,
+                                                            weighted),
+                                   **_tol("float32"))
     if reduce == "max":
-        assert bool(torch.isneginf(want[32:64]).all())
+        empty = (rp[1:] == rp[:-1])
+        assert empty.any() and bool(torch.isneginf(got[empty]).all())
+
+
+def test_run_length_matches_kernel_source():
+    """The wrapper sizes the kernel's scratch and the blocked schedule cuts
+    its runs with RUN_ROWS: it must be the kernel's own constant."""
+    src = (ROOT / "src/repro_torch/kernels/csrc/gather_segment_reduce.cu"
+           ).read_text()
+    assert re.findall(r"constexpr int RUN = (\d+);", src) == [
+        str(tgsr.RUN_ROWS)]
 
 
 # ---------------------------------------------------------------------------
@@ -218,8 +286,7 @@ def _cuda_calls():
             lambda: tmp.mp_transform(h, wm, torch.stack([s, d]), v,
                                      impl="cuda"),
         "gather_segment_reduce_cuda":
-            lambda: gather_segment_reduce_cuda(h, s, d, v, None, "sum", d, d,
-                                               32, 64),
+            lambda: gather_segment_reduce_cuda(h, s, d, v, None, "sum", d),
         "segment_softmax_cuda":
             lambda: segment_softmax_cuda(_t(w), d, v, d, d, 32, 64),
         "fused_transform_reduce_cuda":

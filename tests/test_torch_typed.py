@@ -176,6 +176,55 @@ def test_segment_matmul_plain_matches_pallas(dtype, kind, pad, k, n):
         assert bool((got[m - pad:] == 0).all()), "rows of no group are 0"
 
 
+def _tf32_hi(a):
+    """``a`` with its low 13 mantissa bits cleared: the kernel's x_hi, and
+    TF32 as the tensor core reads an fp32 operand (truncated)."""
+    return (a.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_rna(a):
+    """``a`` rounded to TF32's 10 mantissa bits, ties away from zero, as
+    ``cvt.rna.tf32.f32`` rounds it."""
+    return ((a.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("k", [32, 64])
+def test_segment_matmul_3xtf32_split_error(k):
+    """The fp32 arithmetic of csrc/segment_matmul.cu, emulated: x = x_hi +
+    x_lo, w = w_hi + w_lo (x_lo = x - x_hi, truncated to TF32 as the tensor
+    core reads it), out = x_lo·w_hi + x_hi·w_lo + x_hi·w_hi with fp32
+    accumulation. Its error is that of a plain fp32 product (within
+    1e-6 of an fp64 product, relative to Σ|x·w|), well inside the kernel's
+    1e-4 check; one plain TF32 pass is not (about 3 digits)."""
+    rng = np.random.default_rng(k)
+    sizes = np.array([300, 0, 137, 75], np.int32)
+    x = torch.from_numpy(rng.standard_normal((512, k)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((sizes.size, k, 64))
+                          / np.sqrt(k)).astype(np.float32))
+    split = torch.zeros(512, 64)
+    start = 0
+    for g, n in enumerate(sizes.tolist()):
+        xg, wg = x[start:start + n], w[g]
+        xh, wh = _tf32_hi(xg), _tf32_hi(wg)
+        xl, wl = _tf32_hi(xg - xh), _tf32_hi(wg - wh)
+        split[start:start + n] = xl @ wh + xh @ wl + xh @ wh
+        start += n
+    ref = tsmm.segment_matmul_ref(x.double(), torch.from_numpy(sizes),
+                                  w.double())
+    scale = tsmm.segment_matmul_ref(x.double().abs(), torch.from_numpy(sizes),
+                                    w.double().abs()).clamp_min(1e-30)
+    assert float(((split.double() - ref).abs() / scale).max()) < 1e-6
+    single = tsmm.segment_matmul_ref(_tf32_rna(x), torch.from_numpy(sizes),
+                                     _tf32_rna(w))
+    assert float(((single.double() - ref).abs() / scale).max()) > 1e-4
+    want = jsmm.segment_matmul_pallas(jnp.asarray(x.numpy()),
+                                      jnp.asarray(sizes),
+                                      jnp.asarray(w.numpy()), m_b=16,
+                                      n_b=128, interpret=True)
+    np.testing.assert_allclose(split.numpy(), np.asarray(want, np.float32),
+                               **_tol("float32"))
+
+
 # ---------------------------------------------------------------------------
 # typed message passing and the 3-layer typed models
 # ---------------------------------------------------------------------------
