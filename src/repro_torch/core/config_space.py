@@ -8,14 +8,14 @@ The paper's GPU parameters, as the port's CUDA kernels read them:
     schedule (SR / PR)                →  the sequential walk; a PR request
                                          runs the same walk on Hopper
 
-In the window kernels (softmax, fused transform-reduce, segment_reduce) a
-block owns segments ``[b·S_b, (b+1)·S_b)`` and reads its rows from the
-chunk range the :class:`~repro_torch.core.plan.SegmentPlan` assigns it.
-The gather kernel reads none of this tiling: it splits the rows into
-runs of a fixed length of its own (``csrc/gather_segment_reduce.cu``)
-and folds the segments its runs cut in run order from the plan's row
-offsets. Either way no atomics are needed and the result is
-deterministic.
+In the one window kernel left (fused transform-reduce) a block owns
+segments ``[b·S_b, (b+1)·S_b)`` and reads its rows from the chunk range
+the :class:`~repro_torch.core.plan.SegmentPlan` assigns it. The gather,
+segment_reduce and softmax kernels read none of this tiling: they split
+the rows into runs of a fixed length of their own (``csrc/row_runs.cuh``,
+``csrc/segment_softmax.cu``) and fold the segments their runs cut in run
+order from the plan's row offsets. Either way no atomics are needed and
+the result is deterministic.
 
 Hopper limits: 227 KB (232,448 B) of shared memory per block, warps of 32
 threads. Measured config selection (PerfDB, decision-tree rules) is not

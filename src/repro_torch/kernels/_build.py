@@ -44,9 +44,9 @@ SIGNATURES = {
                        _L, _I, _I, _I, _P],
     },
     "segment_softmax": {
-        # dtype, x, seg, cf, cc, out, num_rows, heads, num_segments,
-        # s_b, m_b, out_blocks, stream
-        "ssm_launch": [_I, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
+        # dtype, x, seg, row_ptr, part, out, num_rows, heads, num_segments,
+        # run_rows, stream
+        "ssm_launch": [_I, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
     },
     "fused_transform_reduce": {
         # dtype, mean, weighted, h, wm, gidx, seg, wt, cf, cc, out,
@@ -55,10 +55,9 @@ SIGNATURES = {
                        _L, _I, _I, _I, _I, _I, _I, _P],
     },
     "segment_reduce": {
-        # dtype, reduce, x, seg, cf, cc, out, num_rows, feat, num_segments,
-        # s_b, m_b, out_blocks, n_b, stream
-        "srd_launch": [_I, _I, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I,
-                       _P],
+        # dtype, reduce, x, seg, row_ptr, part, out, num_rows, feat,
+        # num_segments, run_rows, stream
+        "srd_launch": [_I, _I, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
     },
     "sddmm": {
         # dtype, a, b, row, col, out, m, n, stream

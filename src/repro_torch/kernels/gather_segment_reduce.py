@@ -162,6 +162,16 @@ def check_rows(name: str, h, index_args, weight, num_rows: int) -> None:
                          f"{h.dtype} tensor on {h.device}")
 
 
+def check_row_ptr(name: str, row_ptr, num_segments: int, device) -> None:
+    """The row offsets a row-run kernel reads: a contiguous
+    ``(num_segments + 1,)`` int64 tensor on the data's device."""
+    if (row_ptr.device != device or row_ptr.dtype != torch.int64
+            or row_ptr.shape != (num_segments + 1,)
+            or not row_ptr.is_contiguous()):
+        raise ValueError(f"{name}: row_ptr must be a contiguous "
+                         f"({num_segments + 1},) int64 tensor on {device}")
+
+
 def gather_segment_reduce_cuda(h, gather_idx, seg_idx, num_segments: int,
                                weight, reduce: str, row_ptr):
     """Launch the Hopper kernel on the current stream (asynchronous): two
@@ -177,12 +187,7 @@ def gather_segment_reduce_cuda(h, gather_idx, seg_idx, num_segments: int,
                num_rows)
     if gather_idx.shape[0] != num_rows:
         raise ValueError("gather_idx and seg_idx must have the same length")
-    if (row_ptr.device != h.device or row_ptr.dtype != torch.int64
-            or row_ptr.shape != (num_segments + 1,)
-            or not row_ptr.is_contiguous()):
-        raise ValueError(f"gather_segment_reduce: row_ptr must be a "
-                         f"contiguous ({num_segments + 1},) int64 tensor on "
-                         f"{h.device}")
+    check_row_ptr("gather_segment_reduce", row_ptr, num_segments, h.device)
     feat = int(h.shape[1])
     out = torch.empty((num_segments, feat), dtype=h.dtype, device=h.device)
     if num_segments == 0 or feat == 0:

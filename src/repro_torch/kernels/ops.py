@@ -7,13 +7,17 @@ Backend (``impl``):
   * ``"cuda"`` — the hand-written Hopper kernel; raises on CPU tensors;
   * ``"ref"`` — the plain PyTorch version, on any device (on the card it is
     only ever asked for explicitly, as an oracle);
-  * ``"blocked"`` — gather_segment_reduce only: its kernel's row-run
-    schedule in plain PyTorch.
+  * ``"blocked"`` — gather_segment_reduce, segment_reduce and
+    segment_softmax: their kernels' row-run schedules in plain PyTorch.
 
 There is no fallback: a CUDA tensor reaches the kernel or the call raises.
 
-Config precedence: ``plan`` > explicit ``config=`` > the Hopper default.
-A plan's tiling is authoritative; an explicit config must agree with it.
+Config: the fused kernel and segment_matmul tile by ``plan`` > explicit
+``config=`` > the Hopper default. The row-run kernels (gather_segment_reduce,
+segment_reduce, segment_softmax) have a run length of their own and read
+nothing of a config: for them ``config=`` is only checked against the plan.
+Either way a plan's tiling is authoritative and an explicit config must
+agree with it.
 A plan's metadata must lie on the data's device: no call copies it (build
 plans with ``device=``, or move one once with ``plan.to``).
 
@@ -133,6 +137,13 @@ def _resolve(plan, num_rows: int, num_segments: int,
     return config if config is not None else default_config(feat)
 
 
+def _check_plan(plan, num_rows: int, num_segments: int,
+                config: Optional[KernelConfig]) -> None:
+    """For the row-run kernels, which read no tiling: the plan must fit
+    the data and an explicit config must agree with the plan's."""
+    _resolve_plan(plan, num_rows, num_segments, config, None)
+
+
 def _on_device(plan, t) -> None:
     """Refuse a plan whose metadata lies elsewhere than the data: copying
     it would cost a host-to-device transfer on every launch."""
@@ -144,8 +155,9 @@ def _on_device(plan, t) -> None:
 
 
 def _metadata(plan, seg_idx, num_segments: int, config: KernelConfig):
-    """(chunk_first, chunk_count) on seg_idx's device: the plan's, or
-    computed on the device from the padded index (no host round trip)."""
+    """The fused kernel's (chunk_first, chunk_count) on seg_idx's device:
+    the plan's, or computed on the device from the padded index (no host
+    round trip)."""
     if plan is not None:
         _on_device(plan, seg_idx)
         return plan.chunk_first, plan.chunk_count
@@ -181,7 +193,8 @@ def gather_segment_reduce(h, gather_idx, seg_idx, num_segments: int,
                           impl: Optional[str] = None):
     """Y[s] = reduce_{seg[i]==s} (w[i]·) H[gather_idx[i]], one launch for
     every reduce ∈ {sum, mean, max}, weighted or not. ``seg_idx`` must be
-    sorted non-decreasing."""
+    sorted non-decreasing. ``config`` is only checked against ``plan``: the
+    kernel's run length is its own."""
     if reduce not in _gsr.REDUCES:
         raise ValueError(f"unknown reduce: {reduce!r}")
     impl = resolve_impl(h, impl)
@@ -194,10 +207,7 @@ def gather_segment_reduce(h, gather_idx, seg_idx, num_segments: int,
         account("unfused", f"{op}:ref")
         return _gsr.gather_segment_reduce_ref(h, gather_idx, seg_idx,
                                               num_segments, weight, reduce)
-    # the kernel's run length is its own; the tiling is only checked
-    # against the plan's
-    _resolve(plan, int(seg_idx.shape[0]), num_segments, config,
-             int(h.shape[1]))
+    _check_plan(plan, int(seg_idx.shape[0]), num_segments, config)
     row_ptr = _row_ptr(plan, seg_idx, num_segments)
     if impl == "blocked":
         account("unfused", f"{op}:blocked")
@@ -212,18 +222,21 @@ def gather_segment_reduce(h, gather_idx, seg_idx, num_segments: int,
 def segment_softmax(x, idx, num_segments: int,
                     config: Optional[KernelConfig] = None, plan=None,
                     impl: Optional[str] = None):
-    """Softmax within sorted segments, (E,) or (E, H) logits, one launch."""
-    impl = resolve_impl(x, impl, ("cuda", "ref"))
+    """Softmax within sorted segments, (E,) or (E, H) logits, one launch.
+    ``config`` is only checked against ``plan``: the kernel's run length is
+    its own."""
+    impl = resolve_impl(x, impl)
     if impl == "ref":
         account("unfused", "segment_softmax:ref")
         return _ssm.segment_softmax_ref(x, idx, num_segments)
-    feat = int(x.shape[1]) if x.dim() > 1 else 1
-    config = _resolve(plan, int(idx.shape[0]), num_segments, config, feat)
-    cf, cc = _metadata(plan, idx, num_segments, config)
+    _check_plan(plan, int(idx.shape[0]), num_segments, config)
+    row_ptr = _row_ptr(plan, idx, num_segments)
+    if impl == "blocked":
+        account("unfused", "segment_softmax:blocked")
+        return _ssm.segment_softmax_blocked(x, idx, num_segments, row_ptr)
     account("fused", "segment_softmax")
     return _ssm.segment_softmax_cuda(x.contiguous(), _index32(idx),
-                                     num_segments, cf, cc, config.s_b,
-                                     config.m_b)
+                                     num_segments, row_ptr)
 
 
 def fused_transform_reduce(h, w, gather_idx, seg_idx, num_segments: int,
@@ -261,21 +274,24 @@ def segment_reduce(x, idx, num_segments: int, reduce: str = "sum",
                    impl: Optional[str] = None):
     """Y[s] = reduce_{idx[i]==s} X[i], one launch for reduce ∈ {sum, mean,
     max} (the mean's count lives in the kernel). ``idx`` must be sorted
-    non-decreasing."""
+    non-decreasing. ``config`` is only checked against ``plan``: the
+    kernel's run length is its own."""
     if reduce not in _gsr.REDUCES:
         raise ValueError(f"unknown reduce: {reduce!r}")
-    impl = resolve_impl(x, impl, ("cuda", "ref"))
+    impl = resolve_impl(x, impl)
     op = f"segment_reduce_{reduce}"
     if impl == "ref":
         account("unfused", f"{op}:ref")
         return _srd.segment_reduce_ref(x, idx, num_segments, reduce)
-    config = _resolve(plan, int(idx.shape[0]), num_segments, config,
-                      int(x.shape[1]))
-    cf, cc = _metadata(plan, idx, num_segments, config)
+    _check_plan(plan, int(idx.shape[0]), num_segments, config)
+    row_ptr = _row_ptr(plan, idx, num_segments)
+    if impl == "blocked":
+        account("unfused", f"{op}:blocked")
+        return _srd.segment_reduce_blocked(x, idx, num_segments, reduce,
+                                           row_ptr)
     account("fused", op)
     return _srd.segment_reduce_cuda(x.contiguous(), _index32(idx),
-                                    num_segments, reduce, cf, cc, config.s_b,
-                                    config.m_b, config.n_b)
+                                    num_segments, reduce, row_ptr)
 
 
 def sddmm(a, b, row_idx, col_idx, impl: Optional[str] = None):

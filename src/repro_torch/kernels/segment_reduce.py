@@ -1,24 +1,27 @@
-"""Segment reduction (paper Fig. 2) and the chunk metadata shared by every
-segment kernel of the port:
+"""Segment reduction (paper Fig. 2) and the chunk metadata of the plans:
 
     Y[s] = reduce_{i: idx[i]==s} X[i]      reduce ∈ {sum, mean, max}
 
   * :func:`segment_reduce_cuda` — the hand-written Hopper kernel
-    (``csrc/segment_reduce.cu``). Replaces the TPU kernel
+    (``csrc/segment_reduce.cu``, the gather kernel's row runs of
+    ``csrc/row_runs.cuh`` with an identity gather). Replaces the TPU kernel
     ``repro/kernels/segment_reduce.py:segment_reduce_pallas``.
   * :func:`segment_reduce_ref` — the plain PyTorch version.
+  * :func:`segment_reduce_blocked` — the kernel's schedule in plain
+    PyTorch: runs of :data:`RUN_ROWS` rows that write whole segments or
+    keep partials of cut ones, folded in run order over the plan's row
+    offsets (the gather's mirror with an identity gather).
 
-Semantics of both: ``idx`` sorted non-decreasing; fp32 accumulation,
+Semantics of all three: ``idx`` sorted non-decreasing; fp32 accumulation,
 output in the io dtype of ``X``; an empty segment is ``-inf`` for max and 0
 otherwise; mean is the sum over ``max(count, 1)``; rows with
 ``idx >= num_segments`` are dropped.
 
-Each output block ``b`` owns segment ids ``[b·S_b, (b+1)·S_b)``. Because
-the segment index is sorted, the rows feeding block ``b`` form one
+:func:`chunk_metadata` is the plans' window metadata (the fused kernel's
+schedule): output block ``b`` owns segment ids ``[b·S_b, (b+1)·S_b)``.
+Because the segment index is sorted, the rows feeding block ``b`` form one
 contiguous range; ``chunk_metadata`` maps ``b`` to the range of ``M_b``-row
-chunks that covers it. Chunks shared with a neighbouring block are read by
-both, and each block skips the rows outside its window, so no atomics are
-needed.
+chunks that covers it.
 """
 from __future__ import annotations
 
@@ -28,11 +31,15 @@ import torch
 
 from repro_torch.core.config_space import KernelConfig
 from repro_torch.kernels import _build
-from repro_torch.kernels.gather_segment_reduce import (DTYPE_CODE, REDUCES,
-                                                       _REDUCE_CODE,
-                                                       _reduce_rows)
+from repro_torch.kernels.gather_segment_reduce import (
+    DTYPE_CODE, REDUCES, _REDUCE_CODE, _reduce_rows, check_row_ptr,
+    gather_segment_reduce_blocked)
 
-launches = 0    # launches of the CUDA kernel in this process
+# rows of one run of the kernel's schedule: the constant RUN of
+# csrc/segment_reduce.cu, which the launch checks against this copy
+RUN_ROWS = 64
+
+launches = 0    # wrapper launches in this process (each is two kernels)
 
 
 def chunk_metadata(idx, num_segments: int, s_b: int, m_b: int, m_pad: int):
@@ -90,11 +97,22 @@ def segment_reduce_ref(x, idx, num_segments: int, reduce: str = "sum"):
     return out[:num_segments].to(x.dtype)
 
 
-def segment_reduce_cuda(x, idx, num_segments: int, reduce: str, chunk_first,
-                        chunk_count, s_b: int, m_b: int, n_b: int = 256):
-    """Launch the Hopper kernel on the current stream (asynchronous).
-    ``chunk_first`` / ``chunk_count`` are the plan metadata on x's device;
-    ``n_b`` caps the threads (feature columns) of one block."""
+def segment_reduce_blocked(x, idx, num_segments: int, reduce: str, row_ptr,
+                           run_rows: int = RUN_ROWS):
+    """The CUDA kernel's row-run schedule in plain PyTorch: the gather's
+    mirror (:func:`~repro_torch.kernels.gather_segment_reduce.
+    gather_segment_reduce_blocked`) with the identity gather, runs of
+    ``run_rows`` (the kernel's, unless a test asks for shorter runs)."""
+    rows = torch.arange(int(idx.shape[0]), device=x.device)
+    return gather_segment_reduce_blocked(x, rows, idx, num_segments, None,
+                                         reduce, row_ptr, run_rows)
+
+
+def segment_reduce_cuda(x, idx, num_segments: int, reduce: str, row_ptr):
+    """Launch the Hopper kernel on the current stream (asynchronous): two
+    kernels, the runs and the fix-up pass, counted as one launch.
+    ``row_ptr`` is the segments' int64 row offsets on x's device (the
+    plan's)."""
     global launches
     if reduce not in REDUCES:
         raise ValueError(f"unknown reduce: {reduce!r}")
@@ -107,24 +125,23 @@ def segment_reduce_cuda(x, idx, num_segments: int, reduce: str, chunk_first,
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError("segment_reduce: x must be a contiguous 2-D tensor")
     num_rows, feat = (int(d) for d in x.shape)
-    out_blocks = (num_segments + s_b - 1) // s_b
-    for label, t, n in (("idx", idx, num_rows),
-                        ("chunk_first", chunk_first, out_blocks),
-                        ("chunk_count", chunk_count, out_blocks)):
-        if (t.device != x.device or t.dtype != torch.int32
-                or t.shape != (n,) or not t.is_contiguous()):
-            raise ValueError(f"segment_reduce: {label} must be a contiguous "
-                             f"({n},) int32 tensor on {x.device}")
+    if (idx.device != x.device or idx.dtype != torch.int32
+            or idx.shape != (num_rows,) or not idx.is_contiguous()):
+        raise ValueError(f"segment_reduce: idx must be a contiguous "
+                         f"({num_rows},) int32 tensor on {x.device}")
+    check_row_ptr("segment_reduce", row_ptr, num_segments, x.device)
     out = torch.empty((num_segments, feat), dtype=x.dtype, device=x.device)
     if num_segments == 0 or feat == 0:
         return out
+    runs = (num_rows + RUN_ROWS - 1) // RUN_ROWS
+    part = torch.empty((2 * runs, feat), dtype=torch.float32, device=x.device)
     lib = _build.load("segment_reduce")
     with torch.cuda.device(x.device):
         err = lib.srd_launch(
             DTYPE_CODE[x.dtype], _REDUCE_CODE[reduce], _build.ptr(x),
-            _build.ptr(idx), _build.ptr(chunk_first), _build.ptr(chunk_count),
-            _build.ptr(out), num_rows, feat, num_segments, s_b, m_b,
-            out_blocks, n_b, _build.stream_of(x))
+            _build.ptr(idx), _build.ptr(row_ptr), _build.ptr(part),
+            _build.ptr(out), num_rows, feat, num_segments, RUN_ROWS,
+            _build.stream_of(x))
     _build.check(err, "segment_reduce")
     launches += 1
     return out

@@ -146,6 +146,58 @@ def test_segment_softmax_kernel(dev, dtype, heads):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("heads", [0, 2, 4])
+def test_segment_softmax_hub(dev, dtype, heads):
+    """A hub of 100,000 rows (782 runs of 128) amid short segments, and
+    padding rows: the hub's partials fold in run order."""
+    _, dst, _, _ = _graph(dev, 3000, 20000, 1, seed=13, hub=100_000, pad=41)
+    shape = (dst.shape[0],) if heads == 0 else (dst.shape[0], heads)
+    x = (torch.randn(shape, device=dev) * 5).to(dtype)
+    plan = make_plan(dst, 3000)
+    for p in (plan, None):
+        got = kops.segment_softmax(x, dst, 3000, plan=p, impl="cuda")
+        torch.cuda.synchronize()
+        _close(got, kops.segment_softmax(x.float(), dst, 3000, impl="ref"),
+               dtype)
+        assert bool((got[-41:] == 0).all()), "dropped rows must be exactly 0"
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("heads", [0, 4])
+def test_segment_softmax_deterministic(dev, dtype, heads):
+    """Two launches on the hub graph give the same bits: cut segments are
+    folded in run order, with no atomics."""
+    _, dst, _, _ = _graph(dev, 3000, 20000, 1, seed=14, hub=100_000, pad=9)
+    shape = (dst.shape[0],) if heads == 0 else (dst.shape[0], heads)
+    x = (torch.randn(shape, device=dev) * 5).to(dtype)
+    plan = make_plan(dst, 3000)
+    before = kops.launch_counts()["segment_softmax"]
+    first = kops.segment_softmax(x, dst, 3000, plan=plan, impl="cuda")
+    again = kops.segment_softmax(x, dst, 3000, plan=plan, impl="cuda")
+    assert kops.launch_counts()["segment_softmax"] == before + 2
+    assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("heads", [0, 2])
+def test_segment_softmax_all_neg_inf_segment(dev, heads):
+    """A segment whose logits are all -inf comes out 0 (a max that is not
+    finite counts as 0, as in the plain version and the JAX impl="ref"),
+    whether it lies inside one run or is the hub that spans many."""
+    _, dst, _, _ = _graph(dev, 3000, 20000, 1, seed=15, hub=5000, pad=3)
+    shape = (dst.shape[0],) if heads == 0 else (dst.shape[0], heads)
+    x = torch.randn(shape, device=dev) * 5
+    short = int(dst[7])
+    for s in (short, 1500):                     # 1500: the hub
+        x[dst == s] = float("-inf")
+    got = kops.segment_softmax(x, dst, 3000, impl="cuda")
+    torch.cuda.synchronize()
+    for s in (short, 1500):
+        assert bool((got[dst == s] == 0).all())
+    assert bool(torch.isfinite(got).all())
+    _close(got, kops.segment_softmax(x, dst, 3000, impl="ref"), torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("reduce", ["sum", "mean"])
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("dims", [(32, 64, 32), (100, 48, 32), (256, 128, 128)])
@@ -293,6 +345,20 @@ def test_segment_reduce_kernel(dev, dtype, reduce, shape):
         assert got.dtype == dtype and got.shape == (s["v"], s["f"])
         _close(got, kops.segment_reduce(x.float(), dst, s["v"], reduce,
                                         impl="ref"), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("reduce", ["sum", "mean", "max"])
+def test_segment_reduce_deterministic(dev, dtype, reduce):
+    """Two launches on the hub graph give the same bits."""
+    _, dst, _, _ = _graph(dev, 3000, 20000, 1, seed=16, hub=100_000, pad=9)
+    x = torch.randn(dst.numel(), 64, device=dev).to(dtype)
+    plan = make_plan(dst, 3000)
+    before = kops.launch_counts()["segment_reduce"]
+    first = kops.segment_reduce(x, dst, 3000, reduce, plan=plan, impl="cuda")
+    again = kops.segment_reduce(x, dst, 3000, reduce, plan=plan, impl="cuda")
+    assert kops.launch_counts()["segment_reduce"] == before + 2
+    assert torch.equal(first, again)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

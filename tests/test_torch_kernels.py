@@ -33,9 +33,12 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.fused_transform_reduce import (  # noqa: E402
     fusable, fused_transform_reduce_cuda)
 from repro_torch.kernels import gather_segment_reduce as tgsr  # noqa: E402
+from repro_torch.kernels import segment_reduce as tsrd  # noqa: E402
+from repro_torch.kernels import segment_softmax as tssm  # noqa: E402
 from repro_torch.kernels.gather_segment_reduce import (  # noqa: E402
     gather_segment_reduce_cuda)
 from repro_torch.kernels.segment_softmax import segment_softmax_cuda  # noqa: E402
+from repro.kernels.segment_reduce import segment_reduce_pallas  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 JCFG = JConfig("SR", 64, 128, 64, 1)
@@ -250,6 +253,124 @@ def test_run_length_matches_kernel_source():
         str(tgsr.RUN_ROWS)]
 
 
+# the two kernels that share the row-run schedule: segment_reduce (the
+# gather's runs with an identity gather) and segment_softmax (runs of
+# (max, sum-exp) pairs); the short run lengths cut more segments at this
+# small size
+SHORT_RUN = 7
+
+
+def _segment_rows(graph):
+    """The graph's sorted destinations, padding rows included, with the
+    row offsets of its plan."""
+    _, dst, _, _, v = _GRAPHS[graph]()
+    plan = make_plan(dst, v, device="cpu")
+    return dst, v, plan
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_segment_reduce(graph, reduce):
+    dst, v, _ = _segment_rows(graph)
+    x = np.random.default_rng(21).standard_normal((dst.size, 9)).astype(
+        np.float32)
+    return x, _np(segment_reduce_pallas(jnp.asarray(x), jnp.asarray(dst), v,
+                                        reduce, config=JCFG, interpret=True))
+
+
+@pytest.mark.parametrize("graph", list(_GRAPHS))
+@pytest.mark.parametrize("reduce", ["sum", "mean", "max"])
+@pytest.mark.parametrize("run", [tsrd.RUN_ROWS, SHORT_RUN])
+def test_blocked_segment_reduce_matches_plain_and_pallas(graph, reduce, run):
+    dst, v, plan = _segment_rows(graph)
+    rp = plan.row_ptr.numpy()
+    if graph == "hub":      # the hub spans several runs
+        assert rp[41] // run - rp[40] // run >= 2
+    x, want_pallas = _pallas_segment_reduce(graph, reduce)
+    xt, it = _t(x), _t(dst)
+    want = kops.segment_reduce(xt, it, v, reduce, impl="ref")
+    if run == tsrd.RUN_ROWS:    # through the wrapper, with the plan and without
+        gots = [kops.segment_reduce(xt, it, v, reduce, plan=p, impl="blocked")
+                for p in (plan, None)]
+    else:
+        gots = [tsrd.segment_reduce_blocked(xt, it, v, reduce, plan.row_ptr,
+                                            run)]
+    for got in gots:
+        assert got.dtype == torch.float32 and got.shape == (v, 9)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(_np(got), want_pallas, **_tol("float32"))
+    if reduce == "max":
+        empty = rp[1:] == rp[:-1]
+        assert empty.any() and bool(torch.isneginf(gots[0][empty]).all())
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_softmax(graph, heads):
+    dst, v, _ = _segment_rows(graph)
+    shape = (dst.size,) if heads is None else (dst.size, heads)
+    x = (np.random.default_rng(22).standard_normal(shape) * 5).astype(
+        np.float32)
+    return x, _np(jops.segment_softmax(_j(x), _j(dst), v, "pallas", JCFG))
+
+
+@pytest.mark.parametrize("graph", list(_GRAPHS))
+@pytest.mark.parametrize("heads", [None, 1, 2, 4])
+@pytest.mark.parametrize("run", [tssm.RUN_ROWS, SHORT_RUN])
+def test_blocked_segment_softmax_matches_plain_and_pallas(graph, heads, run):
+    dst, v, plan = _segment_rows(graph)
+    x, want_pallas = _pallas_softmax(graph, heads)
+    xt, it = _t(x), _t(dst)
+    want = kops.segment_softmax(xt, it, v, impl="ref")
+    if run == tssm.RUN_ROWS:
+        gots = [kops.segment_softmax(xt, it, v, plan=p, impl="blocked")
+                for p in (plan, None)]
+    else:
+        gots = [tssm.segment_softmax_blocked(xt, it, v, plan.row_ptr, run)]
+    dropped = dst >= v
+    assert dropped.sum() > 0
+    for got in gots:
+        assert got.dtype == torch.float32 and got.shape == x.shape
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(_np(got), want_pallas, **_tol("float32"))
+        assert bool((got[torch.from_numpy(dropped)] == 0).all())
+
+
+@pytest.mark.parametrize("run", [tssm.RUN_ROWS, SHORT_RUN])
+def test_blocked_segment_softmax_all_neg_inf_segment_is_zero(run):
+    """A segment whose logits are all -inf comes out 0, the plain version's
+    and the JAX impl="ref" rule (a max that is not finite counts as 0), also
+    where the segment spans several runs beside finite ones."""
+    dst, v, plan = _segment_rows("hub")
+    x = torch.from_numpy(np.random.default_rng(23).standard_normal(
+        (dst.size, 2)).astype(np.float32))
+    it = _t(dst)
+    x[it == 40] = float("-inf")                 # the hub
+    x[it == int(dst[0])] = float("-inf")        # a short one
+    got = tssm.segment_softmax_blocked(x, it, v, plan.row_ptr, run)
+    assert bool((got[it == 40] == 0).all()) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, kops.segment_softmax(x, it, v, impl="ref"),
+                               rtol=1e-5, atol=1e-6)
+    real = int((dst < v).sum())             # the padding rows are last
+    want_jax = jops.segment_softmax(_j(x.numpy()[:real]), _j(dst[:real]), v,
+                                    "ref")
+    np.testing.assert_allclose(_np(got)[:real], _np(want_jax),
+                               **_tol("float32"))
+
+
+@pytest.mark.parametrize("kernel, module", [("segment_reduce", tsrd),
+                                            ("segment_softmax", tssm)])
+def test_row_run_length_matches_kernel_source(kernel, module):
+    """Each row-run kernel's wrapper sizes its scratch and the blocked
+    mirror cuts its runs with the module's RUN_ROWS: it must be the kernel's
+    own constant."""
+    import inspect
+    src = (ROOT / f"src/repro_torch/kernels/csrc/{kernel}.cu").read_text()
+    assert re.findall(r"constexpr int RUN = (\d+);", src) == [
+        str(module.RUN_ROWS)]
+    blocked = getattr(module, f"{kernel}_blocked")
+    assert inspect.signature(blocked).parameters["run_rows"].default == \
+        module.RUN_ROWS
+
+
 # ---------------------------------------------------------------------------
 # backend rules, the Hopper gate, and the package boundary
 # ---------------------------------------------------------------------------
@@ -288,7 +409,8 @@ def _cuda_calls():
         "gather_segment_reduce_cuda":
             lambda: gather_segment_reduce_cuda(h, s, d, v, None, "sum", d),
         "segment_softmax_cuda":
-            lambda: segment_softmax_cuda(_t(w), d, v, d, d, 32, 64),
+            lambda: segment_softmax_cuda(_t(w), d, v,
+                                         torch.zeros(v + 1, dtype=torch.int64)),
         "fused_transform_reduce_cuda":
             lambda: fused_transform_reduce_cuda(h, wm, s, d, v, None, "sum",
                                                 d, d, default_config(12)),
@@ -303,17 +425,13 @@ def test_impl_cuda_on_cpu_tensors_raises(call):
     assert kops.launch_counts() == before
 
 
-@pytest.mark.parametrize("op", ["segment_softmax", "fused_transform_reduce"])
-def test_blocked_is_gather_only(op):
+def test_blocked_is_not_offered_by_the_fused_kernel():
+    """The fused kernel still walks ownership windows: it has no row-run
+    schedule to mirror."""
     src, dst, x, w, v = _graph()
-    call = {"segment_softmax":
-            lambda: kops.segment_softmax(_t(w), _t(dst), v, impl="blocked"),
-            "fused_transform_reduce":
-            lambda: kops.fused_transform_reduce(_t(x), torch.ones(12, 4),
-                                                _t(src), _t(dst), v,
-                                                impl="blocked")}[op]
     with pytest.raises(ValueError, match="unknown impl 'blocked'"):
-        call()
+        kops.fused_transform_reduce(_t(x), torch.ones(12, 4), _t(src),
+                                    _t(dst), v, impl="blocked")
 
 
 def test_cpu_default_is_plain_and_counts_no_launch():

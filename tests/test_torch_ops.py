@@ -211,7 +211,7 @@ def _cuda_calls():
         "public_segment_reduce": lambda: rt.segment_reduce(x, idx, 3, "sum",
                                                            "cuda"),
         "segment_reduce_cuda": lambda: segment_reduce_cuda(
-            x, idx, 3, "sum", meta, meta, 32, 64),
+            x, idx, 3, "sum", torch.zeros(4, dtype=torch.int64)),
         "sddmm_cuda": lambda: sddmm_cuda(x, x, idx, idx),
         "segment_matmul_cuda": lambda: segment_matmul_cuda(
             x, w, torch.tensor([0, 2, 6], dtype=torch.int32), meta, meta, 64),
