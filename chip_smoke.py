@@ -10,10 +10,9 @@ Phases (any failure exits non-zero before the result line):
    CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc (one process
    per source, all started together) and prints the build time. TF32 is
    off for matmuls and cuDNN.
-2. Kernels against their plain PyTorch versions on the card, and the four
-   redesigned kernels (gather_segment_reduce, segment_matmul,
-   segment_reduce, segment_softmax) launched twice on the same inputs,
-   which must give the same bits. Tolerances:
+2. Kernels against their plain PyTorch versions on the card, and the six
+   kernels launched twice on the same inputs, which must give the same
+   bits. Tolerances:
    fp32 rtol = 1e-4, atol = 1e-4·max|plain| (sums are taken in another
    order); bf16 rtol = 2e-2, atol = 2e-2·max|plain| against the fp32 plain
    version of the same upcast inputs. Each configuration prints kernel_ms
@@ -30,9 +29,14 @@ Phases (any failure exits non-zero before the result line):
       and (E,) softmax with its padded rows exactly 0 and a segment whose
       logits are all -inf (0, as the plain version gives), the share of
       rows in segments that the softmax's runs cut, the fused kernel
-      at the GCN/SAGE layer widths, in fp32 and bf16, plus an empty graph
-      and num_segments % s_b != 0. Yardsticks: ``torch.sparse.mm`` of a CSR
-      for the weighted sum, ``torch.sparse.softmax`` of a COO.
+      at the GCN/SAGE layer widths (32->64, 64->64, 64->16), in fp32 and
+      bf16, weighted sum and mean, on the hub (32->64), on gcn's reddit2
+      request padded to its bucket (its largest fused launch, timed beside
+      its bound), plus an empty graph and num_segments % 64 != 0 (the
+      kernel's tile). Yardsticks: ``torch.sparse.mm`` of a CSR for the
+      weighted sum, the same followed by ``torch.matmul`` by W for the fused
+      kernel (two calls: no single PyTorch call computes both),
+      ``torch.sparse.softmax`` of a COO.
    b. segment_matmul at the typed rows of the AM graph (M = 5,988,321
       edges in 133 zipf-skewed relation groups) at K->N = 64->64, 32->128,
       64->128, 64->16 and 64->32, plus, in fp32 and bf16, empty groups, a
@@ -44,7 +48,8 @@ Phases (any failure exits non-zero before the result line):
       rows, as RGAT runs it, with its bound;
       segment_reduce (sum, mean, max at F = 32 and 64) on the ogbn-arxiv
       destinations (M = 1,166,243 rows, S = 169,343 segments); sddmm on
-      arxiv's (dst, src) pairs at F = 64. Yardsticks:
+      arxiv's (dst, src) pairs, dst-sorted and shuffled, at F = 64, 40 and
+      3 in fp32 and bf16. Yardsticks:
       ``torch.segment_reduce`` with lengths (each reduce; ``initial=0``
       for the mean, whose empty segments it would make NaN),
       ``torch.sparse.sampled_addmm``
@@ -92,7 +97,11 @@ Phases (any failure exits non-zero before the result line):
    989 TFLOP/s bf16. The bytes count each input read once (a gathered
    operand at its distinct rows) and each output row written once; the
    gather's also count the plan's int64 row offsets, which its fix pass
-   reads whole.
+   reads whole. The fused kernel reads no segment ids: its bytes count the
+   gather index and weight of each real row and the plan's int64 row
+   offsets, which it reads whole, and no chunk ranges. Its entry adds ``two_call_ms`` (the SpMM + GEMM
+   yardstick), and its hub and reddit2 times beside their bounds; sddmm's
+   adds ``shuffled_ms``.
 5. The last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -336,7 +345,6 @@ def main() -> None:
     dst = torch.from_numpy(padded.edge_index[1]).to(dev)
     plan = BucketEntry(bucket, HIDDEN, config).stamp(dst)
     e_real = g.num_edges
-    out_blocks = plan.chunk_first.numel()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     wts = torch.rand(e, generator=gen, device=dev)
     print(f"kernel shapes: bucket {bucket} (real V={g.num_nodes}, "
@@ -444,7 +452,34 @@ def main() -> None:
                                                 impl="ref"))
         deterministic(torch, f"segment_softmax heads=4 hub {str(dtype)[6:]}",
                       fn)
+    # the fused kernel: the hub's 150,000 rows lie in one tile of segments
+    hub_hf32 = torch.randn(hub_s, FEAT, generator=gen, device=dev)
+    hub_wm32 = torch.randn(FEAT, HIDDEN, generator=gen, device=dev) / FEAT ** 0.5
+    for dtype in (torch.float32, torch.bfloat16):
+        h, wm, w = hub_hf32.to(dtype), hub_wm32.to(dtype), hub_w.to(dtype)
+        fn = (lambda: kops.fused_transform_reduce(
+            h, wm, hub_src, hub_dst, hub_s, w, "sum", plan=hub_plan,
+            impl="cuda"))
+        results[("fused hub", dtype)] = run(
+            fn, lambda: kops.fused_transform_reduce(
+                h, wm, hub_src, hub_dst, hub_s, w, "sum", impl="ref"),
+            f"fused_transform_reduce sum weighted {FEAT}->{HIDDEN} hub of "
+            f"150000 rows {str(dtype)[6:]}", dtype,
+            lambda: kops.fused_transform_reduce(
+                h.float(), wm.float(), hub_src, hub_dst, hub_s, w.float(),
+                "sum", impl="ref"))
+        deterministic(torch, f"fused_transform_reduce hub {str(dtype)[6:]}",
+                      fn)
+    # its bound: the gather index and weight of every row, the plan's
+    # int64 row offsets (read whole), the distinct rows of H, W, the output
+    # written once
+    results["fused hub bound"] = bound(
+        hub_dst.numel() * 8 + (hub_s + 1) * 8
+        + int(torch.unique(hub_src).numel()) * FEAT * 4
+        + FEAT * HIDDEN * 4 + hub_s * HIDDEN * 4,
+        2 * hub_dst.numel() * FEAT + 2 * hub_s * FEAT * HIDDEN)
     del hub_dst, hub_src, hub_w, hub_plan, hub_h32, hub_x32, hub_l32
+    del hub_hf32, hub_wm32
 
     heads = 4
     logits32 = torch.randn(e, heads, generator=gen, device=dev) * 5
@@ -512,7 +547,55 @@ def main() -> None:
                         h.float(), wm.float(), src, dst, v,
                         None if w is None else w.float(), reduce, impl="ref"))
 
-    # edge cases: an empty graph, and num_segments % s_b != 0 with padding rows
+    h_det = torch.randn(v, FEAT, generator=gen, device=dev)
+    w_det = torch.randn(FEAT, HIDDEN, generator=gen, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        hd, wd, wtd = h_det.to(dtype), w_det.to(dtype), wts.to(dtype)
+        deterministic(torch, f"fused_transform_reduce weighted sum "
+                      f"{FEAT}->{HIDDEN} {str(dtype)[6:]}",
+                      lambda: kops.fused_transform_reduce(
+                          hd, wd, src, dst, v, wtd, "sum", plan=plan,
+                          impl="cuda"))
+    del h_det, w_det
+
+    # gcn's reddit2 request as served: the largest fused launch of the
+    # serving path (its first layer, weighted sum 32->64 fp32 at the bucket)
+    r2 = dataset("reddit2", feat=FEAT, seed=SEED)
+    r2_pad, r2_bucket = pad_to_bucket(r2)
+    r2_v = r2_bucket.num_nodes
+    r2_src = torch.from_numpy(r2_pad.edge_index[0]).to(dev)
+    r2_dst = torch.from_numpy(r2_pad.edge_index[1]).to(dev)
+    r2_plan = BucketEntry(r2_bucket, HIDDEN, config).stamp(r2_dst)
+    r2_w = torch.rand(r2_dst.numel(), generator=gen, device=dev)
+    r2_h = torch.randn(r2_v, FEAT, generator=gen, device=dev)
+    r2_wm = torch.randn(FEAT, HIDDEN, generator=gen, device=dev) / FEAT ** 0.5
+    results[("fused reddit2", torch.float32)] = run(
+        lambda: kops.fused_transform_reduce(r2_h, r2_wm, r2_src, r2_dst, r2_v,
+                                            r2_w, "sum", plan=r2_plan,
+                                            impl="cuda"),
+        lambda: kops.fused_transform_reduce(r2_h, r2_wm, r2_src, r2_dst, r2_v,
+                                            r2_w, "sum", impl="ref"),
+        f"fused_transform_reduce sum weighted {FEAT}->{HIDDEN} reddit2 at "
+        f"{r2_bucket} (real E={r2.num_edges}) float32", torch.float32,
+        lambda: kops.fused_transform_reduce(r2_h, r2_wm, r2_src, r2_dst, r2_v,
+                                            r2_w, "sum", impl="ref"))
+    # every edge reads its 128-byte row of H through L2, however often the
+    # row repeats: the rate those reads reach
+    r2_rows_bytes = r2.num_edges * FEAT * 4
+    results["fused reddit2 rows"] = (
+        r2_rows_bytes, r2_rows_bytes / results[("fused reddit2",
+                                                torch.float32)][1] / 1e9)
+    print(f"  reddit2: {r2_rows_bytes} bytes of H rows read, one a real edge:"
+          f" {results['fused reddit2 rows'][1]:.2f} TB/s", flush=True)
+    results["fused reddit2 bound"] = bound(
+        r2.num_edges * 8 + (r2_v + 1) * 8
+        + int(torch.unique(r2_src[:r2.num_edges]).numel()) * FEAT * 4
+        + FEAT * HIDDEN * 4 + r2_v * HIDDEN * 4,
+        2 * r2.num_edges * FEAT + 2 * r2_v * FEAT * HIDDEN)
+    del r2_pad, r2_src, r2_dst, r2_plan, r2_w, r2_h, r2_wm
+
+    # edge cases: an empty graph, and num_segments % s_b != 0 (and % the
+    # fused kernel's tile) with padding rows
     none = torch.zeros(0, dtype=torch.int32, device=dev)
     hx = torch.randn(1000, HIDDEN, generator=gen, device=dev)
     wm = torch.randn(HIDDEN, CLASSES, generator=gen, device=dev)
@@ -564,7 +647,7 @@ def main() -> None:
                                  impl="cuda"),
             kops.segment_softmax(x_odd, d_odd, s_odd, impl="ref"),
             torch.float32)
-    compare(torch, "S%s_b!=0 fused",
+    compare(torch, "S%T!=0 fused",
             kops.fused_transform_reduce(hx, wm, s_src, d_odd, s_odd, w_odd,
                                         "mean", plan=odd_plan, impl="cuda"),
             kops.fused_transform_reduce(hx, wm, s_src, d_odd, s_odd, w_odd,
@@ -583,7 +666,19 @@ def main() -> None:
             kops.gather_segment_reduce(h64, src, dst, v, wts, "sum",
                                        impl="ref"), torch.float32)
     library_gather_ms = time_ms(torch, lambda: torch.sparse.mm(csr, h64))
-    del csr, lib_sum
+    # the fused kernel's yardstick: no single PyTorch call computes SpMM
+    # then GEMM, so the pair torch.sparse.mm of the same CSR then
+    # torch.matmul by W, timed together (timed only; never in the port)
+    h_two = torch.randn(v, FEAT, generator=gen, device=dev)
+    w_two = torch.randn(FEAT, HIDDEN, generator=gen, device=dev)
+    compare(torch, "torch.sparse.mm + torch.matmul yardstick",
+            torch.sparse.mm(csr, h_two) @ w_two,
+            kops.fused_transform_reduce(h_two, w_two, src, dst, v, wts, "sum",
+                                        impl="ref"), torch.float32)
+    two_call_ms = time_ms(torch, lambda: torch.sparse.mm(csr, h_two) @ w_two)
+    print(f"  torch.sparse.mm then torch.matmul {FEAT}->{HIDDEN} float32: "
+          f"two_call_ms={two_call_ms:.4f}", flush=True)
+    del csr, lib_sum, h_two, w_two
 
     # library yardstick for the softmax: one torch.sparse.softmax over dim 1
     # of a (V, E, heads) COO whose row i holds the logits of the edges into
@@ -791,16 +886,37 @@ def main() -> None:
               f"library_ms={library_srd[reduce]:.4f}", flush=True)
     del x32, x
 
+    # sddmm on arxiv's dst-sorted (dst, src) pairs, whose runs share A
+    # rows, and on the same pairs shuffled, where no row repeats in order;
+    # F = 64 and widths off the 16-byte vector (40, 3)
     sd_a32 = torch.randn(a_v, HIDDEN, generator=gen, device=dev)
     sd_b32 = torch.randn(a_v, HIDDEN, generator=gen, device=dev)
-    for dtype in (torch.float32, torch.bfloat16):
-        sa, sb = sd_a32.to(dtype), sd_b32.to(dtype)
-        results[("sddmm", dtype)] = run(
-            lambda: sddmm_launch(sa, sb, a_dst, a_src),
-            lambda: kops.sddmm(sa, sb, a_dst, a_src, impl="ref"),
-            f"sddmm F={HIDDEN} M={a_e} pairs (dst, src) {str(dtype)[6:]}",
-            dtype, lambda: kops.sddmm(sa.float(), sb.float(), a_dst, a_src,
-                                      impl="ref"))
+    perm = torch.randperm(a_e, generator=gen, device=dev)
+    pairs = {"dst-sorted": (a_dst, a_src),
+             "shuffled": (a_dst[perm].contiguous(), a_src[perm].contiguous())}
+    for feat in (HIDDEN, 40, 3):
+        fa = sd_a32 if feat == HIDDEN else torch.randn(
+            a_v, feat, generator=gen, device=dev)
+        fb = sd_b32 if feat == HIDDEN else torch.randn(
+            a_v, feat, generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            sa, sb = fa.to(dtype), fb.to(dtype)
+            for order, (rows, cols) in pairs.items():
+                results[("sddmm", feat, dtype, order)] = run(
+                    lambda: sddmm_launch(sa, sb, rows, cols),
+                    lambda: kops.sddmm(sa, sb, rows, cols, impl="ref"),
+                    f"sddmm F={feat} M={a_e} pairs (dst, src) {order} "
+                    f"{str(dtype)[6:]}", dtype,
+                    lambda: kops.sddmm(sa.float(), sb.float(), rows, cols,
+                                       impl="ref"))
+    deterministic(torch, f"sddmm F={HIDDEN} float32",
+                  lambda: sddmm_launch(sd_a32, sd_b32, a_dst, a_src))
+    # every pair reads its row of B (src, random over the nodes) in full
+    sd_b_bytes = a_e * HIDDEN * 4
+    print(f"  sddmm F={HIDDEN} float32 dst-sorted: {sd_b_bytes} bytes of B "
+          f"rows read, one a pair: {sd_b_bytes / results[('sddmm', HIDDEN, torch.float32, 'dst-sorted')][1] / 1e9:.2f}"
+          " TB/s", flush=True)
+    del pairs, perm, fa, fb, sa, sb
     compare(torch, "sddmm through its checked wrapper",
             kops.sddmm(sd_a32, sd_b32, a_dst, a_src, impl="cuda"),
             kops.sddmm(sd_a32, sd_b32, a_dst, a_src, impl="ref"),
@@ -840,7 +956,7 @@ def main() -> None:
     t_phase = time.perf_counter()
     graphs = {name: dataset(name, feat=FEAT, seed=SEED)
               for name in ("ogbn-arxiv", "cora", "citeseer", "pubmed")}
-    graphs["reddit2"] = dataset("reddit2", feat=FEAT, seed=SEED)
+    graphs["reddit2"] = r2
     print(f"graphs built on the host ({time.perf_counter() - t_phase:.1f} s)",
           flush=True)
 
@@ -1013,7 +1129,6 @@ def main() -> None:
     print(f"bounds over {e_real} real edges, {h_rows} distinct source rows, "
           f"{v} output rows (gather, softmax, fused):", flush=True)
 
-    meta = 2 * out_blocks * 4
     idx_bytes = e_real * (4 + 4 + 4)          # gather idx, segment, fp32 weight
     # the gather kernel reads the plan's int64 row offsets, not its chunk
     # ranges
@@ -1022,8 +1137,11 @@ def main() -> None:
     # the softmax reads the real rows' ids and logits and writes every row
     s_bound = bound(e_real * (4 + heads * 4) + e * heads * 4,
                     4 * e_real * heads)
-    f_bound = bound(idx_bytes + h_rows * FEAT * 4 + FEAT * HIDDEN * 4
-                    + v * HIDDEN * 4 + meta,
+    # the fused kernel reads the gather index and weight of each real row
+    # and the plan's int64 row offsets whole, in place of the segment ids;
+    # then the distinct rows of H, W and the output
+    f_bound = bound(e_real * (4 + 4) + (v + 1) * 8 + h_rows * FEAT * 4
+                    + FEAT * HIDDEN * 4 + v * HIDDEN * 4,
                     2 * e_real * FEAT + 2 * v * FEAT * HIDDEN)
     print(f"bounds of segment_matmul over M={m_typed} typed rows, "
           f"G={AM_RELATIONS} groups, {HIDDEN}->{HIDDEN}; segment_reduce over "
@@ -1101,7 +1219,9 @@ def main() -> None:
         entry("fused_transform_reduce", "fused_transform_reduce.py:171",
               results[("fused", FEAT, HIDDEN, torch.float32, "sum")],
               f_bound, None, f"weighted sum fp32 {FEAT}->{HIDDEN} at {bucket}",
-              "no single PyTorch call: SpMM then GEMM is two calls"),
+              "no single PyTorch call computes SpMM then GEMM; two_call_ms "
+              "times torch.sparse.mm of the CSR of the real edges then "
+              "torch.matmul by W"),
         entry("segment_matmul", "segment_matmul.py:149",
               results[("smm", HIDDEN, HIDDEN, torch.float32)], m_bound,
               smm_lib, f"fp32 {HIDDEN}->{HIDDEN}, M={m_typed} rows in "
@@ -1113,7 +1233,8 @@ def main() -> None:
               library_srd["sum"], f"sum fp32 F={HIDDEN}, M={a_e} rows into "
               f"S={a_v} (ogbn-arxiv destinations)",
               "torch.segment_reduce with per-segment lengths"),
-        entry("sddmm", "sddmm.py:98", results[("sddmm", torch.float32)],
+        entry("sddmm", "sddmm.py:98",
+              results[("sddmm", HIDDEN, torch.float32, "dst-sorted")],
               d_bound, library_sddmm, f"fp32 F={HIDDEN}, {a_e} (dst, src) "
               f"pairs of ogbn-arxiv",
               f"torch.sparse.sampled_addmm on the CSR of the pattern: "
@@ -1131,6 +1252,19 @@ def main() -> None:
         r: results[("srd", HIDDEN, torch.float32, r)][1]
         for r in ("sum", "mean", "max")}
     kernels[4]["library_ms_by_reduce"] = library_srd
+    # the fused kernel's two-call yardstick, its hub and reddit2 launches
+    # beside their bounds; sddmm on the shuffled pairs
+    kernels[2]["two_call_ms"] = two_call_ms
+    kernels[2]["hub_ms"] = results[("fused hub", torch.float32)][1]
+    kernels[2]["hub_bound_ms"] = results["fused hub bound"][0]
+    kernels[2]["reddit2_ms"] = results[("fused reddit2", torch.float32)][1]
+    kernels[2]["reddit2_plain_ms"] = results[("fused reddit2",
+                                              torch.float32)][2]
+    kernels[2]["reddit2_bound_ms"] = results["fused reddit2 bound"][0]
+    kernels[2]["reddit2_row_read_tb_s"] = results["fused reddit2 rows"][1]
+    kernels[5]["shuffled_ms"] = results[("sddmm", HIDDEN, torch.float32,
+                                         "shuffled")][1]
+    kernels[5]["b_row_read_tb_s"] = sd_b_bytes / kernels[5]["ms"] / 1e9
     print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,14 +8,14 @@ The paper's GPU parameters, as the port's CUDA kernels read them:
     schedule (SR / PR)                →  the sequential walk; a PR request
                                          runs the same walk on Hopper
 
-In the one window kernel left (fused transform-reduce) a block owns
-segments ``[b·S_b, (b+1)·S_b)`` and reads its rows from the chunk range
-the :class:`~repro_torch.core.plan.SegmentPlan` assigns it. The gather,
-segment_reduce and softmax kernels read none of this tiling: they split
-the rows into runs of a fixed length of their own (``csrc/row_runs.cuh``,
-``csrc/segment_softmax.cu``) and fold the segments their runs cut in run
-order from the plan's row offsets. Either way no atomics are needed and
-the result is deterministic.
+No segment kernel of the port reads this tiling any more: the gather,
+segment_reduce and softmax kernels split the rows into runs of a fixed
+length of their own (``csrc/row_runs.cuh``, ``csrc/segment_softmax.cu``),
+the fused transform-reduce splits the segments into tiles of its own
+(``csrc/fused_transform_reduce.cu``), and each folds the segments its runs
+cut in run order from the plan's row offsets: no atomics, and the result is
+deterministic. The plans still carry the chunk ranges of ``S_b``-segment
+windows, so that they compare one to one with the reference's.
 
 Hopper limits: 227 KB (232,448 B) of shared memory per block, warps of 32
 threads. Measured config selection (PerfDB, decision-tree rules) is not
@@ -93,11 +93,10 @@ OP_KEYS = (
 
 
 def default_config(feat_dim: int = 128) -> KernelConfig:
-    """The fixed Hopper default: small ownership windows (S_b = 32) so a
-    large graph gives thousands of blocks to fill 132 SMs, and short
-    chunks (M_b = 64) so a block reads few rows of its neighbours'
-    windows. N_b is the feature width rounded up to a warp, at most 256
-    threads per block."""
+    """The fixed Hopper default that plans record: S_b = 32, M_b = 64
+    (the chunk ranges of the reference's windows), and N_b the feature
+    width rounded up to a warp, at most 256. segment_matmul tiles rows by
+    M_b; the segment kernels read none of it."""
     n_b = min(256, _round_up(max(int(feat_dim), 1), WARP))
     return KernelConfig("SR", 32, n_b, 64, 1)
 

@@ -32,7 +32,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import ops as geot
-from repro_torch.core.config_space import KernelConfig, default_config
+from repro_torch.core.config_space import KernelConfig
 from repro_torch.kernels.fused_transform_reduce import fusable
 from repro_torch.kernels.ops import resolve_impl
 
@@ -49,7 +49,6 @@ def choose_order(d_in: int, d_out: int, *, config: Optional[KernelConfig] = None
     Hopper yet): ``"fused"`` when allowed and the shared-memory gate
     holds, else ``"aggregate_first"`` iff ``d_in < d_out``, else
     ``"transform_first"``."""
-    config = config or default_config(max(d_in, d_out))
     if allow_fused and fusable(d_in, d_out, dtype, config):
         return "fused"
     return "aggregate_first" if d_in < d_out else "transform_first"

@@ -7,8 +7,9 @@ All ops take plain dense tensors plus index vectors (format-agnostic,
 ``None`` picks the CUDA kernel for CUDA tensors and the plain version for
 CPU tensors; ``"cuda"`` / ``"ref"`` force one (``"cuda"`` raises on the
 CPU). ``config`` / ``plan`` follow plan > config > default where a kernel
-tiles by them (fused_transform_reduce, segment_matmul); the row-run kernels
-only check ``config`` against ``plan``.
+tiles by them (segment_matmul); the segment kernels (the gather,
+segment_reduce, the softmax, fused_transform_reduce) only check ``config``
+against ``plan``.
 
 Forward only. Each op is a :class:`torch.autograd.Function` whose backward
 raises: the gradient rules of the reference (the custom VJPs of

@@ -4,12 +4,14 @@ A :class:`SegmentPlan` captures, once per graph, everything the segment
 kernels otherwise derive on every call:
 
   * ``chunk_first`` / ``chunk_count`` — int32 tensors (out_blocks,): the
-    chunk range each block of the fused kernel walks (see
-    :func:`repro_torch.kernels.segment_reduce.chunk_metadata`);
+    chunk range of each ownership window of the reference's kernels (see
+    :func:`repro_torch.kernels.segment_reduce.chunk_metadata`); no kernel
+    of the port reads them, and they are kept so that plans compare one to
+    one with the reference's;
   * ``row_ptr`` — int64 tensor (num_segments + 1,): each segment's row
     offsets in the index, which the row-run schedules of the gather,
-    segment_reduce and softmax kernels read
-    (:func:`repro_torch.kernels.gather_segment_reduce.row_offsets`);
+    segment_reduce and softmax kernels and the tiles of the fused kernel
+    read (:func:`repro_torch.kernels.gather_segment_reduce.row_offsets`);
   * a tight ``max_chunks`` — the most chunks any block owns. The CUDA
     kernels bound their loop by the block's own ``chunk_count`` and do not
     need it; it is kept so plans compare one to one with the reference;

@@ -4,11 +4,17 @@
 
 Compiles copies of ``kernels/csrc/gather_segment_reduce.cu`` and
 ``segment_reduce.cu`` with their run length ``RUN`` set to 64, 128 and 256
-rows, of ``segment_softmax.cu`` with ``RUN`` = 64, 128, 256 and 512, and of
-``segment_matmul.cu`` with its ring of ``STAGES`` = 2, 3 and 4 X stages,
-each into a library of its own (nvcc with the flags of
-``kernels/_build.py``, all started together, into the build directory), and
-times each through its C entry point at the shapes ``chip_smoke.py`` uses:
+rows, of ``segment_softmax.cu`` with ``RUN`` = 64, 128, 256 and 512, of
+``segment_matmul.cu`` with its ring of ``STAGES`` = 2, 3 and 4 X stages, of
+``fused_transform_reduce.cu`` with its tile of ``TILE`` = 32, 64 and 128
+segments and ``U`` = 2, 4 and 8 rows of H in flight a lane group (its
+product is the tensor-core one only), and of ``sddmm.cu`` with runs of
+``RUN`` = 16, 32 and 64 pairs and ``LPR`` = 4, 8 and 16 lanes a row (each
+constant swept with the others at their shipped values; a variant is
+named ``CONST=value``), each into a library of its own (nvcc with the
+flags of ``kernels/_build.py``, all started together, into the build
+directory), and times each through its C entry point at the shapes
+``chip_smoke.py`` uses:
 
   * gather: the weighted sum at the ogbn-arxiv bucket (fp32 F=64, 32 and
     3, bf16 F=64), and the mean of the (E, F) typed messages gathered by
@@ -18,7 +24,20 @@ times each through its C entry point at the shapes ``chip_smoke.py`` uses:
     F=64 on the ogbn-arxiv destinations;
   * segment_softmax: fp32 and bf16 (E, 4) and fp32 (E,) at the ogbn-arxiv
     bucket, fp32 (E, 2) over the AM typed rows;
-  * segment_matmul: fp32 and bf16 64->64 and 64->128 over the AM typed rows.
+  * segment_matmul: fp32 and bf16 64->64 and 64->128 over the AM typed rows;
+  * fused_transform_reduce: weighted sum fp32 and bf16 32->64, fp32 64->64
+    and 64->16, and mean fp32 32->64 at the ogbn-arxiv bucket, weighted
+    sum fp32 32->64 at gcn's reddit2 request;
+  * sddmm: fp32 and bf16 F=64 on arxiv's dst-sorted (dst, src) pairs, fp32
+    F=64 on the same pairs shuffled.
+
+Beside sddmm, and beside the fused kernel's fp32 32->64 at arxiv and
+reddit2, it times the read probe ``csrc/probes/row_reads.cu`` at U = 1,
+2, 4 and 8 rows in flight: a bare read of the same rows (sddmm's B rows
+alone, and its A and B rows; the fused kernel's H rows of the real
+edges) in the same order with the same 16-byte vectors, in runs of 32.
+Its fastest time, printed beside, is what the card's L2 delivers for that
+access pattern.
 
 ``--kernels`` names the kernels to build and time (all by default).
 
@@ -28,7 +47,8 @@ configuration are timed in turns, ``--rounds`` rounds of the median of 20
 CUDA-event timings after 3 warm-ups, each behind a busy-wait kernel so host
 launch time stays out; the median over the rounds is printed, with the
 card's name and power limit. The shipped values are RUN = 64 (the gather,
-segment_reduce), RUN = 128 (the softmax) and STAGES = 2.
+segment_reduce), RUN = 128 (the softmax), RUN = 32 and LPR = 8 (sddmm),
+STAGES = 2, and TILE = 64 and U = 4 (the fused kernel).
 Needs one CUDA device; exits non-zero without one.
 """
 from __future__ import annotations
@@ -45,44 +65,87 @@ FEAT, HIDDEN, SEED = 32, 64, 0
 # the AM graph of the R-GCN paper (Schlichtkrull et al. 2018, Table 1)
 AM_NODES, AM_EDGES, AM_RELATIONS = 1_666_764, 5_988_321, 133
 
-# the source line each variant rewrites, and the values it takes
-VARIANTS = {"gather_segment_reduce": ("constexpr int RUN = {};", (64, 128, 256)),
-            "segment_reduce": ("constexpr int RUN = {};", (64, 128, 256)),
-            "segment_softmax": ("constexpr int RUN = {};", (64, 128, 256, 512)),
-            "segment_matmul": ("constexpr int STAGES = {};", (2, 3, 4))}
+# for each kernel, the source lines a variant rewrites and the values each
+# takes; each line is swept with the others at their shipped values. The
+# fused kernel's U is its H rows in flight a lane group; sddmm's LPR its
+# lanes a row (4: four 16-byte vectors a lane at F = 64 fp32, one pair's
+# loads at a time; 16: one vector, four pairs')
+VARIANTS = {
+    "gather_segment_reduce": [("constexpr int RUN = {};", (64, 128, 256))],
+    "segment_reduce": [("constexpr int RUN = {};", (64, 128, 256))],
+    "segment_softmax": [("constexpr int RUN = {};", (64, 128, 256, 512))],
+    "segment_matmul": [("constexpr int STAGES = {};", (2, 3, 4))],
+    "fused_transform_reduce": [("constexpr int TILE = {};", (32, 64, 128)),
+                               ("constexpr int U = {};", (2, 4, 8))],
+    "sddmm": [("constexpr int RUN = {};", (16, 32, 64)),
+              ("constexpr int LPR = {};", (4, 8, 16))]}
+# rows in flight of the read probe (csrc/probes/row_reads.cu), and the
+# rows of a lane group's run (sddmm's RUN)
+PROBE_U, PROBE_RUN = (1, 2, 4, 8), 32
+# dtype, a, row, b, col, out, m, n, run, u, stream
+PROBE_SIGNATURE = {"rows_launch": [ctypes.c_int, *[ctypes.c_void_p] * 5,
+                                   ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_void_p]}
 
 
-def build_variants(_build, names):
-    """{(kernel, value): loaded library}, compiled in parallel."""
+def _const(line: str) -> str:
+    return line.split()[2]
+
+
+def variant_keys(name):
+    """The keys "CONST=value" of ``name``'s variants, in order."""
+    return [f"{_const(line)}={v}" for line, values in VARIANTS[name]
+            for v in values]
+
+
+def _nvcc(_build, cu, so):
+    cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+           str(so), str(cu)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def build_variants(_build, names, probe=False):
+    """{(name, "CONST=value"): (loaded library, {CONST: value} of every
+    line swept for ``name``)}, compiled in parallel; with ``probe``, also
+    the read probe under ("probe", "")."""
     out_dir = _build.build_dir() / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        line, values = VARIANTS[name]
         src = (_build.CSRC / f"{name}.cu").read_text()
-        shipped = [v for v in values if line.format(v) in src]
-        if len(shipped) != 1:
-            sys.exit(f"kernel_variants: {name}.cu has no line "
-                     f"{line.format('N')!r} with one of {values}")
-        for v in values:
-            cu = out_dir / f"{name}_{v}.cu"
-            cu.write_text(src.replace(line.format(shipped[0]), line.format(v)))
-            so = out_dir / f"{name}_{v}.so"
-            cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-                   "-o", str(so), str(cu)]
-            procs[(name, v)] = (so, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
+        shipped = {}
+        for line, values in VARIANTS[name]:
+            found = [v for v in values if line.format(v) in src]
+            if len(found) != 1:
+                sys.exit(f"kernel_variants: {name}.cu has no line "
+                         f"{line.format('N')!r} with one of {values}")
+            shipped[_const(line)] = found[0]
+        for line, values in VARIANTS[name]:
+            const = _const(line)
+            for v in values:
+                stem = f"{name}_{const}{v}"
+                cu = out_dir / f"{stem}.cu"
+                cu.write_text(src.replace(line.format(shipped[const]),
+                                          line.format(v)))
+                so = out_dir / f"{stem}.so"
+                procs[(name, f"{const}={v}")] = (
+                    so, {**shipped, const: v}, _nvcc(_build, cu, so))
+    if probe:
+        so = out_dir / "row_reads.so"
+        procs[("probe", "")] = (so, {}, _nvcc(
+            _build, _build.CSRC / "probes" / "row_reads.cu", so))
     libs = {}
-    for (name, v), (so, proc) in procs.items():
+    for (name, key), (so, setting, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            sys.exit(f"kernel_variants: nvcc {name} {v} failed:\n{log}")
+            sys.exit(f"kernel_variants: nvcc {name} {key} failed:\n{log}")
         lib = ctypes.CDLL(str(so))
-        for fn, argtypes in _build.SIGNATURES[name].items():
+        sigs = PROBE_SIGNATURE if name == "probe" else _build.SIGNATURES[name]
+        for fn, argtypes in sigs.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        libs[(name, v)] = lib
+        libs[(name, key)] = (lib, setting)
     return libs
 
 
@@ -145,29 +208,77 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    libs = build_variants(_build, names)
+    libs = build_variants(_build, names, probe=not {
+        "fused_transform_reduce", "sddmm"}.isdisjoint(names))
     print(f"built {len(libs)} variants", flush=True)
     ptr, stream = _build.ptr, _build.stream_of
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
-    def timed(what, calls, want, dtype):
-        """Checks every variant against `want`, then times them in turns."""
+    def timed(what, calls, want, dtype, beside=None):
+        """Checks every variant against `want`, then times them in turns,
+        and the calls of `beside` (checked by their maker) with them."""
         for v, fn in calls.items():
             got = fn()
             torch.cuda.synchronize()
             check(f"{what} variant {v}", got, want, dtype)
+        calls = {**calls, **(beside or {})}
         rounds = {v: [] for v in calls}
         for _ in range(args.rounds):
             for v, fn in calls.items():
                 rounds[v].append(time_ms(fn))
-        cells = " ".join(f"{v}={statistics.median(ms):.4f}"
-                         for v, ms in rounds.items())
+        ms = {v: statistics.median(t) for v, t in rounds.items()}
+        cells = " ".join(f"{v}={t:.4f}" for v, t in ms.items())
         print(f"  {what}: {cells} (ms, median of {args.rounds} rounds)",
               flush=True)
+        return ms
 
-    def gather(run, h, gidx, seg, num_segments, weight, reduce_code,
+    def reads(u, a, row, b, col, out):
+        lib, _ = libs[("probe", "")]
+        _build.check(lib.rows_launch(
+            DTYPE_CODE[b.dtype], None if a is None else ptr(a),
+            None if row is None else ptr(row), ptr(b), ptr(col), ptr(out),
+            int(col.numel()), int(b.shape[1]), PROBE_RUN, u, stream(b)),
+            f"read probe U={u}")
+        return out
+
+    def probe_calls(label, b, col, a=None, row=None):
+        """The read probe of the rows b[col] (and a[row]) at each U, named
+        "label U=u", checked: the words it writes sum to the sum of the B
+        rows (of the products of A and B rows) it reads."""
+        m = int(col.numel())
+        out = torch.empty(-(-m // PROBE_RUN) * (b.shape[1] * b.element_size()
+                                                 // 16),
+                          dtype=torch.float32, device=dev)
+        terms = b.float().index_select(0, col.long())
+        if a is not None:
+            terms *= a.float().index_select(0, row.long())
+        want, scale = float(terms.double().sum()), float(terms.abs().sum())
+        del terms
+        calls = {}
+        for u in PROBE_U:
+            got = float(reads(u, a, row, b, col, out).double().sum())
+            if abs(got - want) > 1e-5 * scale:
+                sys.exit(f"kernel_variants: the read probe {label} U={u} "
+                         f"summed {got}, its rows sum to {want}")
+            calls[f"{label} U={u}"] = (lambda u=u: reads(u, a, row, b, col,
+                                                         out))
+        return calls
+
+    def ceiling(ms, label, b=None, col=None):
+        """Prints the fastest read probe `label` of `ms`, and the rate of
+        the rows b[col] it read."""
+        u, t = min(((k, t) for k, t in ms.items() if k.startswith(label)),
+                   key=lambda kt: kt[1])
+        rate = ""
+        if b is not None:
+            nbytes = int(col.numel()) * b.shape[1] * b.element_size()
+            rate = f", {nbytes} B at {nbytes / t / 1e9:.2f} TB/s"
+        print(f"    {label} alone: {u} {t:.4f} ms{rate}", flush=True)
+
+    def gather(key, h, gidx, seg, num_segments, weight, reduce_code,
                row_ptr):
-        lib = libs[("gather_segment_reduce", run)]
+        lib, cfg = libs[("gather_segment_reduce", key)]
+        run = cfg["RUN"]
         num_rows, feat = int(seg.numel()), int(h.shape[1])
         out = torch.empty((num_segments, feat), dtype=h.dtype, device=dev)
         part = torch.empty((2 * -(-num_rows // run), feat),
@@ -176,11 +287,11 @@ def main() -> None:
             DTYPE_CODE[h.dtype], reduce_code, int(weight is not None),
             ptr(h), ptr(gidx), ptr(seg), ptr(h if weight is None else weight),
             ptr(row_ptr), ptr(part), ptr(out), num_rows, feat, num_segments,
-            run, stream(h)), f"gather variant {run}")
+            run, stream(h)), f"gather variant {key}")
         return out
 
-    def smm(stages, x, w, rplan):
-        lib = libs[("segment_matmul", stages)]
+    def smm(key, x, w, rplan):
+        lib, _ = libs[("segment_matmul", key)]
         m, k = (int(d) for d in x.shape)
         g, n = int(w.shape[0]), int(w.shape[2])
         out = torch.empty((m, n), dtype=x.dtype, device=dev)
@@ -188,11 +299,12 @@ def main() -> None:
             DTYPE_CODE[x.dtype], ptr(x), ptr(w), ptr(rplan.offsets),
             ptr(rplan.first_group), ptr(rplan.group_count), ptr(out), m, k,
             n, g, rplan.config.m_b, stream(x)), f"segment_matmul variant "
-            f"{stages}")
+            f"{key}")
         return out
 
-    def srd(run, x, seg, num_segments, reduce_code, row_ptr):
-        lib = libs[("segment_reduce", run)]
+    def srd(key, x, seg, num_segments, reduce_code, row_ptr):
+        lib, cfg = libs[("segment_reduce", key)]
+        run = cfg["RUN"]
         num_rows, feat = (int(d) for d in x.shape)
         out = torch.empty((num_segments, feat), dtype=x.dtype, device=dev)
         part = torch.empty((2 * -(-num_rows // run), feat),
@@ -200,11 +312,12 @@ def main() -> None:
         _build.check(lib.srd_launch(
             DTYPE_CODE[x.dtype], reduce_code, ptr(x), ptr(seg), ptr(row_ptr),
             ptr(part), ptr(out), num_rows, feat, num_segments, run,
-            stream(x)), f"segment_reduce variant {run}")
+            stream(x)), f"segment_reduce variant {key}")
         return out
 
-    def ssm(run, x, seg, num_segments, row_ptr):
-        lib = libs[("segment_softmax", run)]
+    def ssm(key, x, seg, num_segments, row_ptr):
+        lib, cfg = libs[("segment_softmax", key)]
+        run = cfg["RUN"]
         num_rows = int(x.shape[0])
         heads = 1 if x.dim() == 1 else int(x.shape[1])
         out = torch.empty_like(x)
@@ -213,7 +326,27 @@ def main() -> None:
         _build.check(lib.ssm_launch(
             DTYPE_CODE[x.dtype], ptr(x), ptr(seg), ptr(row_ptr), ptr(part),
             ptr(out), num_rows, heads, num_segments, run, stream(x)),
-            f"segment_softmax variant {run}")
+            f"segment_softmax variant {key}")
+        return out
+
+    def ftr(key, h, wm, gidx, seg, num_segments, weight, mean, row_ptr):
+        lib, cfg = libs[("fused_transform_reduce", key)]
+        out = torch.empty((num_segments, int(wm.shape[1])), dtype=h.dtype,
+                          device=dev)
+        _build.check(lib.ftr_launch(
+            DTYPE_CODE[h.dtype], int(mean), int(weight is not None), ptr(h),
+            ptr(wm), ptr(gidx), ptr(h if weight is None else weight),
+            ptr(row_ptr), ptr(out), int(h.shape[1]), int(wm.shape[1]),
+            num_segments, cfg["TILE"], stream(h)), f"fused variant {key}")
+        return out
+
+    def sdd(key, a, b, row, col):
+        lib, _ = libs[("sddmm", key)]
+        out = torch.empty(int(row.numel()), dtype=a.dtype, device=dev)
+        _build.check(lib.sddmm_launch(
+            DTYPE_CODE[a.dtype], ptr(a), ptr(b), ptr(row), ptr(col), ptr(out),
+            int(row.numel()), int(a.shape[1]), stream(a)),
+            f"sddmm variant {key}")
         return out
 
     g = dataset("ogbn-arxiv", feat=FEAT, seed=SEED)
@@ -223,9 +356,9 @@ def main() -> None:
     dst = torch.from_numpy(padded.edge_index[1]).to(dev).int().contiguous()
     plan = BucketEntry(bucket, HIDDEN, default_config(HIDDEN)).stamp(dst)
     if "gather_segment_reduce" in names:
-        runs = VARIANTS["gather_segment_reduce"][1]
+        runs = variant_keys("gather_segment_reduce")
         wts = torch.rand(dst.numel(), generator=gen, device=dev)
-        print(f"gather, RUN = {runs}:", flush=True)
+        print(f"gather, variants {runs}:", flush=True)
         for feat, dtype in ((HIDDEN, torch.float32), (FEAT, torch.float32),
                             (HIDDEN, torch.bfloat16), (3, torch.float32)):
             h = torch.randn(v, feat, generator=gen, device=dev).to(dtype)
@@ -238,8 +371,8 @@ def main() -> None:
                   dtype)
         del h, w, wts
     if "segment_softmax" in names:
-        runs = VARIANTS["segment_softmax"][1]
-        print(f"segment_softmax, RUN = {runs}:", flush=True)
+        runs = variant_keys("segment_softmax")
+        print(f"segment_softmax, variants {runs}:", flush=True)
         logits = torch.randn(dst.numel(), 4, generator=gen, device=dev) * 5
         for x in (logits, logits.bfloat16(), logits[:, 0].contiguous()):
             timed(f"{str(x.dtype)[6:]} {tuple(x.shape)} at {bucket}",
@@ -248,11 +381,95 @@ def main() -> None:
                   kops.segment_softmax(x.float(), dst, v, impl="ref"),
                   x.dtype)
         del logits, x
+    if "fused_transform_reduce" in names:
+        tiles = variant_keys("fused_transform_reduce")
+        wts = torch.rand(dst.numel(), generator=gen, device=dev)
+        e_real = int(plan.row_ptr[-1])
+        print(f"fused_transform_reduce at {bucket}, variants {tiles}:",
+              flush=True)
+        for d_in, d_out, dtype, mean in (
+                (FEAT, HIDDEN, torch.float32, False),
+                (FEAT, HIDDEN, torch.bfloat16, False),
+                (HIDDEN, HIDDEN, torch.float32, False),
+                (HIDDEN, 16, torch.float32, False),
+                (FEAT, HIDDEN, torch.float32, True)):
+            h = torch.randn(v, d_in, generator=gen, device=dev).to(dtype)
+            wm = (torch.randn(d_in, d_out, generator=gen, device=dev)
+                  / d_in ** 0.5).to(dtype)
+            w = None if mean else wts.to(dtype)
+            reduce = "mean" if mean else "sum"
+            # beside the first: the H rows of the real edges alone
+            first = (d_in, d_out, dtype, mean) == (FEAT, HIDDEN,
+                                                   torch.float32, False)
+            ms = timed(f"{reduce}{'' if mean else ' weighted'} "
+                       f"{str(dtype)[6:]} {d_in}->{d_out}",
+                       {t: (lambda t=t: ftr(t, h, wm, src, dst, v, w, mean,
+                                            plan.row_ptr)) for t in tiles},
+                       kops.fused_transform_reduce(
+                           h.float(), wm.float(), src, dst, v,
+                           None if w is None else w.float(), reduce,
+                           impl="ref"),
+                       dtype,
+                       probe_calls("H rows", h, src[:e_real]) if first
+                       else None)
+            if first:
+                ceiling(ms, "H rows", h, src[:e_real])
+        del h, wm, w, wts
+        # gcn's reddit2 request: the largest fused launch of the serving path
+        r2 = dataset("reddit2", feat=FEAT, seed=SEED)
+        r2_pad, r2_bucket = pad_to_bucket(r2)
+        r2_v = r2_bucket.num_nodes
+        r2_src = torch.from_numpy(r2_pad.edge_index[0]).to(dev).int()
+        r2_dst = torch.from_numpy(r2_pad.edge_index[1]).to(dev).int()
+        r2_plan = BucketEntry(r2_bucket, HIDDEN,
+                              default_config(HIDDEN)).stamp(r2_dst)
+        r2_w = torch.rand(r2_dst.numel(), generator=gen, device=dev)
+        h = torch.randn(r2_v, FEAT, generator=gen, device=dev)
+        wm = torch.randn(FEAT, HIDDEN, generator=gen, device=dev) / FEAT ** 0.5
+        r2_real = r2_src[:r2.num_edges]
+        ms = timed(f"sum weighted float32 {FEAT}->{HIDDEN} reddit2 at "
+                   f"{r2_bucket}",
+                   {t: (lambda t=t: ftr(t, h, wm, r2_src, r2_dst, r2_v, r2_w,
+                                        False, r2_plan.row_ptr))
+                    for t in tiles},
+                   kops.fused_transform_reduce(h, wm, r2_src, r2_dst, r2_v,
+                                               r2_w, "sum", impl="ref"),
+                   torch.float32, probe_calls("H rows", h, r2_real))
+        ceiling(ms, "H rows", h, r2_real)
+        del r2, r2_pad, r2_src, r2_dst, r2_plan, r2_w, h, wm, r2_real
+    if "segment_reduce" in names or "sddmm" in names:
+        a_dst = torch.from_numpy(g.edge_index[1]).to(dev).int().contiguous()
+        a_src = torch.from_numpy(g.edge_index[0]).to(dev).int().contiguous()
+    if "sddmm" in names:
+        runs = variant_keys("sddmm")
+        print(f"sddmm on arxiv's (dst, src) pairs, variants {runs}:",
+              flush=True)
+        perm = torch.randperm(a_dst.numel(), generator=gen, device=dev)
+        sa = torch.randn(g.num_nodes, HIDDEN, generator=gen, device=dev)
+        sb = torch.randn(g.num_nodes, HIDDEN, generator=gen, device=dev)
+        for dtype, order in ((torch.float32, "dst-sorted"),
+                             (torch.bfloat16, "dst-sorted"),
+                             (torch.float32, "shuffled")):
+            rows, cols = ((a_dst, a_src) if order == "dst-sorted" else
+                          (a_dst[perm].contiguous(), a_src[perm].contiguous()))
+            a, b = sa.to(dtype), sb.to(dtype)
+            # beside them: the B rows of the pairs alone, and the A and B
+            # rows (an A row where it changes within a run, as sddmm)
+            ms = timed(f"{str(dtype)[6:]} F={HIDDEN} {order}",
+                       {r: (lambda r=r: sdd(r, a, b, rows, cols))
+                        for r in runs},
+                       kops.sddmm(a.float(), b.float(), rows, cols,
+                                  impl="ref"),
+                       dtype, {**probe_calls("B rows", b, cols),
+                               **probe_calls("A+B rows", b, cols, a, rows)})
+            ceiling(ms, "B rows", b, cols)
+            ceiling(ms, "A+B rows")
+        del perm, sa, sb, a, b, rows, cols
     if "segment_reduce" in names:
-        runs = VARIANTS["segment_reduce"][1]
+        runs = variant_keys("segment_reduce")
         a_dst = torch.from_numpy(g.edge_index[1]).to(dev).int().contiguous()
         a_plan = make_plan(a_dst, g.num_nodes, feat=HIDDEN, device=dev)
-        print(f"segment_reduce on the ogbn-arxiv destinations, RUN = {runs}:",
+        print(f"segment_reduce on the ogbn-arxiv destinations, variants {runs}:",
               flush=True)
         for feat, dtype, reduces in (
                 (HIDDEN, torch.float32, ("sum", "mean", "max")),
@@ -280,7 +497,7 @@ def main() -> None:
     am_dst = torch.from_numpy(am.edge_index[1]).to(dev).int().contiguous()
     am_plan = am.make_plan(feat=HIDDEN, device=dev)
     if "gather_segment_reduce" in names:
-        runs = VARIANTS["gather_segment_reduce"][1]
+        runs = variant_keys("gather_segment_reduce")
         am_inv = torch.from_numpy(am.inv_type_perm).to(dev).int().contiguous()
         for feat, dtype in ((HIDDEN, torch.float32), (FEAT, torch.float32),
                             (HIDDEN, torch.bfloat16)):
@@ -295,7 +512,7 @@ def main() -> None:
                                              impl="ref"), dtype)
             del msg
     if "segment_softmax" in names:
-        runs = VARIANTS["segment_softmax"][1]
+        runs = variant_keys("segment_softmax")
         x = torch.randn(m, 2, generator=gen, device=dev) * 5
         timed(f"typed softmax float32 (E={m}, 2) into {am.num_nodes} rows",
               {r: (lambda r=r: ssm(r, x, am_dst, am.num_nodes,
@@ -304,11 +521,11 @@ def main() -> None:
               torch.float32)
         del x
     if "segment_matmul" in names:
-        stages = VARIANTS["segment_matmul"][1]
+        stages = variant_keys("segment_matmul")
         sizes = torch.from_numpy(am.type_counts).to(dev)
         rplan = am.make_relation_plan(feat=HIDDEN, device=dev)
         print(f"segment_matmul over M={m} rows in {AM_RELATIONS} groups, "
-              f"STAGES = {stages}:", flush=True)
+              f"variants {stages}:", flush=True)
         for k, n in ((HIDDEN, HIDDEN), (HIDDEN, 2 * HIDDEN)):
             x32 = torch.randn(m, k, generator=gen, device=dev)
             w32 = torch.randn(AM_RELATIONS, k, n, generator=gen,

@@ -49,10 +49,10 @@ SIGNATURES = {
         "ssm_launch": [_I, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
     },
     "fused_transform_reduce": {
-        # dtype, mean, weighted, h, wm, gidx, seg, wt, cf, cc, out,
-        # num_rows, d_in, d_out, num_segments, s_b, m_b, out_blocks, stream
-        "ftr_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _L, _I, _I, _I, _I, _I, _I, _P],
+        # dtype, mean, weighted, h, wm, gidx, wt, row_ptr, out, d_in,
+        # d_out, num_segments, tile_segments, stream
+        "ftr_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _P],
     },
     "segment_reduce": {
         # dtype, reduce, x, seg, row_ptr, part, out, num_rows, feat,

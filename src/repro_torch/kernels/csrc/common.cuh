@@ -1,11 +1,10 @@
 // Shared helpers of the segment kernels: io-dtype conversion (fp32 / bf16
 // in device memory, fp32 arithmetic), enum codes of the C interface, the
-// NaN-propagating max the reference's jnp.maximum computes, vectors of io
-// elements as one load keeps them in registers, and the chunk range a
-// window block of the plan walks (block_rows; only fused_transform_reduce.cu
-// still walks ownership windows). The gather, segment_reduce and softmax
-// kernels split their work by row runs instead (row_runs.cuh,
-// segment_softmax.cu); the window walk they shared is gone.
+// NaN-propagating max the reference's jnp.maximum computes, and vectors of
+// io elements as one load keeps them in registers. No kernel walks the
+// plan's ownership windows: the gather, segment_reduce and softmax split
+// their work by row runs (row_runs.cuh, segment_softmax.cu), the fused
+// transform-reduce by segment tiles over the row offsets.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -57,14 +56,4 @@ __device__ __forceinline__ void store_vec(T* p, const float (&f)[V]) {
   RawVec<T, V> r;
   memcpy(&r, t, sizeof(r));
   *reinterpret_cast<RawVec<T, V>*>(p) = r;
-}
-
-// Rows [r0, r1) that block b walks: its chunk range clipped to the real rows
-// (chunks past num_rows hold only padding, whose segment is the drop id).
-__device__ __forceinline__ void block_rows(const int* cf, const int* cc, int b, int m_b,
-                                           int64_t num_rows, int64_t* r0, int64_t* r1) {
-  const int64_t first = (int64_t)cf[b] * m_b;
-  const int64_t last = first + (int64_t)cc[b] * m_b;
-  *r0 = first;
-  *r1 = last < num_rows ? last : num_rows;
 }

@@ -27,7 +27,7 @@
 //    (it is reloaded only when a tile reaches a new group), transposed and
 //    laid out so each thread reads its B fragment with one 16- or 8-byte
 //    load, without bank conflicts.
-//  * Products run on the tensor cores with mma.sync: bf16 as m16n8k16 with
+//  * Products run on the tensor cores with mma.sync (mma.cuh): bf16 as m16n8k16 with
 //    fp32 accumulators; fp32 as m16n8k8 TF32 with the 3xTF32 split
 //    (x = x_hi + x_lo, w = w_hi + w_lo, x_hi with its low 13 mantissa bits
 //    cleared, x_lo = x - x_hi, which the tensor core truncates to TF32;
@@ -52,6 +52,7 @@
 //    widths the whole K is one chunk and W stays resident.
 // Row offsets are 64-bit: M * N reaches 7.7e8 at the AM graph.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -89,30 +90,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// the 3xTF32 split of one fp32 value: hi keeps the top 10 mantissa bits, lo
-// is the exact rest, of which the tensor core reads the top 10 (it
-// truncates an operand to TF32)
-__device__ __forceinline__ void split_tf32(uint32_t bits, uint32_t& hi, uint32_t& lo) {
-  hi = bits & 0xffffe000u;
-  lo = __float_as_uint(__uint_as_float(bits) - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Shared-memory geometry, in 32-bit words, shared by host and device, for

@@ -8,9 +8,14 @@ computes the same function as transform-then-aggregate. The fp32 aggregate
 is cast to the io dtype before the product, as the reference does.
 
   * :func:`fused_transform_reduce_cuda` — the hand-written Hopper kernel
-    (``csrc/fused_transform_reduce.cu``). Replaces the TPU kernel
+    (``csrc/fused_transform_reduce.cu``; its note says what bounds it and
+    how the design answers). Replaces the TPU kernel
     ``repro/kernels/fused_transform_reduce.py:_fused_transform_reduce_impl``.
   * :func:`fused_transform_reduce_ref` — the plain PyTorch version.
+  * :func:`fused_transform_reduce_blocked` — the kernel's schedule in plain
+    PyTorch: tiles of :data:`TILE_SEGMENTS` segments over the plan's row
+    offsets, one run of rows per lane group, cut segments folded in run
+    order, the aggregate cast once, then the product.
   * :func:`fusable` — does one block's shared-memory footprint fit Hopper?
 """
 from __future__ import annotations
@@ -19,26 +24,47 @@ import torch
 
 from repro_torch.core.config_space import SMEM_BYTES, KernelConfig, io_dtype_bytes
 from repro_torch.kernels import _build
-from repro_torch.kernels.gather_segment_reduce import (DTYPE_CODE, check_rows,
+from repro_torch.kernels.gather_segment_reduce import (DTYPE_CODE, check_row_ptr,
+                                                       check_rows,
                                                        gather_segment_reduce_ref)
 
-W_TILE_ROWS = 32    # rows of W per shared-memory tile (KT in the .cu source)
+# segments of one block's tile: the constant TILE of
+# csrc/fused_transform_reduce.cu, which the launch checks against this copy
+TILE_SEGMENTS = 64
+THREADS = 256       # threads of a block (THREADS in the .cu source)
+BN = 64             # output columns of one product pass (BN in the .cu source)
 
 launches = 0        # launches of the CUDA kernel in this process
 
 
-def smem_bytes(d_in: int, d_out: int, dtype, config: KernelConfig) -> int:
-    """One block's shared memory: the (s_b, d_in) fp32 aggregate, the
-    (s_b, d_out) fp32 output sums, and one (W_TILE_ROWS, d_out) tile of W
-    in the io dtype."""
-    return (4 * config.s_b * (d_in + d_out)
-            + W_TILE_ROWS * d_out * io_dtype_bytes(dtype))
+def smem_bytes(d_in: int, d_out: int, dtype) -> int:
+    """One block's shared memory, as the kernel's ``Geometry`` lays it out:
+    the tile's TILE + 1 int64 row offsets and its fold plan (two int32 a
+    segment); W transposed (n_pad rows of the k words, padded to 4 mod 32);
+    the (TILE, d_in) aggregate in the io dtype (the same row stride); and
+    the larger of the slots (two fp32 partials of a 16-byte vector a
+    thread) and the output stage (TILE rows of BN columns) that reuses
+    them."""
+    es = io_dtype_bytes(dtype)
+    f32 = es == 4
+    kstep = 8 if f32 else 16
+    k_pad = -(-max(d_in, 1) // kstep) * kstep
+    kw = k_pad if f32 else k_pad // 2
+    kstride = kw + (36 - kw % 32) % 32
+    n_pad = -(-max(d_out, 1) // 8) * 8
+    ostride = BN + 8 if f32 else BN // 2 + 4
+    rp_words = (2 * (TILE_SEGMENTS + 1) + 2 * TILE_SEGMENTS + 3) // 4 * 4
+    s_words = 2 * THREADS * (16 // es)
+    return 4 * (rp_words + n_pad * kstride + TILE_SEGMENTS * kstride
+                + max(s_words, TILE_SEGMENTS * ostride))
 
 
-def fusable(d_in: int, d_out: int, dtype, config: KernelConfig,
+def fusable(d_in: int, d_out: int, dtype, config: KernelConfig = None,
             budget: int = SMEM_BYTES) -> bool:
-    """Does one launch's shared-memory footprint fit a Hopper block?"""
-    return smem_bytes(d_in, d_out, dtype, config) <= budget
+    """Does one launch's shared-memory footprint (W resident, the tile's
+    aggregate, slots and output stage) fit a Hopper block? ``config`` is
+    kept for the reference's signature; it no longer sizes the block."""
+    return smem_bytes(d_in, d_out, dtype) <= budget
 
 
 def fused_transform_reduce_ref(h, w, gather_idx, seg_idx, num_segments: int,
@@ -50,19 +76,100 @@ def fused_transform_reduce_ref(h, w, gather_idx, seg_idx, num_segments: int,
     return (agg.float() @ w.float()).to(h.dtype)
 
 
+def lanes_per_row(d_in: int, dtype) -> int:
+    """Lanes of the kernel's lane group for rows of ``d_in`` io elements:
+    the widest vector of at most 16 bytes that divides a row (H aligned),
+    then the fewest lanes, 4 to 32, that span the row with it."""
+    es = io_dtype_bytes(dtype)
+    v = 16 // es
+    while v > 1 and d_in % v:
+        v //= 2
+    lpr = 4
+    while lpr < 32 and lpr * v < d_in:
+        lpr *= 2
+    return lpr
+
+
+def fused_transform_reduce_blocked(h, w, gather_idx, seg_idx,
+                                   num_segments: int, weight, reduce: str,
+                                   row_ptr, tile: int = TILE_SEGMENTS):
+    """The CUDA kernel's schedule in plain PyTorch. The segments are cut
+    into tiles of ``tile`` (the kernel's, unless a test asks for another).
+    A tile's rows ``[row_ptr[lo], row_ptr[hi])`` are split evenly into one
+    run per lane group (``THREADS / lanes_per_row`` runs of ceil(rows /
+    runs) rows); each run reduces its rows per segment, writes a segment
+    that lies wholly inside it to the aggregate (cast to the io dtype) or
+    keeps its value as a partial (slot 0: the segment of the run's first
+    row, slot 1: that of its last row). Then each cut segment's partials
+    fold in run order, empty segments are 0, and the tile's aggregate, in
+    the io dtype, is multiplied by W in fp32. The aggregate starts NaN, so
+    an element no step writes shows in the output."""
+    num_rows, d_in = int(seg_idx.shape[0]), int(h.shape[1])
+    runs = THREADS // lanes_per_row(d_in, h.dtype)
+    agg = torch.full((num_segments, d_in), float("nan"), dtype=h.dtype,
+                     device=h.device)
+    rp = row_ptr.tolist()
+    gidx = gather_idx[:num_rows].long()
+    wt = None if weight is None else weight.float()
+    for lo in range(0, num_segments, tile):
+        hi = min(lo + tile, num_segments)
+        r0, r1 = rp[lo], rp[hi]
+        if r0 == r1:
+            agg[lo:hi] = 0
+            continue
+        chunk = -(-(r1 - r0) // runs)
+        partial = {}
+        for g in range(runs):
+            g0, g1 = min(r0 + g * chunk, r1), min(r0 + (g + 1) * chunk, r1)
+            if g0 >= g1:
+                continue
+            msg = h.index_select(0, gidx[g0:g1]).float()
+            if wt is not None:
+                msg = msg * wt[g0:g1, None]
+            s = lo
+            while rp[s + 1] <= g0:      # the segment of the run's first row
+                s += 1
+            first = True
+            while s < hi and rp[s] < g1:
+                a, e = rp[s], rp[s + 1]
+                if a < e:
+                    val = msg[max(a, g0) - g0:min(e, g1) - g0].sum(0)
+                    if a >= g0 and e <= g1:
+                        agg[s] = (val / (e - a) if reduce == "mean"
+                                  else val).to(h.dtype)
+                    else:
+                        partial[(g, 0 if first else 1)] = val
+                    first = False
+                s += 1
+        for s in range(lo, hi):
+            a, e = rp[s], rp[s + 1]
+            if a == e:
+                agg[s] = 0
+                continue
+            ka, kb = (a - r0) // chunk, (e - 1 - r0) // chunk
+            if ka == kb:
+                continue
+            acc = partial[(ka, 0 if a == r0 + ka * chunk else 1)]
+            for k in range(ka + 1, kb + 1):
+                acc = acc + partial[(k, 0)]
+            agg[s] = (acc / (e - a) if reduce == "mean" else acc).to(h.dtype)
+    return (agg.float() @ w.float()).to(h.dtype)
+
+
 def fused_transform_reduce_cuda(h, w, gather_idx, seg_idx, num_segments: int,
-                                weight, reduce: str, chunk_first, chunk_count,
-                                config: KernelConfig):
-    """Launch the Hopper kernel on the current stream (asynchronous)."""
+                                weight, reduce: str, row_ptr):
+    """Launch the Hopper kernel on the current stream (asynchronous).
+    ``row_ptr`` is the plan's int64 row offsets of ``seg_idx`` on h's
+    device; the kernel reads them and the gather indices, not ``seg_idx``
+    itself."""
     global launches
     if reduce not in ("sum", "mean"):
         raise ValueError(f"fused transform-reduce is linear-only: reduce "
                          f"must be sum or mean, got {reduce!r}")
     num_rows = int(seg_idx.shape[0])
     check_rows("fused_transform_reduce", h,
-               {"gather_idx": gather_idx, "seg_idx": seg_idx,
-                "chunk_first": chunk_first, "chunk_count": chunk_count},
-               weight, num_rows)
+               {"gather_idx": gather_idx, "seg_idx": seg_idx}, weight,
+               num_rows)
     d_in, d_out = int(h.shape[1]), int(w.shape[1])
     if (w.device != h.device or w.dtype != h.dtype or w.dim() != 2
             or w.shape[0] != d_in or not w.is_contiguous()):
@@ -70,17 +177,13 @@ def fused_transform_reduce_cuda(h, w, gather_idx, seg_idx, num_segments: int,
                          f"({d_in}, d_out) {h.dtype} tensor on {h.device}")
     if gather_idx.shape[0] != num_rows:
         raise ValueError("gather_idx and seg_idx must have the same length")
-    if not fusable(d_in, d_out, h.dtype, config):
+    check_row_ptr("fused_transform_reduce", row_ptr, num_segments, h.device)
+    if not fusable(d_in, d_out, h.dtype):
         raise ValueError(
             f"(d_in={d_in}, d_out={d_out}) needs "
-            f"{smem_bytes(d_in, d_out, h.dtype, config)} B of shared memory "
-            f"for config {config}, over the {SMEM_BYTES} B of a Hopper "
-            f"block; use the two-launch mp_transform path")
-    s_b, m_b = config.s_b, config.m_b
-    out_blocks = (num_segments + s_b - 1) // s_b
-    if chunk_first.shape[0] != out_blocks or chunk_count.shape[0] != out_blocks:
-        raise ValueError(f"plan metadata has {chunk_first.shape[0]} blocks, "
-                         f"expected {out_blocks}")
+            f"{smem_bytes(d_in, d_out, h.dtype)} B of shared memory, over "
+            f"the {SMEM_BYTES} B of a Hopper block; use the two-launch "
+            f"mp_transform path")
     out = torch.empty((num_segments, d_out), dtype=h.dtype, device=h.device)
     if num_segments == 0 or d_out == 0:
         return out
@@ -89,11 +192,9 @@ def fused_transform_reduce_cuda(h, w, gather_idx, seg_idx, num_segments: int,
         err = lib.ftr_launch(
             DTYPE_CODE[h.dtype], int(reduce == "mean"), int(weight is not None),
             _build.ptr(h), _build.ptr(w), _build.ptr(gather_idx),
-            _build.ptr(seg_idx),
             _build.ptr(weight if weight is not None else h),
-            _build.ptr(chunk_first), _build.ptr(chunk_count), _build.ptr(out),
-            num_rows, d_in, d_out, num_segments, s_b, m_b, out_blocks,
-            _build.stream_of(h))
+            _build.ptr(row_ptr), _build.ptr(out), d_in, d_out, num_segments,
+            TILE_SEGMENTS, _build.stream_of(h))
     _build.check(err, "fused_transform_reduce")
     launches += 1
     return out

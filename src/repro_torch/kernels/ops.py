@@ -7,17 +7,18 @@ Backend (``impl``):
   * ``"cuda"`` — the hand-written Hopper kernel; raises on CPU tensors;
   * ``"ref"`` — the plain PyTorch version, on any device (on the card it is
     only ever asked for explicitly, as an oracle);
-  * ``"blocked"`` — gather_segment_reduce, segment_reduce and
-    segment_softmax: their kernels' row-run schedules in plain PyTorch.
+  * ``"blocked"`` — gather_segment_reduce, segment_reduce,
+    segment_softmax and fused_transform_reduce: their kernels' schedules in
+    plain PyTorch.
 
 There is no fallback: a CUDA tensor reaches the kernel or the call raises.
 
-Config: the fused kernel and segment_matmul tile by ``plan`` > explicit
-``config=`` > the Hopper default. The row-run kernels (gather_segment_reduce,
-segment_reduce, segment_softmax) have a run length of their own and read
-nothing of a config: for them ``config=`` is only checked against the plan.
-Either way a plan's tiling is authoritative and an explicit config must
-agree with it.
+Config: segment_matmul tiles by ``plan`` > explicit ``config=`` > the
+Hopper default. The segment kernels (gather_segment_reduce, segment_reduce,
+segment_softmax, fused_transform_reduce) have run lengths and tiles of
+their own and read nothing of a config: for them ``config=`` is only
+checked against the plan. Either way a plan's tiling is authoritative and
+an explicit config must agree with it.
 A plan's metadata must lie on the data's device: no call copies it (build
 plans with ``device=``, or move one once with ``plan.to``).
 
@@ -44,7 +45,7 @@ from repro_torch.kernels import sddmm as _sdd
 from repro_torch.kernels import segment_matmul as _smm
 from repro_torch.kernels import segment_reduce as _srd
 from repro_torch.kernels import segment_softmax as _ssm
-from repro_torch.kernels.segment_reduce import _resolve_plan, _round_up, chunk_metadata
+from repro_torch.kernels.segment_reduce import _resolve_plan
 
 IMPLS = ("cuda", "ref", "blocked")
 _KERNEL_MODULES = {"gather_segment_reduce": _gsr,
@@ -131,15 +132,9 @@ def fusion_scope():
 # plan metadata
 # ---------------------------------------------------------------------------
 
-def _resolve(plan, num_rows: int, num_segments: int,
-             config: Optional[KernelConfig], feat: int) -> KernelConfig:
-    config, _ = _resolve_plan(plan, num_rows, num_segments, config, None)
-    return config if config is not None else default_config(feat)
-
-
 def _check_plan(plan, num_rows: int, num_segments: int,
                 config: Optional[KernelConfig]) -> None:
-    """For the row-run kernels, which read no tiling: the plan must fit
+    """For the segment kernels, which read no tiling: the plan must fit
     the data and an explicit config must agree with the plan's."""
     _resolve_plan(plan, num_rows, num_segments, config, None)
 
@@ -152,21 +147,6 @@ def _on_device(plan, t) -> None:
             f"{type(plan).__name__} metadata lies on {plan.device}, the data "
             f"on {t.device}; build the plan with device={str(t.device)!r} "
             "or move it once with plan.to(...)")
-
-
-def _metadata(plan, seg_idx, num_segments: int, config: KernelConfig):
-    """The fused kernel's (chunk_first, chunk_count) on seg_idx's device:
-    the plan's, or computed on the device from the padded index (no host
-    round trip)."""
-    if plan is not None:
-        _on_device(plan, seg_idx)
-        return plan.chunk_first, plan.chunk_count
-    m = int(seg_idx.shape[0])
-    m_pad = _round_up(max(m, 1), config.m_b)
-    idxp = torch.full((m_pad,), num_segments, dtype=torch.int32,
-                      device=seg_idx.device)
-    idxp[:m] = seg_idx
-    return chunk_metadata(idxp, num_segments, config.s_b, config.m_b, m_pad)
 
 
 def _row_ptr(plan, seg_idx, num_segments: int):
@@ -245,11 +225,13 @@ def fused_transform_reduce(h, w, gather_idx, seg_idx, num_segments: int,
                            impl: Optional[str] = None):
     """One-launch SpMM+GEMM: Y[s] = (reduce_{seg[i]==s} wt[i]·H[gidx[i]]) @ W
     for reduce ∈ {sum, mean}; neither the (|E|, d) edge tensor nor the
-    (S, d_in) aggregate is materialized."""
+    (S, d_in) aggregate is materialized. ``seg_idx`` must be sorted
+    non-decreasing. ``config`` is only checked against ``plan``: the
+    kernel's tile is its own."""
     if reduce not in ("sum", "mean"):
         raise ValueError(f"unknown reduce: {reduce!r} "
                          "(fused transform-reduce supports sum/mean)")
-    impl = resolve_impl(h, impl, ("cuda", "ref"))
+    impl = resolve_impl(h, impl)
     op = ("fused_transform_reduce" if weight is None
           else "fused_transform_reduce_weighted")
     if weight is not None:
@@ -258,15 +240,18 @@ def fused_transform_reduce(h, w, gather_idx, seg_idx, num_segments: int,
         account("unfused", f"{op}:ref")
         return _ftr.fused_transform_reduce_ref(h, w, gather_idx, seg_idx,
                                                num_segments, weight, reduce)
-    config = _resolve(plan, int(seg_idx.shape[0]), num_segments, config,
-                      int(h.shape[1]))
-    cf, cc = _metadata(plan, seg_idx, num_segments, config)
+    _check_plan(plan, int(seg_idx.shape[0]), num_segments, config)
+    row_ptr = _row_ptr(plan, seg_idx, num_segments)
+    if impl == "blocked":
+        account("unfused", f"{op}:blocked")
+        return _ftr.fused_transform_reduce_blocked(
+            h, w.to(h.dtype), gather_idx, seg_idx, num_segments, weight,
+            reduce, row_ptr)
     account("fused", op)
     return _ftr.fused_transform_reduce_cuda(
         h.contiguous(), w.to(h.dtype).contiguous(), _index32(gather_idx),
         _index32(seg_idx), num_segments,
-        None if weight is None else weight.contiguous(), reduce, cf, cc,
-        config)
+        None if weight is None else weight.contiguous(), reduce, row_ptr)
 
 
 def segment_reduce(x, idx, num_segments: int, reduce: str = "sum",

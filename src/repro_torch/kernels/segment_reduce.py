@@ -17,8 +17,9 @@ output in the io dtype of ``X``; an empty segment is ``-inf`` for max and 0
 otherwise; mean is the sum over ``max(count, 1)``; rows with
 ``idx >= num_segments`` are dropped.
 
-:func:`chunk_metadata` is the plans' window metadata (the fused kernel's
-schedule): output block ``b`` owns segment ids ``[b·S_b, (b+1)·S_b)``.
+:func:`chunk_metadata` is the plans' window metadata, which no kernel of
+the port reads (the plans keep it to compare one to one with the
+reference's): output block ``b`` owns segment ids ``[b·S_b, (b+1)·S_b)``.
 Because the segment index is sorted, the rows feeding block ``b`` form one
 contiguous range; ``chunk_metadata`` maps ``b`` to the range of ``M_b``-row
 chunks that covers it.

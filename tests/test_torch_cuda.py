@@ -200,7 +200,8 @@ def test_segment_softmax_all_neg_inf_segment(dev, heads):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("reduce", ["sum", "mean"])
 @pytest.mark.parametrize("weighted", [False, True])
-@pytest.mark.parametrize("dims", [(32, 64, 32), (100, 48, 32), (256, 128, 128)])
+@pytest.mark.parametrize("dims", [(32, 64, 32), (100, 48, 32), (256, 128, 128),
+                                  (40, 24, 32), (3, 16, 32)])
 def test_fused_transform_reduce_kernel(dev, dtype, reduce, weighted, dims):
     d_in, d_out, s_b = dims
     cfg = KernelConfig("SR", s_b, 128, 64, 1)
@@ -218,6 +219,79 @@ def test_fused_transform_reduce_kernel(dev, dtype, reduce, weighted, dims):
         xi.float(), wmi.float(), src, dst, 3001,
         weight=None if wi is None else wi.float(), reduce=reduce, impl="ref")
     _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dims", [(32, 64), (40, 24), (3, 16), (64, 200)])
+def test_fused_transform_reduce_matches_blocked_and_is_deterministic(
+        dev, dtype, dims):
+    """The kernel against its blocked mirror (the same tiles, runs and fold
+    order) and bitwise equal to itself over two launches; a hub of 5,000
+    rows, gapped ids (empty tiles) and padding rows."""
+    d_in, d_out = dims
+    src, dst, x, w = _graph(dev, 1500, 6000, d_in, seed=d_in + 1,
+                            gapped=True, pad=11, hub=5000)
+    dst = torch.where(dst < 1500, dst + (dst >= 300) * (dst < 600) * 300, dst)
+    dst = dst.sort().values
+    wm = (torch.randn(d_in, d_out, device=dev) / d_in ** 0.5).to(dtype)
+    xi, wi = x.to(dtype), w.to(dtype)
+    plan = make_plan(dst, 1500, device=dev)
+    rp = plan.row_ptr.cpu()
+    assert bool((rp[320:384] == rp[320]).all()), "a tile with no rows"
+
+    def launch():
+        return kops.fused_transform_reduce(xi, wm, src, dst, 1500, wi, "sum",
+                                           plan=plan, impl="cuda")
+    got, again = launch(), launch()
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    blocked = kops.fused_transform_reduce(xi, wm, src, dst, 1500, wi, "sum",
+                                          plan=plan, impl="blocked")
+    assert bool(torch.isfinite(blocked).all())
+    _close(got, blocked, dtype)
+    _close(got, kops.fused_transform_reduce(
+        xi.float(), wm.float(), src, dst, 1500, wi.float(), "sum",
+        impl="ref"), dtype)
+
+
+# widths on either side of the 232,448 B of shared memory a block may use:
+# W resident and the aggregate grow with d_in, the output stage with d_out
+# past one pass of BN = 64 columns, bf16 pads K to 16
+SMEM_EDGE = [(torch.float32, 256, 128), (torch.float32, 256, 136),
+             (torch.float32, 256, 137), (torch.float32, 256, 192),
+             (torch.float32, 384, 72), (torch.float32, 384, 73),
+             (torch.float32, 200, 168), (torch.float32, 200, 169),
+             (torch.bfloat16, 256, 128), (torch.bfloat16, 256, 192),
+             (torch.bfloat16, 256, 336), (torch.bfloat16, 256, 337),
+             (torch.bfloat16, 300, 256), (torch.bfloat16, 300, 257),
+             (torch.bfloat16, 384, 208), (torch.bfloat16, 384, 209)]
+
+
+@pytest.mark.parametrize("dtype,d_in,d_out", SMEM_EDGE)
+def test_fused_kernel_launches_exactly_where_fusable(dev, dtype, d_in, d_out):
+    """fusable's Python copy of the kernel's shared-memory layout against
+    the kernel itself: the C entry point, called past the wrapper's check,
+    launches exactly where fusable says the block fits, and then agrees
+    with the plain version."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fused_transform_reduce import (DTYPE_CODE,
+                                                            TILE_SEGMENTS)
+    src, dst, x, w = _graph(dev, 300, 2000, d_in, seed=d_in + d_out, pad=3)
+    xi, wi = x.to(dtype), w.to(dtype)
+    wm = (torch.randn(d_in, d_out, device=dev) / d_in ** 0.5).to(dtype)
+    plan = make_plan(dst, 300, device=dev)
+    out = torch.zeros((300, d_out), dtype=dtype, device=dev)
+    err = _build.load("fused_transform_reduce").ftr_launch(
+        DTYPE_CODE[dtype], 0, 1, _build.ptr(xi), _build.ptr(wm),
+        _build.ptr(src), _build.ptr(wi), _build.ptr(plan.row_ptr),
+        _build.ptr(out), d_in, d_out, 300, TILE_SEGMENTS,
+        _build.stream_of(xi))
+    torch.cuda.synchronize()
+    assert (err == 0) == fusable(d_in, d_out, dtype), err
+    if err == 0:
+        _close(out, kops.fused_transform_reduce(
+            xi.float(), wm.float(), src, dst, 300, wi.float(), "sum",
+            impl="ref"), dtype)
 
 
 @pytest.mark.parametrize("family", gnn.MODELS)
@@ -359,6 +433,29 @@ def test_segment_reduce_deterministic(dev, dtype, reduce):
     again = kops.segment_reduce(x, dst, 3000, reduce, plan=plan, impl="cuda")
     assert kops.launch_counts()["segment_reduce"] == before + 2
     assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [3, 40, 64])
+@pytest.mark.parametrize("order", ["dst_sorted", "shuffled", "one_row"])
+def test_sddmm_pairs(dev, dtype, n, order):
+    """Runs of pairs with A-row reuse: dst-sorted pairs (rows repeat in
+    runs), the same pairs shuffled, and every pair on one row of A."""
+    a = torch.randn(900, n, device=dev).to(dtype)
+    b = torch.randn(700, n, device=dev).to(dtype)
+    row = torch.randint(0, 900, (20011,), device=dev).sort().values
+    if order == "shuffled":
+        row = row[torch.randperm(row.numel(), device=dev)]
+    elif order == "one_row":
+        row = torch.full_like(row, 17)
+    row = row.int().contiguous()
+    col = torch.randint(0, 700, (20011,), device=dev, dtype=torch.int32)
+    got = kops.sddmm(a, b, row, col, impl="cuda")
+    again = kops.sddmm(a, b, row, col, impl="cuda")
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (20011,)
+    assert torch.equal(got, again)
+    _close(got, kops.sddmm(a.float(), b.float(), row, col, impl="ref"), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

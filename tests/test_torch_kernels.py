@@ -30,6 +30,7 @@ from repro_torch.core.config_space import KernelConfig as TConfig  # noqa: E402
 from repro_torch.core.config_space import default_config  # noqa: E402
 from repro_torch.core.plan import make_plan  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import fused_transform_reduce as tftr  # noqa: E402
 from repro_torch.kernels.fused_transform_reduce import (  # noqa: E402
     fusable, fused_transform_reduce_cuda)
 from repro_torch.kernels import gather_segment_reduce as tgsr  # noqa: E402
@@ -356,6 +357,129 @@ def test_blocked_segment_softmax_all_neg_inf_segment_is_zero(run):
                                **_tol("float32"))
 
 
+# the fused kernel's tiles: TILE segments over the plan's row offsets, one
+# run of rows per lane group, cut segments folded in run order
+
+
+def _gapped_graph():
+    """S % 64 != 0, no destination in [40, 200): with tiles of 64 the tile
+    [64, 128) has no rows (so do tiles of 16 in the stretch), a hub of 120
+    rows into segment 230, and 9 padding rows."""
+    rng = np.random.default_rng(31)
+    v = 300
+    dst = rng.integers(0, v, 700)
+    dst = np.sort(np.concatenate([dst[(dst < 40) | (dst >= 200)],
+                                  np.full(120, 230)]))
+    dst = np.concatenate([dst, np.full(9, v)]).astype(np.int32)
+    src = rng.integers(0, v, dst.size).astype(np.int32)
+    x = rng.standard_normal((v, 9)).astype(np.float32)
+    w = rng.standard_normal(dst.size).astype(np.float32)
+    return src, dst, x, w, v
+
+
+_FUSED_GRAPHS = dict(_GRAPHS, gapped=_gapped_graph)
+_FUSED_D_OUT = 20
+SHORT_TILE = 16
+
+
+def _fused_inputs(graph):
+    src, dst, x, w, v = _FUSED_GRAPHS[graph]()
+    wm = (np.random.default_rng(32).standard_normal((x.shape[1], _FUSED_D_OUT))
+          / 3).astype(np.float32)
+    return src, dst, x, w, v, wm
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_fused(graph, reduce, weighted, dtype):
+    """The reference's fused Pallas kernel (interpret mode) on the same
+    inputs."""
+    src, dst, x, w, v, wm = _fused_inputs(graph)
+    return _np(jops.fused_transform_reduce(
+        _j(x, dtype), _j(wm, dtype), _j(src), _j(w, dtype) if weighted else None,
+        _j(dst), v, reduce, "pallas", JCFG))
+
+
+@pytest.mark.parametrize("graph", list(_FUSED_GRAPHS))
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("tile", [tftr.TILE_SEGMENTS, SHORT_TILE])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_blocked_fused_transform_reduce_matches_plain_and_pallas(
+        graph, reduce, weighted, tile, dtype):
+    """The kernel's tile schedule against the plain version and the
+    reference's Pallas kernel: fp32 within rtol 1e-5, atol 1e-5·max|plain|;
+    bf16 within 2e-2 the same way, also against the fp32 cast-then-reduce
+    oracle. The atol scales with the output because the schedule sums a
+    segment in runs folded in run order, another order than index_add_'s:
+    at the 120- and 300-row hubs the sums reach ~20 and their fp32 rounding
+    ~2e-5, which the product with W carries into the output."""
+    src, dst, x, w, v, wm = _fused_inputs(graph)
+    plan = make_plan(dst, v, device="cpu")
+    rp = plan.row_ptr.numpy()
+    tiles = [(lo, min(lo + tile, v)) for lo in range(0, v, tile)]
+    if graph == "gapped":       # S % T != 0 and a tile with no rows
+        assert v % tile != 0
+        assert any(rp[lo] == rp[hi] for lo, hi in tiles)
+    if graph == "hub":          # the hub is cut by several runs of its tile
+        lo = 40 // tile * tile
+        runs = tftr.THREADS // tftr.lanes_per_row(x.shape[1],
+                                                  T_DTYPE[dtype])
+        chunk = -(-(rp[min(lo + tile, v)] - rp[lo]) // runs)
+        assert (rp[41] - 1 - rp[lo]) // chunk - (rp[40] - rp[lo]) // chunk >= 2
+    xt, wmt = _t(x, dtype), _t(wm, dtype)
+    wt = _t(w, dtype) if weighted else None
+    want = kops.fused_transform_reduce(xt, wmt, _t(src), _t(dst), v, wt,
+                                       reduce, impl="ref")
+    if tile == tftr.TILE_SEGMENTS:      # the wrapper, with the plan and without
+        gots = [kops.fused_transform_reduce(xt, wmt, _t(src), _t(dst), v, wt,
+                                            reduce, plan=p, impl="blocked")
+                for p in (plan, None)]
+    else:
+        gots = [tftr.fused_transform_reduce_blocked(
+            xt, wmt, _t(src), _t(dst), v, wt, reduce, plan.row_ptr, tile)]
+    oracle = kops.fused_transform_reduce(
+        xt.float(), wmt.float(), _t(src), _t(dst), v,
+        None if wt is None else wt.float(), reduce, impl="ref")
+    rtol = _tol(dtype)["rtol"]
+    tol = dict(rtol=rtol, atol=rtol * max(1.0, float(want.float().abs().max())))
+    for got in gots:
+        assert got.dtype == T_DTYPE[dtype] and got.shape == (v, _FUSED_D_OUT)
+        assert bool(torch.isfinite(got).all()), "an element was never written"
+        np.testing.assert_allclose(_np(got), _np(want), **tol)
+        np.testing.assert_allclose(
+            _np(got), _pallas_fused(graph, reduce, weighted, dtype), **tol)
+        if dtype == "bfloat16":
+            np.testing.assert_allclose(_np(got), _np(oracle), **tol)
+    empty = rp[1:] == rp[:-1]
+    assert empty.any() and bool((gots[0][torch.from_numpy(empty)] == 0).all())
+
+
+def test_blocked_fused_transform_reduce_empty_graph():
+    none = torch.zeros(0, dtype=torch.int32)
+    got = kops.fused_transform_reduce(torch.randn(70, 12), torch.randn(12, 5),
+                                      none, none, 70, impl="blocked")
+    assert got.shape == (70, 5) and bool((got == 0).all())
+
+
+def test_fused_tile_matches_kernel_source():
+    """The wrapper's tile, block and pass widths, and with them the shared
+    memory that fusable checks, must be the kernel's own constants."""
+    import inspect
+    src = (ROOT / "src/repro_torch/kernels/csrc/fused_transform_reduce.cu"
+           ).read_text()
+    for name, value in (("TILE", tftr.TILE_SEGMENTS), ("THREADS", tftr.THREADS),
+                        ("BN", tftr.BN)):
+        assert re.findall(rf"constexpr int {name} = (\d+);", src) == [
+            str(value)], name
+    blocked = tftr.fused_transform_reduce_blocked
+    assert inspect.signature(blocked).parameters["tile"].default == \
+        tftr.TILE_SEGMENTS
+    # the footprints the kernel's header note quotes
+    assert tftr.smem_bytes(32, 64, torch.float32) == 37_904
+    assert tftr.smem_bytes(32, 64, torch.bfloat16) == 35_856
+    assert "37,904 B" in src and "35,856 B" in src
+
+
 @pytest.mark.parametrize("kernel, module", [("segment_reduce", tsrd),
                                             ("segment_softmax", tssm)])
 def test_row_run_length_matches_kernel_source(kernel, module):
@@ -371,6 +495,24 @@ def test_row_run_length_matches_kernel_source(kernel, module):
         module.RUN_ROWS
 
 
+@pytest.mark.parametrize("kernel", ["gather_segment_reduce", "segment_reduce",
+                                    "segment_softmax", "segment_matmul",
+                                    "fused_transform_reduce", "sddmm"])
+def test_sweep_lines_match_kernel_source(kernel):
+    """Every source line the sweep module rewrites stands once in the
+    kernel's source, at one of the values it sweeps; a variant is named
+    CONST=value."""
+    from repro_torch import kernel_variants as kv
+    src = (ROOT / f"src/repro_torch/kernels/csrc/{kernel}.cu").read_text()
+    keys = []
+    for line, values in kv.VARIANTS[kernel]:
+        assert sum(src.count(line.format(v)) for v in values) == 1, line
+        keys += [f"{line.split()[2]}={v}" for v in values]
+    assert kv.variant_keys(kernel) == keys
+    assert (ROOT / "src/repro_torch/kernels/csrc/probes/row_reads.cu"
+            ).is_file()
+
+
 # ---------------------------------------------------------------------------
 # backend rules, the Hopper gate, and the package boundary
 # ---------------------------------------------------------------------------
@@ -380,7 +522,12 @@ def test_fusable_rejects_over_budget():
     assert fusable(32, 64, torch.float32, cfg)
     assert fusable(64, 64, torch.bfloat16, cfg)
     assert not fusable(4096, 4096, torch.float32, cfg)
-    assert not fusable(64, 64, torch.float32, TConfig("SR", 2048, 128, 64, 1))
+    # W stays resident in shared memory: 512 x 256 fp32 is 512 KB (the
+    # window kernel, which streamed W, took it)
+    assert not fusable(512, 256, torch.float32, cfg)
+    assert not fusable(512, 256, torch.bfloat16, cfg)
+    # the config no longer sizes the block: the tile is the kernel's own
+    assert fusable(64, 64, torch.float32, TConfig("SR", 2048, 128, 64, 1))
     # the order rule: fused only with the kernel and a fitting footprint
     assert tmp.choose_order(32, 64, allow_fused=True) == "fused"
     assert tmp.choose_order(4096, 8192, allow_fused=True) == "aggregate_first"
@@ -412,8 +559,9 @@ def _cuda_calls():
             lambda: segment_softmax_cuda(_t(w), d, v,
                                          torch.zeros(v + 1, dtype=torch.int64)),
         "fused_transform_reduce_cuda":
-            lambda: fused_transform_reduce_cuda(h, wm, s, d, v, None, "sum",
-                                                d, d, default_config(12)),
+            lambda: fused_transform_reduce_cuda(
+                h, wm, s, d, v, None, "sum",
+                torch.zeros(v + 1, dtype=torch.int64)),
     }
 
 
@@ -425,13 +573,13 @@ def test_impl_cuda_on_cpu_tensors_raises(call):
     assert kops.launch_counts() == before
 
 
-def test_blocked_is_not_offered_by_the_fused_kernel():
-    """The fused kernel still walks ownership windows: it has no row-run
-    schedule to mirror."""
+def test_blocked_fused_transform_reduce_refuses_max():
+    """The fused kernel is linear-only: its blocked mirror refuses max as
+    the kernel does."""
     src, dst, x, w, v = _graph()
-    with pytest.raises(ValueError, match="unknown impl 'blocked'"):
+    with pytest.raises(ValueError, match="unknown reduce"):
         kops.fused_transform_reduce(_t(x), torch.ones(12, 4), _t(src),
-                                    _t(dst), v, impl="blocked")
+                                    _t(dst), v, reduce="max", impl="blocked")
 
 
 def test_cpu_default_is_plain_and_counts_no_launch():
