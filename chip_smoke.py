@@ -56,6 +56,25 @@ Phases (any failure exits non-zero before the result line):
       on the CSR of the coalesced (dst, src) pattern (duplicate pairs are
       merged there, so it computes each distinct pair once), and
       ``torch._grouped_mm`` with the group offsets.
+   c. The backwards: each op's gradients through the kernels against the
+      plain versions' autograd on the card, at the phase's tolerances, and
+      two backwards bitwise equal, with every backward op on a kernel:
+      index_segment_reduce and index_weight_segment_reduce (sum, mean, max,
+      F = 64) and fused_transform_reduce (weighted sum fp32 and bf16, mean,
+      32->64) at the arxiv bucket with its graph plan (whose source order
+      the dH walks follow), the gather of GAT's (V, 4) logits by the
+      sources, the (E, 4) softmax in fp32 and bf16, sddmm on arxiv's
+      (dst, src) pairs, segment_reduce on the arxiv destinations, and
+      segment_matmul over the AM typed rows (64->64 and 64->16 fp32,
+      64->64 bf16). Then each backward role timed beside its bound and a
+      one-call yardstick: the dH walk of a sum (``index_add_`` of the
+      per-edge rows) and of a weighted sum (``torch.sparse.mm`` of the
+      transposed CSR), a gather's dH with its sort by arxiv's sources and
+      by its destinations (``index_add_``), the
+      softmax backward's segment sum (``torch.segment_reduce``),
+      segment_matmul's dX with Wᵀ 16->64 (``torch._grouped_mm``); the
+      weight gradient's sddmm is the call 2b times. A
+      ``{"backward_roles": [...]}`` line lists them.
 3. The main paths, each with the launch counters zeroed just before it and
    read just after it:
 
@@ -80,8 +99,28 @@ Phases (any failure exits non-zero before the result line):
       ssm_cut) summed over the forward.
    c. The public ops: ``segment_reduce`` (sum, mean, max) and ``sddmm`` on
       arxiv's card tensors, as ``examples/quickstart.py`` calls them.
+   d. Training, under ``torch.use_deterministic_algorithms(True)`` with a
+      fixed cuBLAS workspace: gcn, gin, sage and gat (4 heads), 3 layers,
+      feat 32 / hidden 64 / 16 classes, full-graph on a graph of
+      ogbn-arxiv's size (169,343 nodes, 1,166,243 edges, unpadded,
+      ``GraphEpochProvider``), 6 steps each through ``repro_torch.fit``;
+      rgcn, 3 steps, on the AM-scale typed graph of 2b. For each family:
+      every op on a kernel and each kernel of its path launched; the
+      losses within rtol 1e-4 of the same trainer at ``impl="ref"`` on the
+      card; the step-0 gradients at the fp32 tolerance above, layer by
+      layer (each layer on the kernel path's input with one random
+      cotangent: a ReLU input within rounding of 0 may fall on either
+      side on the two whole forwards, and a weight gradient contracting
+      10^5 rows then moves by a whole term; the count of such inputs is
+      printed); a second
+      run and a run killed after its checkpoint at step 3 (rgcn: 2) and
+      resumed, both bitwise the first run. Prints the warm step time (CUDA
+      events at each step's end, median over steps 2-5), the forward /
+      backward / optimizer split (CUDA events, median of 5), one profiled
+      step's device-busy time and idle share, and peak memory; a
+      ``{"training": [...]}`` line lists them.
 4. A ``{"kernels": [...]}`` line: per kernel its launches on the main paths
-   (and per path), ``cuda_kernels_per_launch``, the port's CUDA kernels that
+   (and per path: serving, typed, ops, training), ``cuda_kernels_per_launch``, the port's CUDA kernels that
    one launch of its representative configuration runs, counted from the
    device events of ``torch.profiler`` over two calls after phase 3 (null
    where the profiler lost events; one launch of
@@ -107,16 +146,25 @@ Phases (any failure exits non-zero before the result line):
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
+import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# cuBLAS sums in a fixed order only with a fixed workspace; it must be set
+# before the first cuBLAS call (phase 3d trains under deterministic
+# algorithms)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
@@ -127,6 +175,7 @@ SEED = 0
 # the AM graph of the R-GCN paper (Schlichtkrull et al. 2018, Table 1)
 AM_NODES, AM_EDGES, AM_RELATIONS = 1_666_764, 5_988_321, 133
 RGAT_HEADS = 2
+TRAIN_STEPS, TYPED_TRAIN_STEPS = 6, 3
 
 
 def fail(msg: str) -> None:
@@ -232,9 +281,10 @@ def library(what: str, call):
 
 
 def profiled(torch, fn):
-    """(wall ms, device-busy ms, device ops by time) of one call of ``fn``
-    under ``torch.profiler``: device events only (kernels and copies), so a host
-    op's attributed device time is not counted twice."""
+    """(wall ms, device-busy ms, device ops by time as (name, ms, calls))
+    of one call of ``fn`` under ``torch.profiler``: device events only
+    (kernels and copies), so a host op's attributed device time is not
+    counted twice."""
     from torch.autograd import DeviceType
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
@@ -252,9 +302,9 @@ def profiled(torch, fn):
         if us is None:
             us = evt.self_cuda_time_total
         if us > 0:
-            rows.append((evt.key, us / 1e3))
+            rows.append((evt.key, us / 1e3, evt.count))
     rows.sort(key=lambda r: -r[1])
-    return wall_ms, sum(ms for _, ms in rows), rows
+    return wall_ms, sum(r[1] for r in rows), rows
 
 
 def port_kernel_names() -> set:
@@ -298,6 +348,473 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def backward_phase(torch, rt, kops, dev, gen, padded, v, e_real, wts, a_src,
+                   a_dst, a_v, am, sizes, rplan, offs):
+    """Phase 2c: each op's gradients on the kernels against the plain
+    versions' autograd on the card, bitwise over two backwards, and the
+    backward roles timed beside their bounds and yardsticks. Returns the
+    roles' records."""
+    from repro_torch.core.plan import source_order
+    gplan = padded.make_plan(feat=HIDDEN, device=dev)  # with its source order
+    order = gplan.src_order
+    src = torch.from_numpy(padded.edge_index[0]).to(dev)
+    dst = torch.from_numpy(padded.edge_index[1]).to(dev)
+
+    def grad_check(what, kernel_fn, plain_fn, leaves, dtype):
+        """Gradients of ``kernel_fn()`` (every backward op on a kernel)
+        against those of the plain ``plain_fn()`` for one random
+        cotangent, at the phase's tolerance; two backwards bitwise equal."""
+        out = kernel_fn()
+        ct = torch.randn(out.shape, generator=gen, device=dev).to(out.dtype)
+        ct = torch.where(torch.isfinite(out), ct, torch.zeros_like(ct))
+
+        def grads():
+            # the backward records in its forward's scope, whatever thread
+            # the autograd engine runs it on
+            with kops.fusion_scope() as fusion:
+                got = torch.autograd.grad(kernel_fn(), leaves, ct)
+            if not fusion or any(not k.startswith("fused:") for k in fusion):
+                fail(f"{what}: an op took a plain version: "
+                     f"{sorted(fusion)}")
+            return got
+        got = grads()
+        torch.cuda.synchronize()
+        want = torch.autograd.grad(plain_fn(), leaves, ct)
+        err = max(compare(torch, f"{what} grad {i}", a, b, dtype)
+                  for i, (a, b) in enumerate(zip(got, want)))
+        deterministic(torch, f"{what} backward", lambda: torch.cat(
+            [t.reshape(-1).float() for t in grads()]))
+        print(f"  {what} backward: max_abs_err={err:.3g}", flush=True)
+        return err
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    h64 = torch.randn(v, HIDDEN, generator=gen, device=dev)
+    for reduce in ("sum", "mean", "max"):
+        for weighted in (False, True):
+            h = h64.clone().requires_grad_()
+            w = wts.clone().requires_grad_()
+            if weighted:
+                leaves = [h, w]
+                k_fn = (lambda: rt.index_weight_segment_reduce(
+                    h, src, w, dst, v, reduce, None, None, gplan))
+                p_fn = (lambda: kops.gather_segment_reduce(
+                    h, src, dst, v, w, reduce, impl="ref"))
+            else:
+                leaves = [h]
+                k_fn = (lambda: rt.index_segment_reduce(
+                    h, src, dst, v, reduce, None, None, gplan))
+                p_fn = (lambda: kops.gather_segment_reduce(
+                    h, src, dst, v, None, reduce, impl="ref"))
+            grad_check(f"index{'_weight' if weighted else ''}_segment_reduce "
+                       f"{reduce} F={HIDDEN} float32", k_fn, p_fn, leaves,
+                       f32)
+    h32 = torch.randn(v, FEAT, generator=gen, device=dev)
+    wm32 = torch.randn(FEAT, HIDDEN, generator=gen, device=dev) / FEAT ** 0.5
+    for dtype, reduce, weighted in ((f32, "sum", True), (bf16, "sum", True),
+                                    (f32, "mean", False)):
+        h = h32.to(dtype).requires_grad_()
+        wm = wm32.to(dtype).requires_grad_()
+        w = wts.to(dtype).requires_grad_() if weighted else None
+        leaves = [h, wm] + ([w] if weighted else [])
+        grad_check(f"fused_transform_reduce {reduce}"
+                   f"{' weighted' if weighted else ''} {FEAT}->{HIDDEN} "
+                   f"{str(dtype)[6:]}",
+                   lambda: rt.fused_transform_reduce(
+                       h, wm, src, w, dst, v, reduce, None, None, gplan),
+                   lambda: kops.fused_transform_reduce(
+                       h, wm, src, dst, v, w, reduce, impl="ref"),
+                   leaves, dtype)
+    heads = 4
+    logit_v = torch.randn(v, heads, generator=gen, device=dev)
+    lv = logit_v.clone().requires_grad_()
+    grad_check(f"gather ({v}, {heads}) by the sources",
+               lambda: rt.gather(lv, src),
+               lambda: lv.index_select(0, src.long()), [lv], f32)
+    x_soft = torch.randn(dst.numel(), heads, generator=gen, device=dev) * 5
+    for dtype in (f32, bf16):
+        xs = x_soft.to(dtype).requires_grad_()
+        grad_check(f"segment_softmax heads={heads} {str(dtype)[6:]}",
+                   lambda: rt.segment_softmax(xs, dst, v, None, None, gplan),
+                   lambda: kops.segment_softmax(xs, dst, v, impl="ref"),
+                   [xs], dtype)
+    sa = torch.randn(a_v, HIDDEN, generator=gen, device=dev).requires_grad_()
+    sb = torch.randn(a_v, HIDDEN, generator=gen, device=dev).requires_grad_()
+    grad_check(f"sddmm F={HIDDEN} on arxiv's (dst, src) pairs float32",
+               lambda: rt.sddmm(sa, sb, a_dst, a_src),
+               lambda: kops.sddmm(sa, sb, a_dst, a_src, impl="ref"),
+               [sa, sb], f32)
+    a_plan = rt.make_plan(a_dst, a_v, feat=HIDDEN, device=dev)
+    xr = torch.randn(a_dst.numel(), HIDDEN, generator=gen,
+                     device=dev).requires_grad_()
+    for reduce in ("sum", "mean", "max"):
+        grad_check(f"segment_reduce {reduce} F={HIDDEN} float32",
+                   lambda: rt.segment_reduce(xr, a_dst, a_v, reduce, None,
+                                             None, a_plan),
+                   lambda: kops.segment_reduce(xr, a_dst, a_v, reduce,
+                                               impl="ref"), [xr], f32)
+    m_typed = am.num_edges
+    for k_dim, n_dim, dtype in ((HIDDEN, HIDDEN, f32), (HIDDEN, CLASSES, f32),
+                                (HIDDEN, HIDDEN, bf16)):
+        xm = torch.randn(m_typed, k_dim, generator=gen,
+                         device=dev).to(dtype).requires_grad_()
+        wg = (torch.randn(AM_RELATIONS, k_dim, n_dim, generator=gen,
+                          device=dev) / k_dim ** 0.5).to(dtype).requires_grad_()
+        grad_check(f"segment_matmul {k_dim}->{n_dim} M={m_typed} "
+                   f"G={AM_RELATIONS} {str(dtype)[6:]}",
+                   lambda: rt.grouped_segment_matmul(xm, sizes, wg, None,
+                                                     None, rplan),
+                   lambda: kops.segment_matmul(xm, sizes, wg, impl="ref"),
+                   [xm, wg], dtype)
+        del xm, wg
+    torch.cuda.empty_cache()
+
+    # -- the backward roles, timed -------------------------------------------
+    roles = []
+
+    def role(name, kernel, fn, plain, bnd, lib_fn, lib_name):
+        got = fn()
+        torch.cuda.synchronize()
+        err = compare(torch, name, got, plain(), f32)
+        k_ms, p_ms = time_ms(torch, fn), time_ms(torch, plain)
+        lib_ms = None
+        if lib_fn is not None:
+            lib, reason = library(lib_name, lib_fn)
+            if lib is not None:
+                compare(torch, f"{lib_name} yardstick", lib, plain(), f32)
+                lib_ms = time_ms(torch, lib_fn)
+        print(f"  role {name}: max_abs_err={err:.3g} kernel_ms={k_ms:.4f} "
+              f"plain_ms={p_ms:.4f} bound_ms={bnd[0]:.4f} library_ms="
+              f"{lib_ms if lib_ms is None else round(lib_ms, 4)}", flush=True)
+        roles.append({"role": name, "kernel": kernel, "max_abs_err": err,
+                      "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0],
+                      "bound_by": bnd[1], "library_ms": lib_ms,
+                      "library": lib_name})
+
+    keep = dst < v
+    src_r, dst_r = src[keep].long(), dst[keep].long()
+    g_rows = int(torch.unique(dst_r).numel())
+    G = torch.randn(v, HIDDEN, generator=gen, device=dev)
+    w_o = wts.index_select(0, order.perm)
+    # dH of an unweighted sum: each real edge's index words, the distinct
+    # rows of G it reads, the source offsets, dH written once
+    walk_bytes = (e_real * 8 + g_rows * HIDDEN * 4 + (v + 1) * 8
+                  + v * HIDDEN * 4)
+    g_edges = G.index_select(0, dst_r)
+    role(f"dH transposed walk, sum F={HIDDEN} fp32 (arxiv bucket)",
+         "gather_segment_reduce",
+         lambda: kops.transposed_gather(G, order.dst, order.src,
+                                        order.row_ptr, v),
+         lambda: kops.transposed_gather(G, order.dst, order.src,
+                                        order.row_ptr, v, impl="ref"),
+         bound(walk_bytes, e_real * HIDDEN),
+         lambda: torch.zeros(v, HIDDEN, device=dev).index_add_(0, src_r,
+                                                               g_edges),
+         "index_add_ of the (E, F) per-edge rows (gathered beforehand)")
+    del g_edges
+    csr_t = torch.sparse_coo_tensor(torch.stack([src_r, dst_r]), wts[keep],
+                                    (v, v)).coalesce().to_sparse_csr()
+    role(f"dH transposed walk, weighted sum F={HIDDEN} fp32 (arxiv bucket)",
+         "gather_segment_reduce",
+         lambda: kops.transposed_gather(G, order.dst, order.src,
+                                        order.row_ptr, v, w_o),
+         lambda: kops.transposed_gather(G, order.dst, order.src,
+                                        order.row_ptr, v, w_o, impl="ref"),
+         bound(walk_bytes + e_real * 4, 2 * e_real * HIDDEN),
+         lambda: torch.sparse.mm(csr_t, G),
+         "torch.sparse.mm of the transposed CSR")
+    del csr_t
+    # a gather's dH (GAT's per-edge logits) on the unpadded arxiv graph, as
+    # training runs it: by the sources (uniform) and by the sorted,
+    # zipf-skewed destinations; the function reads the ids and the
+    # cotangent rows once and writes dH
+    a_e = int(a_dst.numel())
+    g4 = torch.randn(a_e, heads, generator=gen, device=dev)
+    for label, idx in (("sources", a_src), ("destinations", a_dst)):
+        gorder = source_order(idx, None, 0, a_v)
+        role(f"dH of a gather ({a_e}, {heads}) -> ({a_v}, {heads}) by the "
+             f"{label}, with its sort", "gather_segment_reduce",
+             lambda: (lambda o: kops.transposed_gather(g4, o.perm, o.src,
+                                                       o.row_ptr, a_v))(
+                 source_order(idx, None, 0, a_v)),
+             lambda: kops.transposed_gather(g4, gorder.perm, gorder.src,
+                                            gorder.row_ptr, a_v, impl="ref"),
+             bound(a_e * (4 + heads * 4) + a_v * heads * 4, a_e * heads),
+             lambda: torch.zeros(a_v, heads, device=dev).index_add_(
+                 0, idx.long(), g4),
+             "index_add_ of the (E, heads) rows")
+        sort_ms = time_ms(torch, lambda: source_order(idx, None, 0, a_v))
+        print(f"  of which the source order (stable sort of {a_e} ids, "
+              f"offsets): {sort_ms:.4f} ms", flush=True)
+        roles[-1]["sort_ms"] = sort_ms
+    pg = torch.randn(dst.numel(), heads, generator=gen, device=dev)
+    lengths = torch.bincount(dst_r, minlength=v)
+    role(f"segment sum of the softmax backward, ({dst.numel()}, {heads}) "
+         "fp32", "segment_reduce",
+         lambda: kops.segment_reduce(pg, dst, v, "sum", plan=gplan),
+         lambda: kops.segment_reduce(pg, dst, v, "sum", impl="ref"),
+         bound(e_real * (4 + heads * 4) + v * heads * 4 + (v + 1) * 8,
+               e_real * heads),
+         lambda: torch.segment_reduce(pg[:e_real], "sum", lengths=lengths),
+         "torch.segment_reduce with per-segment lengths")
+    dy = torch.randn(m_typed, CLASSES, generator=gen, device=dev)
+    wt = torch.randn(AM_RELATIONS, CLASSES, HIDDEN, generator=gen,
+                     device=dev)
+    role(f"dX of segment_matmul, Wᵀ {CLASSES}->{HIDDEN} fp32 (AM typed rows)",
+         "segment_matmul",
+         lambda: kops.segment_matmul(dy, sizes, wt, plan=rplan),
+         lambda: kops.segment_matmul(dy, sizes, wt, impl="ref"),
+         smm_bound(torch, m_typed, CLASSES, HIDDEN, AM_RELATIONS, f32,
+                   rplan.offsets.numel() * 4 + rplan.first_group.numel() * 8),
+         lambda: torch._grouped_mm(dy, wt, offs=offs),
+         "torch._grouped_mm with the group offsets")
+    del dy, wt, G, g4, pg
+    torch.cuda.empty_cache()
+    return roles
+
+
+# the kernels each trained family's step must launch (forward and backward)
+TRAIN_KERNELS = {
+    "gcn": ("fused_transform_reduce", "gather_segment_reduce"),
+    "gin": ("gather_segment_reduce",),
+    "sage": ("fused_transform_reduce", "gather_segment_reduce"),
+    "gat": ("segment_softmax", "gather_segment_reduce", "sddmm",
+            "segment_reduce"),
+    "rgcn": ("segment_matmul", "gather_segment_reduce"),
+}
+
+
+class _Fixed:
+    """A provider whose every batch is one graph."""
+
+    def __init__(self, graph):
+        self.graph = graph
+
+    def batch(self, step):
+        return self.graph
+
+
+class _Killed(Exception):
+    """Raised from a step's callback: not in the loop's catch list."""
+
+
+def step0_layer_grads(torch, family, t_kernel, t_ref, batch):
+    """The step-0 gradients through the kernels against ``impl="ref"``,
+    layer by layer: each layer gets the input the kernel path's forward
+    gives it and one random cotangent, and its parameter and input
+    gradients on both paths must agree at the phase's tolerance. Returns
+    (max abs error, ReLU inputs that the two whole forwards put on opposite
+    sides of 0). Layer by layer because a ReLU input within rounding of 0
+    may fall on either side on the two paths; its gradient then passes on
+    one path and not the other, which moves every weight-gradient element
+    contracting over that row by a whole term (beyond an element-wise tier
+    once a contraction spans ~10^5 rows, as rgcn's first layer does)."""
+    from repro_torch.models.gnn import TYPED_MODELS
+    params = t_kernel.init_state().params
+    skeleton = t_kernel.task._skeleton()
+    x0 = t_kernel.task.prepare(batch)[0]["x"]
+    gen = torch.Generator(device=x0.device).manual_seed(SEED)
+    err, flips = 0.0, 0
+    h = {None: x0, "ref": x0}               # each path's input to layer i
+    last = len(skeleton.layers) - 1
+    for i, layer in enumerate(skeleton.layers):
+        sub = {k.split(".", 2)[2]: p for k, p in params.items()
+               if k.startswith(f"layers.{i}.")}
+        grads, pre, ct = {}, {}, None
+        for impl, t in ((None, t_kernel), ("ref", t_ref)):
+            arrays, _ = t.task.prepare(batch)
+            kw = dict(impl=impl, plan=arrays["plan"])
+            if family in TYPED_MODELS:
+                kw.update({k: arrays[k] for k in (
+                    "edge_type", "type_perm", "inv_type_perm", "type_counts",
+                    "rplan")})
+
+            def call(x):
+                return torch.func.functional_call(
+                    layer, sub, (x, arrays["edge_index"], batch.num_nodes,
+                                 arrays["deg_inv_sqrt"]), kw)
+            # the gradients on the kernel path's input, one cotangent
+            xin = h[None].detach().requires_grad_(i > 0)
+            y = call(xin)
+            if ct is None:
+                ct = torch.randn(y.shape, generator=gen, device=y.device)
+            leaves = ([xin] if i > 0 else []) + list(sub.values())
+            grads[impl] = torch.autograd.grad(y, leaves, ct)
+            # the layer on its own path's input: the whole forward
+            with torch.no_grad():
+                pre[impl] = y.detach() if impl is None else call(h["ref"])
+        for n, (a, b) in enumerate(zip(grads[None], grads["ref"])):
+            err = max(err, compare(torch, f"{family} step-0 layer {i} "
+                                   f"gradient {n}", a, b, torch.float32))
+        if i < last:
+            flips += int(((pre[None] > 0) != (pre["ref"] > 0)).sum())
+            h = {impl: torch.relu(y) for impl, y in pre.items()}
+    return err, flips
+
+
+def train_family(torch, family, data, task_kw, steps, ckpt_root):
+    """Phase 3d for one family: ``repro_torch.fit`` through the kernels,
+    held against ``impl="ref"`` on the card; a second run and a run
+    checkpointed at step 3 and resumed, both bitwise the first; the warm
+    step time, its forward / backward / optimizer split, one profiled
+    step's idle share, peak memory. Returns the family's record."""
+    from repro_torch import train
+    from repro_torch.kernels import ops as kops
+    from repro_torch.optim import adamw
+    cfg = train.TrainerConfig(steps=steps, warmup_steps=2,
+                              opt=adamw.AdamWConfig(lr=1e-2))
+
+    def trainer(impl=None, **kw):
+        task = train.NodeClassification(model=family, impl=impl, **task_kw)
+        return train.Trainer(task, data, dataclasses.replace(cfg, **kw))
+
+    # the run through the kernels, each step's end marked on the stream
+    ends = []
+
+    def mark(step, metrics, verdict):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        ends.append(ev)
+
+    t1 = trainer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = kops.launch_counts()
+    with kops.fusion_scope() as fusion:
+        run1 = t1.fit(metrics_cb=mark)
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    launched = {k: n - before[k] for k, n in kops.launch_counts().items()}
+    print(f"  {family} trained {steps} steps: losses {run1.losses}; "
+          f"launched {launched}", flush=True)
+    if any(not k.startswith("fused:") for k in fusion):
+        fail(f"{family} training: an op took a plain version: "
+             f"{sorted(k for k in fusion if not k.startswith('fused:'))}")
+    for k in TRAIN_KERNELS[family]:
+        if launched[k] == 0:
+            fail(f"{family} training: kernel {k} of its path never launched")
+    if not all(math.isfinite(x) for x in run1.losses):
+        fail(f"{family} training: a loss is not finite: {run1.losses}")
+    step_ms = [ends[k - 1].elapsed_time(ends[k]) for k in range(1, steps)]
+    warm_ms = statistics.median(step_ms[1:] if steps > 3 else step_ms)
+
+    # the same run again: the same bits
+    run2 = trainer().fit()
+    if run2.losses != run1.losses or any(
+            not torch.equal(p, run2.state.params[k])
+            for k, p in run1.state.params.items()):
+        fail(f"{family} training: two runs from one state differ")
+    # killed after its checkpoint at step 3 (the last step but one of a
+    # shorter run), resumed: the uninterrupted run
+    at = min(3, steps - 1)
+    ckpt_dir = os.path.join(ckpt_root, family)
+
+    def killer(step, metrics, verdict):
+        if step == at:
+            raise _Killed()
+    try:
+        trainer(ckpt_dir=ckpt_dir, ckpt_every=at).fit(metrics_cb=killer)
+        fail(f"{family} training: the killed run was not killed")
+    except _Killed:
+        pass
+    resumed = trainer(ckpt_dir=ckpt_dir, ckpt_every=at).fit(resume=True)
+    if (resumed.start_step != at or resumed.losses != run1.losses[at:]
+            or any(not torch.equal(p, resumed.state.params[k])
+                   for k, p in run1.state.params.items())):
+        fail(f"{family} training: the resumed run (from step "
+             f"{resumed.start_step}, losses {resumed.losses}) is not the "
+             "uninterrupted one")
+    print(f"  {family}: a second run and a run resumed from its step-{at} "
+          "checkpoint are bitwise the first", flush=True)
+
+    # held against the plain versions on the card
+    t_ref = trainer("ref")
+    ref = t_ref.fit()
+    for i, (a, b) in enumerate(zip(run1.losses, ref.losses)):
+        if not abs(a - b) <= 1e-4 * abs(b):
+            fail(f"{family} training: step {i} loss {a!r} vs the plain "
+                 f"versions' {b!r} (rtol 1e-4)")
+    batch = data.batch(0)
+    grad_err, flips = step0_layer_grads(torch, family, t1, t_ref, batch)
+    print(f"  {family}: losses within rtol 1e-4 of impl='ref' "
+          f"({ref.losses}); step-0 gradients layer by layer within the "
+          f"phase's tolerance (max_abs_err={grad_err:.3g}); ReLU inputs of "
+          f"the two whole forwards on opposite sides of 0: {flips}",
+          flush=True)
+    del t_ref, ref
+
+    # the warm step's split, from the trained state
+    st = run1.state
+    arrays, static = t1.task.prepare(batch)
+    params = list(st.params.values())
+    fwd_ms = time_ms(torch, lambda: t1.task.loss(st.params, arrays, static),
+                     reps=5, warmup=1)
+    loss, _ = t1.task.loss(st.params, arrays, static)
+    bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        loss, params, retain_graph=True), reps=5, warmup=1)
+    grads = dict(zip(st.params, torch.autograd.grad(loss, params)))
+    opt_ms = time_ms(torch, lambda: adamw.update(
+        grads, st.opt_state, st.params, cfg.opt), reps=5, warmup=1)
+    wall_ms, busy_ms, rows = profiled(torch, lambda: t1.step(st, steps))
+    rec = {"family": family, "steps": steps, "losses": run1.losses,
+           "warm_step_ms": warm_ms, "step_ms": step_ms,
+           "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+           "optimizer_ms": opt_ms, "profiled_wall_ms": wall_ms,
+           "device_busy_ms": busy_ms or None,
+           "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+           "peak_alloc_gib": peak_gib, "step0_grad_max_abs_err": grad_err,
+           "relu_flips_step0": flips,
+           "launches": launched}
+    print(f"  {family}: warm_step_ms={warm_ms:.3f} (steps {step_ms}); "
+          f"forward_ms={fwd_ms:.3f} backward_ms={bwd_ms:.3f} "
+          f"optimizer_ms={opt_ms:.3f}; peak_alloc_gib={peak_gib:.2f}",
+          flush=True)
+    if busy_ms:
+        print(f"  profiled {family} step: wall_ms={wall_ms:.3f} "
+              f"device_busy_ms={busy_ms:.3f} idle_share="
+              f"{1 - busy_ms / wall_ms:.3f}; top device ops:", flush=True)
+        for key, ms, calls in rows[:14]:
+            print(f"    {ms:9.3f} ms {calls:4d} calls  {key[:90]}",
+                  flush=True)
+    else:
+        print(f"  profiled {family} step: device time not measured (the "
+              "profiler recorded no device events)", flush=True)
+    return rec
+
+
+def training_phase(torch, am):
+    """Phase 3d: gcn, gin, sage and gat (4 heads) on the ogbn-arxiv-size
+    graph, rgcn on the AM-scale typed graph, trained through
+    ``repro_torch.fit`` under deterministic algorithms."""
+    from repro_torch import train
+    torch.use_deterministic_algorithms(True)
+    # every kernel writes each element of its output: filling fresh
+    # buffers would add device work that no step needs
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    from repro_torch.data.graphs import TABLE_II
+    from repro_torch.models.gnn import MODELS
+    name, v, e = next(row for row in TABLE_II if row[0] == "ogbn-arxiv")
+    data = train.GraphEpochProvider(shapes=((v, e),), graphs_per_shape=1,
+                                    feat=FEAT, num_classes=CLASSES,
+                                    seed=SEED, name=name)
+    records = []
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        for family in MODELS:
+            task_kw = dict(d_in=FEAT, hidden=HIDDEN, num_classes=CLASSES,
+                           heads=4 if family == "gat" else 1)
+            records.append(train_family(torch, family, data, task_kw,
+                                        TRAIN_STEPS, ckpt_root))
+            torch.cuda.empty_cache()
+        records.append(train_family(
+            torch, "rgcn", _Fixed(am),
+            dict(d_in=FEAT, hidden=HIDDEN, num_classes=CLASSES,
+                 num_relations=AM_RELATIONS), TYPED_TRAIN_STEPS, ckpt_root))
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+        torch.use_deterministic_algorithms(False)
+    return records
 
 
 def main() -> None:
@@ -952,6 +1469,24 @@ def main() -> None:
     print(f"typed-path and op kernel checks passed "
           f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
 
+    # -- 2c. the backwards -------------------------------------------------------
+    t_phase = time.perf_counter()
+    roles = backward_phase(torch, rt, kops, dev, gen, padded, v, e_real, wts,
+                           a_src, a_dst, a_v, am, sizes, rplan, offs)
+    # the weight gradient of a weighted aggregation is the sddmm of phase 2b
+    # on the same (dst, src) pairs at F=64
+    sd_res = results[("sddmm", HIDDEN, torch.float32, "dst-sorted")]
+    roles.append({"role": f"dw of a weighted aggregation: sddmm on arxiv's "
+                  f"(dst, src) pairs F={HIDDEN} fp32 (as timed in 2b)",
+                  "kernel": "sddmm", "max_abs_err": sd_res[0],
+                  "ms": sd_res[1], "plain_ms": sd_res[2], "bound_ms": None,
+                  "bound_by": "bytes", "library_ms": (
+                      library_sddmm if isinstance(library_sddmm, float)
+                      else None),
+                  "library": "torch.sparse.sampled_addmm"})
+    print(f"backward checks passed ({time.perf_counter() - t_phase:.1f} s)",
+          flush=True)
+
     # -- 3. serving: the main path --------------------------------------------
     t_phase = time.perf_counter()
     graphs = {name: dataset(name, feat=FEAT, seed=SEED)
@@ -1067,7 +1602,7 @@ def main() -> None:
         wall_ms, busy_ms, rows = profiled(torch, forward)
         # the gather's two kernels and the softmax's three, summed over the
         # forward's launches
-        gsr = {p: sum(ms for key, ms in rows if p in key)
+        gsr = {p: sum(ms for key, ms, _ in rows if p in key)
                for p in ("gsr_runs", "gsr_fix", "ssm_runs", "ssm_fix",
                          "ssm_cut")}
         ssm_ms = gsr["ssm_runs"] + gsr["ssm_fix"] + gsr["ssm_cut"]
@@ -1085,7 +1620,7 @@ def main() -> None:
             print(f"  profiled {family} forward: wall_ms={wall_ms:.3f} "
                   f"device_busy_ms={busy_ms:.3f} idle_share="
                   f"{1 - busy_ms / wall_ms:.3f}; top device ops:", flush=True)
-            for key, ms in rows[:8]:
+            for key, ms, _ in rows[:8]:
                 print(f"    {ms:9.3f} ms  {key[:90]}", flush=True)
             print(f"  profiled {family} forward: gather_segment_reduce "
                   f"gsr_runs {gsr['gsr_runs']:.3f} ms + gsr_fix "
@@ -1125,6 +1660,15 @@ def main() -> None:
           flush=True)
     del xo
 
+    # -- 3d. training: every family through repro_torch.fit --------------------
+    t_phase = time.perf_counter()
+    kops.reset_launch_counts()
+    training = training_phase(torch, am)
+    launches_training = kops.launch_counts()
+    print(f"training passed ({time.perf_counter() - t_phase:.1f} s); "
+          f"launches on the training path: {launches_training}", flush=True)
+    print(json.dumps({"training": training}))
+
     # -- 4. the kernels line ----------------------------------------------------
     print(f"bounds over {e_real} real edges, {h_rows} distinct source rows, "
           f"{v} output rows (gather, softmax, fused):", flush=True)
@@ -1155,7 +1699,7 @@ def main() -> None:
                     2 * a_e * HIDDEN)
 
     paths = {"serving": launches_serving, "typed": launches_typed,
-             "ops": launches_ops}
+             "ops": launches_ops, "training": launches_training}
 
     # the CUDA kernels one launch of each wrapper runs, read from the
     # profiler's device events: two calls of the kernels line's
@@ -1265,7 +1809,11 @@ def main() -> None:
     kernels[5]["shuffled_ms"] = results[("sddmm", HIDDEN, torch.float32,
                                          "shuffled")][1]
     kernels[5]["b_row_read_tb_s"] = sd_b_bytes / kernels[5]["ms"] / 1e9
+    for r in roles:           # the sddmm role is 2b's call, and its bound
+        if r["kernel"] == "sddmm":
+            r["bound_ms"] = d_bound[0]
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"backward_roles": roles}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

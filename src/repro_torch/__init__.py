@@ -2,8 +2,9 @@
 NVIDIA H100 (Hopper, sm_90a).
 
 This package serves 3-layer GCN / GIN / GraphSAGE / multi-head GAT node
-classification and runs relation-typed RGCN / RGAT inference, in the
-forward pass, and offers the library's public segment ops. Six
+classification, runs relation-typed RGCN / RGAT inference, trains every
+family (``fit``: AdamW, checkpoints, resume; every op's backward runs on
+the same kernels), and offers the library's public segment ops. Six
 hand-written CUDA kernels carry it: ``gather_segment_reduce`` (every
 aggregation), ``segment_softmax`` (attention), ``fused_transform_reduce``
 (SpMM + GEMM in one launch), ``segment_matmul`` (the per-relation
@@ -21,6 +22,10 @@ unless the caller passes ``device="cpu"``.
     (result,) = server.step(flush=True)
 
     y = rt.segment_reduce(x, idx, num_segments, "mean")   # x, idx on the card
+
+    data = rt.GraphEpochProvider(shapes=((96, 384), (128, 512)))
+    task = rt.NodeClassification.from_provider(data, model="gcn")
+    result = rt.fit(task, data, rt.TrainerConfig(steps=50))   # on the card
 
 The JAX package ``repro`` is the reference this port is tested against;
 this package imports neither it nor JAX.
@@ -60,6 +65,8 @@ from repro_torch.models.gnn import forward as gnn_forward
 from repro_torch.models.gnn import init as gnn_init
 from repro_torch.models.params import from_jax_params
 from repro_torch.serve import GNNServer
+from repro_torch.train import (GraphEpochProvider, NodeClassification,
+                               Trainer, TrainerConfig, TrainState, fit)
 
 __all__ = [
     # graphs
@@ -78,4 +85,7 @@ __all__ = [
     # models + serving
     "GNN", "MODELS", "TYPED_MODELS", "gnn_init", "gnn_forward", "from_jax_params",
     "GNNServer",
+    # training
+    "GraphEpochProvider", "NodeClassification", "Trainer", "TrainerConfig",
+    "TrainState", "fit",
 ]

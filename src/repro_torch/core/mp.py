@@ -170,6 +170,9 @@ def mp_typed(x, w, edge_index, edge_type, num_nodes: int, *,
     src, dst = edge_index[0], edge_index[1]
     type_perm, inv_type_perm, type_counts = type_permutation(
         edge_type, int(w.shape[0]), type_perm, inv_type_perm, type_counts)
+    # the reduce gathers by inv_type_perm, not by the sources a graph
+    # plan's source order was built for
+    plan = None if plan is None else plan.without_source_order()
     msg = geot.gather(x, src.index_select(0, type_perm))
     msg = geot.grouped_segment_matmul(msg, type_counts, w, impl, None, rplan)
     if edge_weight is None:

@@ -16,7 +16,11 @@ kernels otherwise derive on every call:
     kernels bound their loop by the block's own ``chunk_count`` and do not
     need it; it is kept so plans compare one to one with the reference;
   * degree statistics of the segment index;
-  * the selected :class:`~repro_torch.core.config_space.KernelConfig`.
+  * the selected :class:`~repro_torch.core.config_space.KernelConfig`;
+  * for a graph (:func:`make_graph_plan`), a :class:`SourceOrder`: the
+    real edges in stable source order, the schedule on which the backward
+    passes scatter a gradient into the source rows as one run of the
+    gather kernel (the transposed walk), in place of an atomic scatter.
 
 A :class:`RelationPlan` does the same for the grouped ``segment_matmul`` of
 a relation-typed graph: which relation groups each row block overlaps.
@@ -40,8 +44,9 @@ from repro_torch.kernels.gather_segment_reduce import row_offsets
 from repro_torch.kernels.segment_matmul import group_metadata
 from repro_torch.kernels.segment_reduce import chunk_metadata
 
-__all__ = ["SegmentStats", "SegmentPlan", "RelationPlan", "segment_stats",
-           "make_plan", "make_graph_plan", "make_relation_plan"]
+__all__ = ["SegmentStats", "SegmentPlan", "SourceOrder", "RelationPlan",
+           "segment_stats", "source_order", "make_plan", "make_graph_plan",
+           "make_relation_plan"]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -82,6 +87,62 @@ def segment_stats(idx: np.ndarray, num_segments: int) -> SegmentStats:
 
 
 @dataclasses.dataclass(frozen=True)
+class SourceOrder:
+    """The edges of a destination-sorted graph in stable source order: the
+    schedule of the transposed walk, which computes
+
+        dH[v] = sum_{i: gather_idx[i]==v} (w[i]·) G[seg_idx[i]]
+
+    as a gather-reduce over these rows (gather index ``dst``, sorted
+    segment index ``src``, offsets ``row_ptr``): the reference's own
+    sort-then-segment-reduce rule (``repro/core/ops.py`` ``_gather_bwd``),
+    deterministic where an atomic scatter is not.
+
+    Edges whose destination is dropped (``seg_idx >= num_segments``, the
+    padding convention) sort last with source id ``num_sources``, past
+    ``row_ptr[num_sources]``, so no walk visits them; their ``dst`` is 0
+    so that no index points past G. Built without a segment index (a
+    plain gather's backward, where G has one row an edge), ``dst`` is the
+    edge id itself."""
+    perm: torch.Tensor      # (E,) int32: edge ids in (source, edge) order
+    src: torch.Tensor       # (E,) int32: sorted source ids
+    dst: torch.Tensor       # (E,) int32: the row of G each edge reads
+    row_ptr: torch.Tensor   # (num_sources + 1,) int64
+    num_sources: int        # rows of H
+    num_real: Optional[int] = None   # edges kept, when known on the host
+
+    def to(self, device) -> "SourceOrder":
+        device = torch.device(device)
+        if self.perm.device == device:
+            return self
+        return dataclasses.replace(
+            self, perm=self.perm.to(device), src=self.src.to(device),
+            dst=self.dst.to(device), row_ptr=self.row_ptr.to(device))
+
+
+def source_order(gather_idx, seg_idx, num_segments: int, num_sources: int,
+                 num_real: Optional[int] = None) -> SourceOrder:
+    """Build the :class:`SourceOrder` of ``gather_idx`` where it lies (one
+    stable sort and one ``searchsorted`` on the device, no host round
+    trip). ``seg_idx`` may be None: every edge is kept (a plain gather's
+    backward)."""
+    gidx = torch.as_tensor(gather_idx)
+    if seg_idx is None:
+        key = gidx.to(torch.int32)
+    else:
+        seg = torch.as_tensor(seg_idx, device=gidx.device)
+        real = seg < num_segments
+        key = torch.where(real, gidx, num_sources).to(torch.int32)
+    src, perm = torch.sort(key, stable=True)
+    perm = perm.to(torch.int32)
+    dst = perm if seg_idx is None else \
+        torch.where(real, seg, 0).to(torch.int32).index_select(0, perm)
+    return SourceOrder(perm=perm, src=src.contiguous(), dst=dst.contiguous(),
+                       row_ptr=row_offsets(src, num_sources),
+                       num_sources=int(num_sources), num_real=num_real)
+
+
+@dataclasses.dataclass(frozen=True)
 class SegmentPlan:
     """Precomputed schedule for one (sorted idx, num_segments) instance."""
     chunk_first: torch.Tensor    # (out_blocks,) int32
@@ -92,6 +153,9 @@ class SegmentPlan:
     max_chunks: int              # tight: max(chunk_count), >= 1
     config: KernelConfig
     stats: SegmentStats
+    # the graph's edges in source order (make_graph_plan); valid for ops
+    # whose gather index is the sources the plan was built from
+    src_order: Optional[SourceOrder] = None
 
     @property
     def device(self) -> torch.device:
@@ -105,7 +169,17 @@ class SegmentPlan:
         return dataclasses.replace(
             self, chunk_first=self.chunk_first.to(device),
             chunk_count=self.chunk_count.to(device),
-            row_ptr=self.row_ptr.to(device))
+            row_ptr=self.row_ptr.to(device),
+            src_order=(None if self.src_order is None
+                       else self.src_order.to(device)))
+
+    def without_source_order(self) -> "SegmentPlan":
+        """The same plan for ops that gather by another index than the
+        graph's sources (the typed layers gather messages by
+        ``inv_type_perm``)."""
+        if self.src_order is None:
+            return self
+        return dataclasses.replace(self, src_order=None)
 
     @property
     def worst_case_chunks(self) -> int:
@@ -176,13 +250,18 @@ def make_graph_plan(edge_index, num_nodes: int, feat: int = 128,
                     device=None) -> SegmentPlan:
     """Plan for GNN aggregation over ``edge_index`` (2, E) with
     ``edge_index[1]`` (destinations) sorted non-decreasing, on ``device``
-    (as :func:`make_plan`). One plan serves every layer of a model on the
-    same graph."""
+    (as :func:`make_plan`), with the :class:`SourceOrder` of its sources
+    built there. One plan serves every layer of a model on the same graph,
+    forward and backward."""
     edge_index = _host_index(edge_index)
     if edge_index.ndim != 2 or edge_index.shape[0] != 2:
         raise ValueError(f"edge_index must be (2, E), got {edge_index.shape}")
-    return make_plan(edge_index[1], num_nodes, feat=feat, config=config,
+    plan = make_plan(edge_index[1], num_nodes, feat=feat, config=config,
                      device=device)
+    src, dst = (torch.from_numpy(a).to(plan.device) for a in edge_index)
+    order = source_order(src, dst, num_nodes, num_nodes,
+                         num_real=int(np.sum(edge_index[1] < num_nodes)))
+    return dataclasses.replace(plan, src_order=order)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,6 +283,9 @@ class RelationPlan:
     max_groups: int
     config: KernelConfig
     stats: SegmentStats
+    # the group row offsets on the host: the backward's per-group weight
+    # gradient slices by them without a device-to-host copy
+    host_offsets: tuple = ()
 
     @property
     def device(self) -> torch.device:
@@ -269,4 +351,6 @@ def make_relation_plan(group_sizes, num_rows: Optional[int] = None,
         max_groups=max_groups,
         config=config,
         stats=stats,
+        host_offsets=tuple(int(o) for o in np.concatenate(
+            [[0], np.cumsum(sizes)])),
     )

@@ -42,6 +42,11 @@ class Graph:
     # graph has never been padded. Padded edges carry dst = num_nodes
     orig_num_nodes: Optional[int] = None
     orig_num_edges: Optional[int] = None
+    # per-instance plan memo (see make_plan); init=False so that
+    # dataclasses.replace() starts a fresh memo instead of aliasing the
+    # source graph's
+    _plan_cache: dict = dataclasses.field(default_factory=dict, repr=False,
+                                          compare=False, init=False)
 
     @property
     def num_edges(self) -> int:
@@ -54,12 +59,21 @@ class Graph:
     def make_plan(self, feat: Optional[int] = None, config=None,
                   device=None):
         """The reduction schedule for this graph (see
-        :mod:`repro_torch.core.plan`), on ``device`` (``None``: the card;
-        ``"cpu"`` for the plain versions)."""
+        :mod:`repro_torch.core.plan`), with its source order, on ``device``
+        (``None``: the card; ``"cpu"`` for the plain versions). Memoized
+        per ``(feat, config, device)``: a trainer asking every step pays
+        for it once."""
+        from repro_torch.core.device import resolve_device
         from repro_torch.core.plan import make_graph_plan
         feat = self.x.shape[1] if feat is None else feat
-        return make_graph_plan(self.edge_index, self.num_nodes, feat=feat,
-                               config=config, device=device)
+        device = resolve_device(device, "Graph.make_plan")
+        key = (int(feat), config, str(device))
+        plan = self._plan_cache.get(key)
+        if plan is None:
+            plan = self._plan_cache[key] = make_graph_plan(
+                self.edge_index, self.num_nodes, feat=feat, config=config,
+                device=device)
+        return plan
 
 
 def synth_graph(name: str, num_nodes: int, num_edges: int, feat: int = 32,
@@ -154,11 +168,19 @@ class TypedGraph(Graph):
     def make_relation_plan(self, feat: Optional[int] = None, config=None,
                            device=None):
         """The grouped-matmul schedule over the relation groups (see
-        :func:`repro_torch.core.plan.make_relation_plan`), on ``device``."""
+        :func:`repro_torch.core.plan.make_relation_plan`), on ``device``;
+        memoized like :meth:`make_plan`."""
+        from repro_torch.core.device import resolve_device
         from repro_torch.core.plan import make_relation_plan
         feat = self.x.shape[1] if feat is None else feat
-        return make_relation_plan(self.type_counts, num_rows=self.num_edges,
-                                  feat=feat, config=config, device=device)
+        device = resolve_device(device, "TypedGraph.make_relation_plan")
+        key = ("relation", int(feat), config, str(device))
+        plan = self._plan_cache.get(key)
+        if plan is None:
+            plan = self._plan_cache[key] = make_relation_plan(
+                self.type_counts, num_rows=self.num_edges, feat=feat,
+                config=config, device=device)
+        return plan
 
 
 def synth_typed_graph(name: str, num_nodes: int, num_edges: int,

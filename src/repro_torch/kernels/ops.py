@@ -22,6 +22,12 @@ an explicit config must agree with it.
 A plan's metadata must lie on the data's device: no call copies it (build
 plans with ``device=``, or move one once with ``plan.to``).
 
+Backward roles: :func:`transposed_gather` runs the gather kernel over a
+source-order schedule (the scatter of dH as a gather-reduce, with no
+atomics) and :func:`sddmm_rows` the sddmm kernel on pairs that are valid
+by construction (no host check); the softmax backward's per-segment sum is
+:func:`segment_reduce`.
+
 Accounting: each kernel module keeps a plain-int launch counter
 (:func:`launch_counts`, :func:`reset_launch_counts`), bumped only where
 its kernel launches. :func:`account` / :func:`fusion_scope` record which
@@ -111,6 +117,26 @@ def fusion_counts() -> dict:
         return dict(_fusion_sink())
 
 
+def fusion_scopes() -> tuple:
+    """The fusion scopes active in this context, for :func:`in_fusion_scopes`
+    to record into later."""
+    return _FUSION_SCOPES.get()
+
+
+@contextlib.contextmanager
+def in_fusion_scopes(scopes: tuple):
+    """Inside the block, record into ``scopes`` (from :func:`fusion_scopes`)
+    whatever context runs it: the autograd engine runs a CUDA backward on
+    a thread of its own, whose context holds no scope, and the ops' backwards
+    record into the scopes their forwards ran in. Events recorded after a
+    scope has closed stay in that scope's counter."""
+    token = _FUSION_SCOPES.set(scopes)
+    try:
+        yield
+    finally:
+        _FUSION_SCOPES.reset(token)
+
+
 @contextlib.contextmanager
 def fusion_scope():
     """Inside the block the counters start at zero and record only the
@@ -197,6 +223,31 @@ def gather_segment_reduce(h, gather_idx, seg_idx, num_segments: int,
     return _gsr.gather_segment_reduce_cuda(
         h.contiguous(), _index32(gather_idx), _index32(seg_idx), num_segments,
         None if weight is None else weight.contiguous(), reduce, row_ptr)
+
+
+def transposed_gather(g, rows, src, row_ptr, num_out: int, weight=None,
+                      impl: Optional[str] = None):
+    """dH[v] = sum_{i: src[i]==v} (w[i]·) G[rows[i]]: a backward's scatter
+    into the source rows, as one gather-reduce over edges sorted by source
+    (``src`` non-decreasing, ``row_ptr`` its (num_out + 1,) int64 offsets;
+    edges with ``src >= num_out`` are dropped). fp32 sums in a fixed order,
+    output in G's dtype; the weight is taken in G's dtype (pass fp32 G and
+    an fp32 weight to keep the weight unrounded)."""
+    impl = resolve_impl(g, impl)
+    op = "transposed_gather" + ("" if weight is None else "_weighted")
+    if weight is not None:
+        weight = weight.to(g.dtype)
+    if impl == "ref":
+        account("unfused", f"{op}:ref")
+        return _gsr.gather_segment_reduce_ref(g, rows, src, num_out, weight)
+    if impl == "blocked":
+        account("unfused", f"{op}:blocked")
+        return _gsr.gather_segment_reduce_blocked(g, rows, src, num_out,
+                                                  weight, "sum", row_ptr)
+    account("fused", op)
+    return _gsr.gather_segment_reduce_cuda(
+        g.contiguous(), _index32(rows), _index32(src), num_out,
+        None if weight is None else weight.contiguous(), "sum", row_ptr)
 
 
 def segment_softmax(x, idx, num_segments: int,
@@ -289,6 +340,19 @@ def sddmm(a, b, row_idx, col_idx, impl: Optional[str] = None):
     account("fused", "sddmm")
     return _sdd.sddmm_cuda(a.contiguous(), b.contiguous(), _index32(row_idx),
                            _index32(col_idx))
+
+
+def sddmm_rows(a, b, row_idx, col_idx, impl: Optional[str] = None):
+    """:func:`sddmm` for pairs that are valid by construction (a backward's
+    real edges): the launch reads them without the host check and its
+    sync."""
+    impl = resolve_impl(a, impl, ("cuda", "ref", "blocked"))
+    if impl != "cuda":
+        account("unfused", f"sddmm:{impl}")
+        return _sdd.sddmm_ref(a, b, row_idx, col_idx)
+    account("fused", "sddmm")
+    return _sdd.sddmm_cuda(a.contiguous(), b.contiguous(), _index32(row_idx),
+                           _index32(col_idx), validate=False)
 
 
 def segment_matmul(x, group_sizes, w, config: Optional[KernelConfig] = None,

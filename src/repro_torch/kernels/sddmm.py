@@ -41,9 +41,11 @@ def check_indices(row_idx, col_idx, rows_a: int, rows_b: int) -> None:
             f"col_idx [{lo_c}, {hi_c}] for {rows_b} rows of B")
 
 
-def sddmm_cuda(a, b, row_idx, col_idx):
+def sddmm_cuda(a, b, row_idx, col_idx, validate: bool = True):
     """Check shapes and every index, then launch the Hopper kernel on the
-    current stream (the launch itself is asynchronous)."""
+    current stream (the launch itself is asynchronous). A caller whose
+    pairs are valid by construction passes ``validate=False`` to skip
+    the index check and its host sync."""
     if not a.is_cuda:
         raise ValueError(f"sddmm: impl='cuda' needs CUDA tensors, got a on "
                          f"{a.device}")
@@ -61,7 +63,8 @@ def sddmm_cuda(a, b, row_idx, col_idx):
                 or t.shape != (m,) or not t.is_contiguous()):
             raise ValueError(f"sddmm: {label} must be a contiguous ({m},) "
                              f"int32 tensor on {a.device}")
-    check_indices(row_idx, col_idx, int(a.shape[0]), int(b.shape[0]))
+    if validate:
+        check_indices(row_idx, col_idx, int(a.shape[0]), int(b.shape[0]))
     return sddmm_launch(a, b, row_idx, col_idx)
 
 

@@ -35,7 +35,7 @@ from repro_torch.core.mp import mp, mp_transform, mp_typed, type_permutation
 
 __all__ = ["GCNLayer", "GINLayer", "SAGELayer", "GATLayer", "RGCNLayer",
            "RGATLayer", "GNN", "MODELS", "TYPED_MODELS", "init", "forward",
-           "make_model_plan"]
+           "loss_fn", "cross_entropy", "make_model_plan"]
 
 # the homogeneous families every graph supports (the serving model space);
 # relation-typed families need a TypedGraph and are listed apart
@@ -143,8 +143,11 @@ class GATLayer(nn.Module):
         hh = h.reshape(h.shape[0], self.heads, self.d_out)
         logit_src = torch.einsum("vhd,hd->vh", hh, self.a_src)
         logit_dst = torch.einsum("vhd,hd->vh", hh, self.a_dst)
+        # per-edge rows through geot.gather, whose backward is the
+        # deterministic sort-and-reduce (not an atomic scatter)
         e = nn.functional.leaky_relu(
-            logit_src[src.long()] + logit_dst[_node_ids(dst, num_nodes)],
+            geot.gather(logit_src, src)
+            + geot.gather(logit_dst, _node_ids(dst, num_nodes)),
             0.2)                                             # (E, heads)
         alpha = geot.segment_softmax(e.contiguous(), dst, num_nodes, impl,
                                      None, plan)
@@ -222,17 +225,24 @@ class RGATLayer(nn.Module):
         type_perm, inv_type_perm, type_counts = type_permutation(
             edge_type, int(self.w_rel.shape[0]), type_perm, inv_type_perm,
             type_counts)
-        et_t = edge_type.index_select(0, type_perm).long()  # per typed row
+        et_t = edge_type.index_select(0, type_perm)  # per typed row
+        # the plan's source order is the graph's: these ops gather by
+        # inv_type_perm
+        plan = None if plan is None else plan.without_source_order()
+        n_rel = int(self.w_rel.shape[0])
         # transformed sources in (type, dst) order: the layer's ONE grouped
         # launch
         msg = geot.grouped_segment_matmul(
             geot.gather(x, src.index_select(0, type_perm)), type_counts,
             self.w_rel, impl, None, rplan)
         msg_h = msg.reshape(msg.shape[0], self.heads, self.d_out)
-        logit_src = torch.einsum("ehd,ehd->eh", msg_h, self.a_src[et_t])
+        a_src = geot.gather(self.a_src.reshape(n_rel, -1), et_t)
+        a_dst = geot.gather(self.a_dst.reshape(n_rel, -1), et_t)
+        logit_src = torch.einsum("ehd,ehd->eh", msg_h,
+                                 a_src.reshape(msg_h.shape))
         logit_dst = torch.einsum(
             "ek,ehk->eh", geot.gather(x, dst.index_select(0, type_perm)),
-            self.a_dst[et_t])
+            a_dst.reshape(-1, self.heads, self.a_dst.shape[-1]))
         e_t = nn.functional.leaky_relu(logit_src + logit_dst, 0.2)
         e = e_t.index_select(0, inv_type_perm)     # back to dst order
         alpha = geot.segment_softmax(e, dst, num_nodes, impl, None, plan)
@@ -316,6 +326,27 @@ def forward(model: GNN, x, edge_index, num_nodes: int, deg_inv_sqrt=None,
                  edge_type=edge_type, type_perm=type_perm,
                  inv_type_perm=inv_type_perm, type_counts=type_counts,
                  rplan=rplan)
+
+
+def loss_fn(model: GNN, x, edge_index, labels, num_nodes: int,
+            deg_inv_sqrt=None, impl: Optional[str] = None, plan=None, *,
+            edge_type=None, type_perm=None, inv_type_perm=None,
+            type_counts=None, rplan=None):
+    """Node-classification cross entropy, mean over the nodes of
+    ``logsumexp(logits) - logits[label]`` (the reference's ``loss_fn``),
+    with the keyword surface of :func:`forward`."""
+    logits = forward(model, x, edge_index, num_nodes, deg_inv_sqrt, impl,
+                     plan, edge_type=edge_type, type_perm=type_perm,
+                     inv_type_perm=inv_type_perm, type_counts=type_counts,
+                     rplan=rplan)
+    return cross_entropy(logits, labels)
+
+
+def cross_entropy(logits, labels):
+    """mean(logsumexp(logits) - logits[label]) over the rows, in fp32."""
+    logits = logits.float()
+    gold = logits.gather(1, labels.long()[:, None])[:, 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).mean()
 
 
 def make_model_plan(edge_index, num_nodes: int, feat: int, config=None,

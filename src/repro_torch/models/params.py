@@ -80,3 +80,55 @@ def from_jax_params(family: str,
                                      f"{tuple(value.shape)} != {tuple(p.shape)}")
                 p.copy_(value.to(p.dtype))
     return model
+
+
+def _value(leaf):
+    """The array of a reference parameter leaf (a ``P`` carries it in
+    ``.value``; a plain array is its own)."""
+    return np.asarray(getattr(leaf, "value", leaf))
+
+
+def _moment(leaf, device):
+    """A reference moment leaf as the port's: an int8 ``QTensor`` (``q``,
+    ``scale``) or an fp32 / bf16 array."""
+    from repro_torch.optim.adamw import QTensor
+    leaf = getattr(leaf, "value", leaf)
+    if hasattr(leaf, "q") and hasattr(leaf, "scale"):
+        return QTensor(torch.from_numpy(np.array(leaf.q)).to(device),
+                       torch.from_numpy(np.array(leaf.scale)).to(device))
+    return _tensor(np.asarray(leaf), device)
+
+
+def _tensor(arr: np.ndarray, device) -> torch.Tensor:
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+def from_jax_state(family: str, state, device="cpu"):
+    """The port's :class:`~repro_torch.train.trainer.TrainState` from the
+    reference's (``repro.train.TrainState``: a list of layer dicts of
+    parameters, an ``AdamWState`` of moments shaped alike, the step and a
+    PRNG key), read as numpy. Parameter names follow the port's
+    ``named_parameters()`` (``layers.<i>.<name>``). The JAX key has no
+    torch counterpart: the generator is seeded from its bits."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train.trainer import TrainState
+    if family not in LAYER_PARAMS:
+        raise ValueError(f"unknown model {family!r}")
+
+    def named(tree, convert):
+        return {f"layers.{i}.{name}": convert(lay[name])
+                for i, lay in enumerate(tree) for name in LAYER_PARAMS[family]}
+
+    params = named(state.params, lambda p: _tensor(_value(p), device)
+                   .requires_grad_())
+    opt = state.opt_state
+    opt_state = AdamWState(int(np.asarray(opt.step)),
+                           named(opt.mu, lambda m: _moment(m, device)),
+                           named(opt.nu, lambda m: _moment(m, device)))
+    seed = int.from_bytes(np.asarray(state.rng).tobytes()[:8], "little")
+    return TrainState(params, opt_state, int(np.asarray(state.step)),
+                      torch.Generator().manual_seed(seed % 2 ** 62)
+                      .get_state())

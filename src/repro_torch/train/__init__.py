@@ -1,0 +1,29 @@
+"""Training: ``DatasetProvider → Task → Trainer``, behind
+:func:`repro_torch.train.fit`, as the reference's ``repro.train``.
+
+    from repro_torch import train
+
+    data = train.GraphEpochProvider(shapes=((96, 384), (128, 512)))
+    task = train.NodeClassification.from_provider(data, model="gcn")
+    result = train.fit(task, data, train.TrainerConfig(steps=50))
+
+Tasks and trainers run on the card unless the task is built with
+``device="cpu"``.
+"""
+from repro_torch.train.providers import DatasetProvider, GraphEpochProvider
+from repro_torch.train.task import GraphStatic, NodeClassification, Task
+from repro_torch.train.trainer import (FitResult, Trainer, TrainerConfig,
+                                       TrainState, fit)
+
+__all__ = [
+    "DatasetProvider",
+    "GraphEpochProvider",
+    "Task",
+    "GraphStatic",
+    "NodeClassification",
+    "Trainer",
+    "TrainerConfig",
+    "TrainState",
+    "FitResult",
+    "fit",
+]

@@ -1,0 +1,182 @@
+"""The ``Task`` leg of the training protocol: what the model is and what
+its loss means, apart from where batches come from (providers) and how the
+loop runs (the trainer). As the reference's (``repro/train/task.py``), a
+task has three methods:
+
+  * ``init(rng) -> params``: a dict of parameter tensors;
+  * ``prepare(batch, *, plan=None, config=None, mesh=None)
+    -> (arrays, static)``: the batch's tensors on the task's device with
+    its plans, and a hashable shape bucket;
+  * ``loss(params, arrays, static, rng) -> (loss, metrics)``.
+
+:class:`NodeClassification` trains a :mod:`repro_torch.models.gnn` family
+on full graphs on one device: the parameters are a dict named as the
+model's ``named_parameters()``, and the loss runs the model with them
+through ``torch.func.functional_call``. Not ported yet: sampled
+mini-batches (ROADMAP Queue A item 4), sharded training (item 6) and the
+LM task (item 7).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple, Optional, Protocol, runtime_checkable
+
+import torch
+
+from repro_torch.core.device import resolve_device
+from repro_torch.data.graphs import Graph, TypedGraph
+from repro_torch.models import gnn
+
+__all__ = ["Task", "GraphStatic", "NodeClassification"]
+
+
+@runtime_checkable
+class Task(Protocol):
+    """Structural protocol: any object with these three methods trains."""
+
+    def init(self, rng) -> Any:                        # pragma: no cover
+        ...
+
+    def prepare(self, batch, *, plan=None, config=None,
+                mesh=None) -> tuple:                   # pragma: no cover
+        ...
+
+    def loss(self, params, arrays, static, rng) -> tuple:  # pragma: no cover
+        ...
+
+
+class GraphStatic(NamedTuple):
+    """Hashable shape bucket of a full-graph batch on one device."""
+    model: str
+    num_nodes: int
+    num_edges: int
+    typed: bool
+
+
+@dataclasses.dataclass
+class NodeClassification:
+    """Full-graph node classification (paper §V-F): cross entropy over the
+    nodes' logits, accuracy as the metric, for every family: ``gcn`` /
+    ``gin`` / ``sage`` / ``gat`` on :class:`~repro_torch.data.graphs.Graph`
+    batches, ``rgcn`` / ``rgat`` on
+    :class:`~repro_torch.data.graphs.TypedGraph` ones (with their
+    permutation triple and a :class:`~repro_torch.core.plan.RelationPlan`).
+
+    ``device``: where batches and parameters live (``None``: the card,
+    raising without one; ``"cpu"`` for the plain versions). ``impl``: the
+    ops' backend (``None``: the kernels on the card, the plain versions
+    on the CPU; ``"ref"`` forces the plain versions, as an oracle)."""
+    model: str = "gcn"
+    d_in: int = 32
+    hidden: int = 64
+    num_classes: int = 16
+    num_layers: int = 3
+    heads: int = 1
+    num_relations: int = 4
+    impl: Optional[str] = None
+    device: Any = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device, "NodeClassification")
+        self._dev: dict = {}       # id(g) -> (g, device arrays)
+        self._module = None        # the model's structure (no weights)
+
+    @classmethod
+    def from_provider(cls, provider, model: str = "gcn", **kw):
+        """Size the task off a provider's metadata (feat / classes /
+        relations)."""
+        kw.setdefault("num_relations", max(provider.num_relations, 1))
+        return cls(model=model, d_in=provider.feat,
+                   num_classes=provider.num_classes, **kw)
+
+    @property
+    def plan_feat(self) -> int:
+        """The widest layer width: the feature width plans are built for."""
+        return max(self.d_in, self.hidden, self.num_classes)
+
+    def _skeleton(self) -> gnn.GNN:
+        """The model's structure on the meta device: ``loss`` calls it
+        with the parameters it is given."""
+        if self._module is None:
+            dims = ([self.d_in] + [self.hidden] * (self.num_layers - 1)
+                    + [self.num_classes])
+            self._module = gnn.GNN(self.model, dims, heads=self.heads,
+                                   num_relations=self.num_relations
+                                   ).to("meta")
+        return self._module
+
+    # -- protocol ------------------------------------------------------------
+
+    def init(self, rng: torch.Generator) -> dict:
+        """Seeded random parameters on the task's device."""
+        seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=rng))
+        model = gnn.init(self.model, self.d_in, self.hidden,
+                         self.num_classes, self.num_layers, heads=self.heads,
+                         num_relations=self.num_relations, seed=seed,
+                         device=self.device)
+        return {k: p.detach().requires_grad_()
+                for k, p in model.named_parameters()}
+
+    def prepare(self, batch, *, plan=None, config=None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "sharded training is not ported yet (ROADMAP Queue A item 6)")
+        if not isinstance(batch, Graph):
+            raise NotImplementedError(
+                f"batches of type {type(batch).__name__}: only full graphs "
+                "train so far (sampled mini-batches: ROADMAP Queue A item 4)")
+        g = batch
+        typed = isinstance(g, TypedGraph)
+        if typed != (self.model in gnn.TYPED_MODELS):
+            raise ValueError(
+                f"model {self.model!r} and batch graph type disagree: "
+                f"typed={typed} (use a GraphEpochProvider(typed=...) that "
+                "matches the model family)")
+        static = GraphStatic(self.model, g.num_nodes, g.num_edges, typed)
+        arrays = dict(self._device_arrays(g))
+        # plans are memoized on the graph: each graph of a bucket is planned
+        # once, at its first step
+        arrays["plan"] = (plan if plan is not None else
+                          g.make_plan(self.plan_feat, config=config,
+                                      device=self.device))
+        if typed:
+            arrays["rplan"] = g.make_relation_plan(
+                self.plan_feat, config=config, device=self.device)
+        return arrays, static
+
+    def loss(self, params, arrays, static, rng=None):
+        logits = torch.func.functional_call(
+            self._skeleton(), params,
+            (arrays["x"], arrays["edge_index"], static.num_nodes,
+             arrays["deg_inv_sqrt"]),
+            dict(impl=self.impl, plan=arrays["plan"],
+                 edge_type=arrays.get("edge_type"),
+                 type_perm=arrays.get("type_perm"),
+                 inv_type_perm=arrays.get("inv_type_perm"),
+                 type_counts=arrays.get("type_counts"),
+                 rplan=arrays.get("rplan")))
+        labels = arrays["labels"]
+        correct = (logits.argmax(-1) == labels).float()
+        return gnn.cross_entropy(logits, labels), {
+            "accuracy": correct.mean().detach()}
+
+    # -- memoized per-graph state -------------------------------------------
+
+    def _device_arrays(self, g) -> dict:
+        hit = self._dev.get(id(g))
+        if hit is not None and hit[0] is g:
+            return hit[1]
+
+        def dev(a):
+            return torch.from_numpy(a).to(self.device)
+        arrays = {"x": dev(g.x), "edge_index": dev(g.edge_index),
+                  "labels": dev(g.labels).long(),
+                  "deg_inv_sqrt": dev(g.deg_inv_sqrt)}
+        if isinstance(g, TypedGraph):
+            arrays.update(edge_type=dev(g.edge_type),
+                          type_perm=dev(g.type_perm),
+                          inv_type_perm=dev(g.inv_type_perm),
+                          type_counts=dev(g.type_counts))
+        # pin g in the memo: id() is only unique among live objects
+        self._dev[id(g)] = (g, arrays)
+        return arrays

@@ -1,0 +1,187 @@
+"""The ``Trainer`` leg of the training protocol: AdamW with a schedule
+(:mod:`repro_torch.optim`), an eager step on the task's device, periodic
+checkpoints with resume, and the fault-tolerant loop
+(:class:`~repro_torch.distributed.fault_tolerance.ResilientLoop`), as the
+reference's (``repro/train/trainer.py``).
+
+A step is eager: the task's loss (forward), ``torch.autograd.grad``
+(backward through the ops' kernels), ``adamw.update``. The trainer counts
+steps and the distinct shape buckets it has seen with plain counters
+(the metrics registry of ``obs/`` waits for ROADMAP Queue A item 3;
+capturing a step as a CUDA graph comes later).
+
+:class:`TrainState` (params + optimizer state + step + the state of a
+``torch.Generator``) is the unit of checkpointing. ``fit(resume=True)``
+restores the newest complete checkpoint in ``ckpt_dir`` and continues
+from its step; providers are deterministic in the step index, the
+generator state is part of the state and every kernel sums in a fixed
+order, so the resumed trajectory is bitwise the uninterrupted one.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, NamedTuple, Optional
+
+import torch
+
+from repro_torch.checkpoint import checkpoint as ckpt
+from repro_torch.distributed.fault_tolerance import (ResilientLoop,
+                                                     ResilientLoopConfig)
+from repro_torch.optim import adamw, schedule
+
+__all__ = ["TrainState", "TrainerConfig", "FitResult", "Trainer", "fit"]
+
+
+class TrainState(NamedTuple):
+    """Everything a resumed run needs: one checkpointable tree."""
+    params: Dict[str, torch.Tensor]
+    opt_state: adamw.AdamWState
+    step: int                     # the next step to run
+    rng: torch.Tensor             # torch.Generator state (uint8, CPU)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerConfig:
+    """Loop + optimizer + fault-tolerance knobs (one frozen config)."""
+    steps: int = 100
+    opt: adamw.AdamWConfig = adamw.AdamWConfig()
+    warmup_steps: int = 10
+    lr_schedule: str = "warmup_cosine"    # see repro_torch.optim.schedule
+    seed: int = 0
+    # checkpointing (None: no checkpoints, no resume)
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 50
+    keep: int = 3
+    # fault tolerance (threaded into ResilientLoopConfig)
+    max_restarts: int = 3
+    step_timeout_s: Optional[float] = None
+    straggler_factor: float = 3.0
+    log_every: int = 0
+
+
+class FitResult(NamedTuple):
+    state: TrainState
+    losses: list                  # per-step losses, in step order
+    start_step: int               # first step this fit ran
+    steps: int                    # steps this trainer has run in all
+    buckets: tuple                # shape buckets seen
+    events: tuple                 # ResilientLoop event log
+
+
+def _seed(gen: torch.Generator) -> int:
+    return int(torch.randint(0, 2 ** 62, (), generator=gen))
+
+
+def _step_generator(rng_state: torch.Tensor, step: int) -> torch.Generator:
+    """The generator of one step: the state's, with the step folded in."""
+    gen = torch.Generator()
+    gen.set_state(rng_state)
+    return torch.Generator().manual_seed((_seed(gen) + step) % 2 ** 62)
+
+
+class Trainer:
+    """``Trainer(task, data, cfg).fit()``: see the module docstring.
+
+    ``task`` follows :class:`~repro_torch.train.task.Task`; ``data`` any
+    provider with ``batch(step)``. An explicit ``plan=`` is used for every
+    batch (single-shape data); else ``config=`` pins the kernel config
+    each graph's plan is built with."""
+
+    def __init__(self, task, data, cfg: Optional[TrainerConfig] = None, *,
+                 plan=None, config=None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "sharded training is not ported yet (ROADMAP Queue A item 6)")
+        self.task = task
+        self.data = data
+        self.cfg = cfg if cfg is not None else TrainerConfig()
+        self.plan = plan
+        self.config = config
+        self.steps = 0                  # steps run by this trainer
+        self._buckets: dict = {}        # shape buckets seen, in order
+        self._lr_scale = schedule.get(self.cfg.lr_schedule)
+
+    @property
+    def buckets(self) -> tuple:
+        return tuple(self._buckets)
+
+    def init_state(self) -> TrainState:
+        root = torch.Generator().manual_seed(self.cfg.seed)
+        s_init, s_state = _seed(root), _seed(root)
+        params = self.task.init(torch.Generator().manual_seed(s_init))
+        return TrainState(params, adamw.init(params, self.cfg.opt), 0,
+                          torch.Generator().manual_seed(s_state).get_state())
+
+    def step(self, state: TrainState, step: int):
+        """One training step on ``data.batch(step)``: returns the new state
+        and the step's metrics (loss and accuracy as 0-d tensors, the
+        gradient norm, the learning rate)."""
+        cfg = self.cfg
+        arrays, static = self.task.prepare(self.data.batch(step),
+                                           plan=self.plan, config=self.config)
+        self._buckets.setdefault(static, None)
+        params = state.params
+        loss, metrics = self.task.loss(params, arrays, static,
+                                       _step_generator(state.rng, state.step))
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(params.items(), grads)}
+        lr_scale = self._lr_scale(state.step, cfg.warmup_steps, cfg.steps)
+        new_p, new_o, om = adamw.update(grads, state.opt_state, params,
+                                        cfg.opt, lr_scale)
+        self.steps += 1
+        return (TrainState(new_p, new_o, state.step + 1, state.rng),
+                dict(metrics, loss=loss.detach(), **om))
+
+    def fit(self, *, resume: bool = False, state: Optional[TrainState] = None,
+            metrics_cb: Optional[Callable] = None) -> FitResult:
+        """Run the loop to ``cfg.steps`` steps in all. ``resume=True``
+        restores the newest complete checkpoint in ``cfg.ckpt_dir`` (a
+        cold start when there is none) and continues from its step;
+        ``state=`` replaces the initial state (not with ``resume``)."""
+        cfg = self.cfg
+        if resume and state is not None:
+            raise ValueError("pass either resume=True or state=, not both")
+        if resume and not cfg.ckpt_dir:
+            raise ValueError("resume=True needs TrainerConfig.ckpt_dir")
+        if state is None:
+            state = self.init_state()
+        start = 0
+        if resume:
+            latest = ckpt.latest_step(cfg.ckpt_dir)
+            if latest is not None:
+                state = ckpt.restore(state, cfg.ckpt_dir, step=latest)
+                start = latest
+
+        history: dict = {}            # step -> loss (replay overwrites)
+
+        def step_fn(st, step):
+            st, metrics = self.step(st, step)
+            loss = history[step] = float(metrics["loss"])
+            if cfg.log_every and step % cfg.log_every == 0:
+                print(f"step {step:5d} loss {loss:.4f}", flush=True)
+            return st, metrics
+
+        loop = ResilientLoop(
+            ResilientLoopConfig(
+                cfg.ckpt_dir or "", ckpt_every=cfg.ckpt_every, keep=cfg.keep,
+                max_restarts=cfg.max_restarts,
+                step_timeout_s=cfg.step_timeout_s,
+                straggler_factor=cfg.straggler_factor),
+            step_fn, state)
+        final = loop.run(cfg.steps, start_step=start, metrics_cb=metrics_cb)
+        losses = [history[s] for s in sorted(history)]
+        return FitResult(state=final, losses=losses, start_step=start,
+                         steps=self.steps, buckets=self.buckets,
+                         events=tuple(loop.events))
+
+
+def fit(task, data, trainer: Optional[TrainerConfig] = None, *, plan=None,
+        config=None, resume: bool = False,
+        state: Optional[TrainState] = None,
+        metrics_cb: Optional[Callable] = None) -> FitResult:
+    """One-call training: ``repro_torch.fit(task, data, trainer_cfg)``
+    builds a :class:`Trainer` and runs :meth:`Trainer.fit`."""
+    return Trainer(task, data, trainer, plan=plan, config=config).fit(
+        resume=resume, state=state, metrics_cb=metrics_cb)

@@ -15,6 +15,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import repro_torch as rt  # noqa: E402
 from repro_torch.core.config_space import KernelConfig  # noqa: E402
 from repro_torch.core.plan import make_plan  # noqa: E402
 from repro_torch.data.graphs import dataset  # noqa: E402
@@ -505,3 +506,144 @@ def test_typed_model_forward_kernels_match_plain(dev, family):
     assert launched["segment_matmul"] == 3
     assert launched["gather_segment_reduce"] >= 3
     _close(got, want, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# backwards on the card: each op's gradients against its plain version's
+# ---------------------------------------------------------------------------
+
+def _grad_case(dev, op, dtype):
+    """(kernel, plain, leaves) for one op on a graph with a hub, gapped ids
+    and padded rows. ``kernel(*leaves)`` runs the op through the kernels,
+    with a graph plan for the aggregations (so the backward walks its
+    source order); ``plain(*leaves)`` the same function in plain PyTorch,
+    which autograd differentiates (on the fp32 upcast of bf16 leaves: the
+    cast-then-reduce oracle, since autograd of a bf16 index_select sums
+    its gradient in bf16)."""
+    from repro_torch.core.plan import make_graph_plan
+    v, f = 3000, 40
+    src, dst, x, w = _graph(dev, v, 20000, f, seed=21, hub=30_000, pad=64)
+    ei = torch.stack([src, dst]).cpu().numpy()
+    plan = make_graph_plan(ei, v, feat=64)
+    h = x.to(dtype)
+    wt = w.to(dtype)
+    wm = (torch.randn(f, 24, device=dev) / f ** 0.5).to(dtype)
+    e = int(dst.numel())
+    reduce = op.split("_")[-1]
+    if op.startswith("segment_reduce"):
+        return (lambda x: rt.segment_reduce(x, dst, v, reduce, None, None,
+                                            plan),
+                lambda x: kops.segment_reduce(x, dst, v, reduce, impl="ref"),
+                [torch.randn(e, f, device=dev).to(dtype)])
+    if op == "gather":
+        return (lambda h: rt.gather(h, src),
+                lambda h: h.index_select(0, src.long()), [h])
+    if op.startswith("isr"):
+        return (lambda h: rt.index_segment_reduce(h, src, dst, v, reduce,
+                                                  None, None, plan),
+                lambda h: kops.gather_segment_reduce(h, src, dst, v, None,
+                                                     reduce, impl="ref"), [h])
+    if op.startswith("iwsr"):
+        kernel = (lambda h, w: rt.index_weight_segment_reduce(
+            h, src, w, dst, v, reduce, None, None, plan))
+        if reduce == "max" and dtype == torch.bfloat16:
+            # a bf16 weighted max splits its cotangent among the messages
+            # that round to the max (the reference's rule), where autograd
+            # of the fp32 max picks one: the oracle is the same rule on the
+            # plain versions, in bf16
+            return kernel, (lambda h, w: rt.index_weight_segment_reduce(
+                h, src, w, dst, v, reduce, "ref")), [h, wt]
+        return kernel, (lambda h, w: kops.gather_segment_reduce(
+            h, src, dst, v, w, reduce, impl="ref")), [h, wt]
+    if op == "fused_sum_weighted":
+        return (lambda h, m, w: rt.fused_transform_reduce(
+                    h, m, src, w, dst, v, "sum", None, None, plan),
+                lambda h, m, w: kops.fused_transform_reduce(
+                    h, m, src, dst, v, w, "sum", impl="ref"), [h, wm, wt])
+    if op == "fused_mean":
+        return (lambda h, m: rt.fused_transform_reduce(
+                    h, m, src, None, dst, v, "mean", None, None, plan),
+                lambda h, m: kops.fused_transform_reduce(
+                    h, m, src, dst, v, None, "mean", impl="ref"), [h, wm])
+    if op == "sddmm":
+        keep = dst < v
+        rows, cols = dst[keep], src[keep]
+        return (lambda a, b: rt.sddmm(a, b, rows, cols),
+                lambda a, b: kops.sddmm(a, b, rows, cols, impl="ref"),
+                [h, torch.randn(v, f, device=dev).to(dtype)])
+    if op == "softmax":
+        return (lambda x: rt.segment_softmax(x, dst, v, None, None, plan),
+                lambda x: kops.segment_softmax(x, dst, v, impl="ref"),
+                [(torch.randn(e, 4, device=dev) * 3).to(dtype)])
+    sizes = torch.tensor([0, 3000, 1, 0, 12000, 7], dtype=torch.int32,
+                         device=dev)
+    return (lambda x, w: rt.grouped_segment_matmul(x, sizes, w),
+            lambda x, w: kops.segment_matmul(x, sizes, w, impl="ref"),
+            [torch.randn(15100, 64, device=dev).to(dtype),
+             (torch.randn(6, 64, 16, device=dev) / 8).to(dtype)])
+
+
+GRAD_OPS = ["segment_reduce_sum", "segment_reduce_mean", "segment_reduce_max",
+            "gather", "isr_sum", "isr_mean", "isr_max", "iwsr_sum",
+            "iwsr_mean", "iwsr_max", "fused_sum_weighted", "fused_mean",
+            "sddmm", "softmax", "gsm"]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("op", GRAD_OPS)
+def test_op_backward_kernels_match_plain(dev, op, dtype):
+    """Every gradient through the kernels (no plain version, no atomic
+    scatter) equals plain PyTorch autograd of the same function on the
+    card, and two backwards give the same bits."""
+    kernel, plain, inputs = _grad_case(dev, op, dtype)
+    leaves = [t.requires_grad_() for t in inputs]
+    y = kernel(*leaves)
+    ct = torch.randn(y.shape, device=dev).to(y.dtype)
+    ct = torch.where(torch.isfinite(y), ct, torch.zeros_like(ct))
+
+    def grads():
+        with kops.fusion_scope() as fusion:      # forward and backward
+            got = torch.autograd.grad(kernel(*leaves), leaves, ct)
+        torch.cuda.synchronize()
+        assert fusion and all(k.startswith("fused:") for k in fusion), \
+            fusion
+        return got
+
+    got, again = grads(), grads()
+    upcast = dtype == torch.bfloat16 and not (op == "iwsr_max")
+    oracle = [t.detach().float().requires_grad_() if upcast else t
+              for t in leaves]
+    want = torch.autograd.grad(plain(*oracle), oracle,
+                               ct.float() if upcast else ct)
+    for g, g2, wnt, leaf in zip(got, again, want, leaves):
+        assert g.dtype == leaf.dtype
+        assert torch.equal(g, g2), f"{op}: two backwards differ"
+        _close(g, wnt, dtype)
+
+
+def test_gcn_fit_on_the_card(dev):
+    """Three steps of ``repro_torch.fit`` through the kernels: the plain
+    versions' losses within 1e-4, two runs bitwise equal, no op on a plain
+    version."""
+    from repro_torch import train
+    data = train.GraphEpochProvider(shapes=((3000, 20000),),
+                                    graphs_per_shape=1, feat=32)
+
+    def run(impl):
+        task = train.NodeClassification.from_provider(data, model="gcn",
+                                                      impl=impl)
+        with kops.fusion_scope() as fusion:
+            res = train.fit(task, data, train.TrainerConfig(steps=3,
+                                                            warmup_steps=1))
+        return res, dict(fusion)
+
+    kops.reset_launch_counts()
+    res, fusion = run(None)
+    launched = kops.launch_counts()
+    assert all(k.startswith("fused:") for k in fusion), fusion
+    assert launched["fused_transform_reduce"] >= 9
+    assert launched["gather_segment_reduce"] >= 3
+    again, _ = run(None)
+    assert again.losses == res.losses
+    want, _ = run("ref")
+    np.testing.assert_allclose(res.losses, want.losses, rtol=1e-4)

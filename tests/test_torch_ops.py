@@ -185,8 +185,14 @@ def test_public_ops_are_forward_only_and_accounted():
     assert dict(fusion) == {"unfused:segment_reduce_mean:ref": 1,
                             "unfused:sddmm:ref": 1,
                             "unfused:segment_matmul:ref": 1}
-    with pytest.raises(NotImplementedError, match="training slice"):
+    # the backward runs (it used to raise) and accounts its own work: the
+    # mean's gradient is a gather by segment, no scatter
+    with kops.fusion_scope() as fusion:
         y.sum().backward()
+    assert dict(fusion) == {}
+    torch.testing.assert_close(x.grad, torch.tensor([0.5, 0.5, 1 / 3, 1 / 3,
+                                                     1 / 3, 1.0])[:, None]
+                               .expand(6, 3))
     with pytest.raises(ValueError, match="unknown reduce"):
         rt.segment_reduce(x, idx, 3, "min")
     assert {"segment_reduce", "sddmm", "segment_matmul"} <= \
