@@ -119,8 +119,42 @@ Phases (any failure exits non-zero before the result line):
       backward / optimizer split (CUDA events, median of 5), one profiled
       step's device-busy time and idle share, and peak memory; a
       ``{"training": [...]}`` line lists them.
+   e. Sampled mini-batches, under deterministic algorithms, on the graph
+      of 3d (169,343 nodes, 1,166,243 edges, seed 0) resident on the
+      host. Seeds are the nodes that have in-edges (22,377): the synthetic
+      stand-in puts every in-edge on a few nodes, and 1024 seeds drawn
+      from all nodes would give a batch of about 2 k edges. Sampler:
+      1024 seeds, fanouts (15, 10, 5) (the 3-layer neighbour-sampling
+      fanouts of PyG's and DGL's ogbn-products GraphSAGE examples); the
+      prefetch pipeline at depth 2. Checks: (1) the first 8 batches of an
+      8-shard ``ShardedGraphStore`` are bitwise the in-memory ones; (2)
+      the device tensors of the first 8 batches are bitwise equal at
+      depth 0 and at depth 2 with 2 producer threads; (3) an exact 3-hop
+      sample around 64 seeds gives the full-graph forward's logits on the
+      seed rows at the fp32 tolerance (gcn, sage, gat); (4) gcn, sage and
+      gat (4 heads), 3 layers, feat 32 / hidden 64 / 16 classes, 20 steps
+      of ``repro_torch.fit`` on a ``SampledNodeProvider``: losses within
+      rtol 1e-4 of ``impl="ref"`` on the card, a second run and a run
+      killed after its step-10 checkpoint and resumed bitwise the first,
+      the run's buckets those the producer's probe predicts and one cache
+      entry built per bucket, every op on a kernel and each kernel of the
+      family's path launched; (5) gcn ``serve_sampled`` over
+      ``GNNServer.sampled_pipeline`` for 20 batches equal to
+      ``impl="ref"`` at the fp32 tolerance, ``builds`` equal to the cache
+      entries, and a batch stamped against a foreign cache restamped
+      (into the same logits) with no build; (6) the registry's
+      ``kernel.launches`` equals the fusion accounting over the phase, and
+      a served step's span tree holds every engine stage; the
+      ``repro_torch.obs`` report is printed. Prints, per family, the warm
+      step (CUDA events at each step's end, median over steps 2-19), the
+      pipeline's steady produce and wait medians and overlap, the
+      batches' (V, E) and buckets, one profiled step's device-busy time
+      and idle share (host sampling included), peak memory above the
+      tensors already live, and the warm step of the same run with the
+      blocking loader (depth 0, its losses bitwise the same); a
+      ``{"sampled": [...]}`` line lists them.
 4. A ``{"kernels": [...]}`` line: per kernel its launches on the main paths
-   (and per path: serving, typed, ops, training), ``cuda_kernels_per_launch``, the port's CUDA kernels that
+   (and per path: serving, typed, ops, training, sampled), ``cuda_kernels_per_launch``, the port's CUDA kernels that
    one launch of its representative configuration runs, counted from the
    device events of ``torch.profiler`` over two calls after phase 3 (null
    where the profiler lost events; one launch of
@@ -176,6 +210,13 @@ SEED = 0
 AM_NODES, AM_EDGES, AM_RELATIONS = 1_666_764, 5_988_321, 133
 RGAT_HEADS = 2
 TRAIN_STEPS, TYPED_TRAIN_STEPS = 6, 3
+# phase 3e: the 3-layer neighbour-sampling fanouts of PyG's and DGL's
+# ogbn-products GraphSAGE examples, 1024 seeds a batch, prefetch depth 2
+SAMPLED_FANOUTS, SAMPLED_BATCH, SAMPLED_DEPTH = (15, 10, 5), 1024, 2
+SAMPLED_STEPS, SAMPLED_KILL_AT, EXACT_SEEDS = 20, 10, 64
+SAMPLED_FAMILIES = ("gcn", "sage", "gat")
+SERVE_STAGES = ("serve.batch", "serve.pad", "serve.plan_cache", "serve.copy",
+                "serve.stamp", "serve.execute", "serve.fetch")
 
 
 def fail(msg: str) -> None:
@@ -815,6 +856,375 @@ def training_phase(torch, am):
         shutil.rmtree(ckpt_root, ignore_errors=True)
         torch.use_deterministic_algorithms(False)
     return records
+
+
+class _Seen:
+    """A provider that remembers each step's batch size and bucket."""
+
+    def __init__(self, data):
+        self.data = data
+        self.sizes = {}
+
+    def batch(self, step):
+        b = self.data.batch(step)
+        self.sizes[step] = (b.graph.orig_num_nodes, b.graph.orig_num_edges,
+                            str(b.bucket))
+        return b
+
+
+def sampled_train_family(torch, family, store, seeds, ckpt_root):
+    """Phase 3e check 4 for one family: ``SAMPLED_STEPS`` sampled steps
+    through ``repro_torch.fit`` on the kernels, held against ``impl="ref"``
+    on the card; a second run and a run killed after its checkpoint at
+    step ``SAMPLED_KILL_AT`` and resumed, both bitwise the first; one
+    bucket entry built per bucket; the warm step, the pipeline's overlap,
+    one profiled step's idle share, peak memory. Returns the record."""
+    from repro_torch import train
+    from repro_torch.kernels import ops as kops
+    from repro_torch.optim import adamw
+    cfg = train.TrainerConfig(steps=SAMPLED_STEPS, warmup_steps=2,
+                              opt=adamw.AdamWConfig(lr=1e-2))
+    heads = 4 if family == "gat" else 1
+
+    def trainer(data, impl=None, **kw):
+        task = train.NodeClassification.from_provider(
+            data.data, model=family, hidden=HIDDEN, heads=heads, impl=impl)
+        return train.Trainer(task, data, dataclasses.replace(cfg, **kw))
+
+    ends = []
+
+    def mark(step, metrics, verdict):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        ends.append(ev)
+
+    with train.SampledNodeProvider(
+            store, fanouts=SAMPLED_FANOUTS, batch_size=SAMPLED_BATCH,
+            seed_nodes=seeds, seed=SEED, plan_feat=HIDDEN,
+            depth=SAMPLED_DEPTH) as provider:
+        data = _Seen(provider)
+        t1 = trainer(data)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live_gib = torch.cuda.memory_allocated() / 2 ** 30
+        before = kops.launch_counts()
+        with kops.fusion_scope() as fusion:
+            run1 = t1.fit(metrics_cb=mark)
+        torch.cuda.synchronize()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30 - live_gib
+        launched = {k: n - before[k] for k, n in kops.launch_counts().items()}
+        pipe = provider.stats()
+        print(f"  {family} trained {SAMPLED_STEPS} sampled steps: losses "
+              f"{run1.losses}; launched {launched}", flush=True)
+        if any(not k.startswith("fused:") for k in fusion):
+            fail(f"sampled {family}: an op took a plain version: "
+                 f"{sorted(k for k in fusion if not k.startswith('fused:'))}")
+        for k in TRAIN_KERNELS[family]:
+            if launched[k] == 0:
+                fail(f"sampled {family}: kernel {k} of its path never "
+                     "launched")
+        if not all(math.isfinite(x) for x in run1.losses):
+            fail(f"sampled {family}: a loss is not finite: {run1.losses}")
+        # one entry built per bucket: the run's buckets are the probed
+        # schedule's, and no cache line was built twice (the prefetch may
+        # have made up to SAMPLED_DEPTH batches past the last step)
+        probed = provider.producer.buckets_for_warmup(SAMPLED_STEPS)
+        ahead = provider.producer.buckets_for_warmup(
+            SAMPLED_STEPS + SAMPLED_DEPTH)
+        cached = {key[0] for key in provider.producer.cache.keys()}
+        ran = {(s.num_nodes, s.num_edges) for s in run1.buckets}
+        if (len(run1.buckets) != len(probed)
+                or ran != {(b.num_nodes, b.num_edges) for b in probed}
+                or pipe["cache"]["plan_builds"] != len(cached)
+                or not set(probed) <= cached <= set(ahead)):
+            fail(f"sampled {family}: buckets {sorted(ran)} vs the probed "
+                 f"{probed}; plan_builds {pipe['cache']['plan_builds']} for "
+                 f"the cached {sorted(map(str, cached))}")
+        step_ms = [ends[k - 1].elapsed_time(ends[k])
+                   for k in range(1, SAMPLED_STEPS)]
+        warm_ms = statistics.median(step_ms[1:])    # steps 2..19
+
+        # the same run again: the same bits
+        run2 = trainer(data).fit()
+        if run2.losses != run1.losses or any(
+                not torch.equal(p, run2.state.params[k])
+                for k, p in run1.state.params.items()):
+            fail(f"sampled {family}: two runs from one state differ")
+        at = SAMPLED_KILL_AT
+        ckpt_dir = os.path.join(ckpt_root, f"sampled-{family}")
+
+        def killer(step, metrics, verdict):
+            if step == at:
+                raise _Killed()
+        try:
+            trainer(data, ckpt_dir=ckpt_dir, ckpt_every=at).fit(
+                metrics_cb=killer)
+            fail(f"sampled {family}: the killed run was not killed")
+        except _Killed:
+            pass
+        resumed = trainer(data, ckpt_dir=ckpt_dir, ckpt_every=at).fit(
+            resume=True)
+        if (resumed.start_step != at or resumed.losses != run1.losses[at:]
+                or any(not torch.equal(p, resumed.state.params[k])
+                       for k, p in run1.state.params.items())):
+            fail(f"sampled {family}: the resumed run (from step "
+                 f"{resumed.start_step}, losses {resumed.losses}) is not "
+                 "the uninterrupted one")
+        ref = trainer(data, "ref").fit()
+        for i, (a, b) in enumerate(zip(run1.losses, ref.losses)):
+            if not abs(a - b) <= 1e-4 * abs(b):
+                fail(f"sampled {family}: step {i} loss {a!r} vs the plain "
+                     f"versions' {b!r} (rtol 1e-4)")
+        print(f"  {family}: losses within rtol 1e-4 of impl='ref'; a second "
+              f"run and a run resumed from its step-{at} checkpoint are "
+              "bitwise the first", flush=True)
+        wall_ms, busy_ms, rows = profiled(
+            torch, lambda: t1.step(run1.state, SAMPLED_STEPS))
+    # the same run with the blocking loader (depth 0): no producer thread
+    # competes with the step for the interpreter lock
+    ends.clear()
+    with train.SampledNodeProvider(
+            store, fanouts=SAMPLED_FANOUTS, batch_size=SAMPLED_BATCH,
+            seed_nodes=seeds, seed=SEED, plan_feat=HIDDEN,
+            depth=0) as blocking:
+        run0 = trainer(_Seen(blocking)).fit(metrics_cb=mark)
+        pipe0 = blocking.stats()
+    if run0.losses != run1.losses:
+        fail(f"sampled {family}: the blocking loader's run differs")
+    step0_ms = [ends[k - 1].elapsed_time(ends[k])
+                for k in range(1, SAMPLED_STEPS)]
+    sizes = [data.sizes[s] for s in range(SAMPLED_STEPS)]
+    rec = {"family": family, "steps": SAMPLED_STEPS,
+           "losses": run1.losses, "warm_step_ms": warm_ms,
+           "step_ms": step_ms,
+           "produce_s_median_steady": pipe["produce_s_median_steady"],
+           "wait_s_median_steady": pipe["wait_s_median_steady"],
+           "overlap": pipe["overlap"], "sync_falls": pipe["sync_falls"],
+           "batch_nodes": [v for v, _, _ in sizes],
+           "batch_edges": [e for _, e, _ in sizes],
+           "buckets": sorted({b for _, _, b in sizes}),
+           "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms or None,
+           "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+           "peak_alloc_gib": peak_gib, "live_before_gib": live_gib,
+           "depth0_warm_step_ms": statistics.median(step0_ms[1:]),
+           "depth0_produce_s_median_steady":
+               pipe0["produce_s_median_steady"],
+           "launches": launched}
+    print(f"  {family}: warm_step_ms={warm_ms:.3f} (steps {step_ms}); "
+          f"produce_s median {pipe['produce_s_median_steady']:.4f}, wait_s "
+          f"median {pipe['wait_s_median_steady']:.4f}, overlap "
+          f"{pipe['overlap']:.3f}; batches (V, E) {sizes[:4]} ... buckets "
+          f"{rec['buckets']}; peak_alloc_gib={peak_gib:.3f} above "
+          f"{live_gib:.3f} live; at depth 0 (bitwise the same losses): "
+          f"warm_step_ms={rec['depth0_warm_step_ms']:.3f}, produce_s median "
+          f"{pipe0['produce_s_median_steady']:.4f}", flush=True)
+    if busy_ms:
+        print(f"  profiled sampled {family} step: wall_ms={wall_ms:.3f} "
+              f"device_busy_ms={busy_ms:.3f} idle_share="
+              f"{1 - busy_ms / wall_ms:.3f}; top device ops:", flush=True)
+        for key, ms, calls in rows[:8]:
+            print(f"    {ms:9.3f} ms {calls:4d} calls  {key[:90]}",
+                  flush=True)
+    else:
+        print(f"  profiled sampled {family} step: device time not measured "
+              "(the profiler recorded no device events)", flush=True)
+    return rec
+
+
+def sampled_phase(torch, graph, dev):
+    """Phase 3e: sampled mini-batches on ``dev`` (the card; see the module
+    docstring); returns (training records, the sampled-serving record, the
+    exact samples' max abs errors)."""
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.data.pipeline import (PrefetchPipeline,
+                                           SampledBatchProducer)
+    from repro_torch.data.sampling import (InMemoryStore, NeighborSampler,
+                                           ShardedGraphStore,
+                                           save_graph_shards)
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import gnn
+    from repro_torch.serve import GNNServer
+    store = InMemoryStore(graph)
+    # seeds drawn from all nodes would give ~2 k edges a batch: the
+    # synthetic graph puts every in-edge on a few nodes
+    seeds = np.unique(graph.edge_index[1]).astype(np.int64)
+    print(f"  {seeds.size} of {graph.num_nodes} nodes have in-edges: the "
+          "seeds", flush=True)
+
+    def sampler(**kw):
+        kw.setdefault("fanouts", SAMPLED_FANOUTS)
+        kw.setdefault("batch_size", SAMPLED_BATCH)
+        return NeighborSampler(store, seed_nodes=seeds, seed=SEED, **kw)
+
+    def tensors(b):
+        p, o = b.plan, b.plan.src_order
+        return [b.arrays[k] for k in sorted(b.arrays)] + [
+            p.chunk_first, p.chunk_count, p.row_ptr, o.perm, o.src, o.dst,
+            o.row_ptr]
+
+    obs.reset()                 # the report covers this phase
+    snap = obs.get_registry().snapshot()
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sampled_")
+    try:
+        with kops.fusion_scope() as phase_fusion:
+            # 1. a sharded store of 8 shards gives the in-memory stream. Its
+            # LRU holds all 8: random seeds touch every shard from every
+            # node's expansion, so a smaller LRU re-reads shard files for
+            # most nodes
+            t0 = time.perf_counter()
+            save_graph_shards(graph, os.path.join(tmp, "shards"), 8)
+            shard_store = ShardedGraphStore(os.path.join(tmp, "shards"),
+                                            cache_shards=8)
+            sharded = NeighborSampler(
+                shard_store, SAMPLED_FANOUTS, batch_size=SAMPLED_BATCH,
+                seed_nodes=seeds, seed=SEED)
+            mem = sampler()
+            for s in range(8):
+                a, b = mem.sample_batch(s), sharded.sample_batch(s)
+                for f in ("node_ids", "edge_index", "x", "labels",
+                          "deg_inv_sqrt"):
+                    if not np.array_equal(getattr(a, f), getattr(b, f)):
+                        fail(f"sampled: step {s} {f} of the sharded store "
+                             "differs from the in-memory one")
+            print(f"  check 1: 8 batches of an 8-shard store are bitwise the "
+                  f"in-memory ones ({shard_store.loads} shard loads, "
+                  f"{time.perf_counter() - t0:.1f} s)", flush=True)
+
+            # 2. depth 0 and depth 2 with 2 threads: the same device bits
+            t0 = time.perf_counter()
+            streams = {}
+            for depth, threads in ((0, 1), (SAMPLED_DEPTH, 2)):
+                prod = SampledBatchProducer(sampler(), feat=HIDDEN)
+                with PrefetchPipeline(prod, depth=depth,
+                                      num_threads=threads) as pipe:
+                    streams[depth] = [tensors(pipe.batch(s))
+                                      for s in range(8)]
+            for s, (a, b) in enumerate(zip(streams[0],
+                                           streams[SAMPLED_DEPTH])):
+                if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                    fail(f"sampled: step {s}'s device tensors differ between "
+                         f"depth 0 and depth {SAMPLED_DEPTH}")
+            del streams
+            print(f"  check 2: 8 batches' device tensors bitwise equal at "
+                  f"depth 0 and depth {SAMPLED_DEPTH} with 2 threads "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+            # 3. an exact 3-hop sample around 64 seeds: the full graph's
+            # logits on the seed rows
+            t0 = time.perf_counter()
+            exact = SampledBatchProducer(
+                sampler(fanouts=(None,) * 3, exact=True,
+                        batch_size=EXACT_SEEDS), feat=HIDDEN).produce(0)
+            exact.ready()
+            exact_s = time.perf_counter() - t0
+            x = torch.from_numpy(graph.x).to(dev)
+            ei = torch.from_numpy(graph.edge_index).to(dev)
+            dis = torch.from_numpy(graph.deg_inv_sqrt).to(dev)
+            plan = graph.make_plan(HIDDEN)
+            rows = torch.from_numpy(exact.seed_nodes).to(dev)
+            a = exact.arrays
+            exact_err = {}
+            for family in SAMPLED_FAMILIES:
+                model = gnn.init(family, FEAT, HIDDEN, CLASSES, seed=SEED,
+                                 heads=4 if family == "gat" else 1)
+                with torch.no_grad():
+                    full = model(x, ei, graph.num_nodes, dis, plan=plan)
+                    sub = model(a["x"], a["edge_index"],
+                                exact.bucket.num_nodes, a["deg_inv_sqrt"],
+                                plan=exact.plan)
+                exact_err[family] = compare(
+                    torch, f"exact-sampled {family} seed logits",
+                    sub[:exact.num_seeds], full.index_select(0, rows),
+                    torch.float32)
+            print(f"  check 3: an exact 3-hop sample around {EXACT_SEEDS} "
+                  f"seeds ({exact.graph.orig_num_nodes} nodes, "
+                  f"{exact.graph.orig_num_edges} edges, bucket "
+                  f"{exact.bucket}, made in {exact_s:.2f} s) gives the full "
+                  f"graph's seed logits: max_abs_err {exact_err}", flush=True)
+            del x, ei, dis, plan, exact, a
+
+            # 4. training
+            t0 = time.perf_counter()
+            records = []
+            for family in SAMPLED_FAMILIES:
+                records.append(sampled_train_family(torch, family, store,
+                                                    seeds, tmp))
+                torch.cuda.empty_cache()
+            print(f"  check 4: {len(records)} families trained "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+            t0 = time.perf_counter()
+
+            # 5. sampled serving
+            srv = GNNServer(gnn.init("gcn", FEAT, HIDDEN, CLASSES,
+                                     seed=SEED), "gcn")
+            serve_ms, serve_err, first = [], 0.0, None
+            with srv.sampled_pipeline(sampler(),
+                                      depth=SAMPLED_DEPTH) as pipe:
+                for s in range(SAMPLED_STEPS):
+                    b = pipe.batch(s)
+                    t0 = time.perf_counter()
+                    got = srv.serve_sampled(b)
+                    serve_ms.append((time.perf_counter() - t0) * 1e3)
+                    a = b.arrays
+                    with torch.no_grad():
+                        want = srv.model(a["x"], a["edge_index"],
+                                         b.bucket.num_nodes,
+                                         a["deg_inv_sqrt"], impl="ref")
+                    serve_err = max(serve_err, compare(
+                        torch, f"served sampled gcn step {s}",
+                        torch.from_numpy(got),
+                        want[:b.num_seeds].float().cpu(), torch.float32))
+                    first = got if first is None else first
+            st = srv.stats()
+            if st["builds"] != len(srv.cache):
+                fail(f"sampled serving: {st['builds']} builds for "
+                     f"{len(srv.cache)} cache entries")
+            builds = srv.builds
+            foreign = SampledBatchProducer(sampler(), feat=HIDDEN).produce(0)
+            got = srv.serve_sampled(foreign)
+            root = obs.spans("serve.step")[-1]
+            stamp = root.find("serve.stamp")
+            if (srv.builds != builds or stamp is None
+                    or stamp.attrs.get("restamp") is not True
+                    or not np.array_equal(got, first)):
+                fail("sampled serving: the foreign-cache batch was not "
+                     "restamped into the same logits without a build")
+            serving = {"batches": SAMPLED_STEPS,
+                       "serve_ms_median": statistics.median(serve_ms[1:]),
+                       "serve_ms": serve_ms, "max_abs_err": serve_err,
+                       "builds": st["builds"], "cache_entries": len(srv.cache),
+                       "foreign_restamped": True}
+            print(f"  check 5: served {SAMPLED_STEPS} sampled gcn batches "
+                  f"(median {serving['serve_ms_median']:.3f} ms, "
+                  f"max_abs_err {serve_err:.3g}); builds {st['builds']} == "
+                  f"cache entries; a foreign-cache batch restamped with no "
+                  f"build ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+            # 6. one served request's span tree
+            srv.submit(mem.sample_batch(0))
+            srv.step(flush=True)
+            stages = obs.spans("serve.step")[-1].stages()
+            if not set(SERVE_STAGES) <= stages:
+                fail(f"obs: a served step's spans {sorted(stages)} miss "
+                     f"{sorted(set(SERVE_STAGES) - stages)}")
+            del srv
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.use_deterministic_algorithms(False)
+    mirror = {f"{r['labels']['kind']}:{r['labels']['op']}": int(r["value"])
+              for r in obs.get_registry().delta(snap)
+              if r["name"] == "kernel.launches" and r["value"]}
+    if mirror != dict(phase_fusion):
+        fail(f"obs: kernel.launches over the phase {mirror} != the fusion "
+             f"accounting {dict(phase_fusion)}")
+    print(f"  check 6: kernel.launches equals the fusion accounting over the "
+          f"phase ({sum(mirror.values())} events); a served step's span tree "
+          f"holds {', '.join(SERVE_STAGES)}", flush=True)
+    print(obs.report(), flush=True)
+    return records, serving, exact_err
 
 
 def main() -> None:
@@ -1669,6 +2079,18 @@ def main() -> None:
           f"launches on the training path: {launches_training}", flush=True)
     print(json.dumps({"training": training}))
 
+    # -- 3e. sampled mini-batches: sampler, prefetch, training, serving ------
+    t_phase = time.perf_counter()
+    kops.reset_launch_counts()
+    arxiv = dataset("ogbn-arxiv", feat=FEAT, seed=SEED)
+    sampled, sampled_serving, exact_err = sampled_phase(torch, arxiv, dev)
+    launches_sampled = kops.launch_counts()
+    print(f"sampled path passed ({time.perf_counter() - t_phase:.1f} s); "
+          f"launches on the sampled path: {launches_sampled}", flush=True)
+    print(json.dumps({"sampled": sampled, "sampled_serving": sampled_serving,
+                      "exact_max_abs_err": exact_err}))
+    del arxiv
+
     # -- 4. the kernels line ----------------------------------------------------
     print(f"bounds over {e_real} real edges, {h_rows} distinct source rows, "
           f"{v} output rows (gather, softmax, fused):", flush=True)
@@ -1699,7 +2121,8 @@ def main() -> None:
                     2 * a_e * HIDDEN)
 
     paths = {"serving": launches_serving, "typed": launches_typed,
-             "ops": launches_ops, "training": launches_training}
+             "ops": launches_ops, "training": launches_training,
+             "sampled": launches_sampled}
 
     # the CUDA kernels one launch of each wrapper runs, read from the
     # profiler's device events: two calls of the kernels line's

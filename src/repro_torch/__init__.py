@@ -4,7 +4,9 @@ NVIDIA H100 (Hopper, sm_90a).
 This package serves 3-layer GCN / GIN / GraphSAGE / multi-head GAT node
 classification, runs relation-typed RGCN / RGAT inference, trains every
 family (``fit``: AdamW, checkpoints, resume; every op's backward runs on
-the same kernels), and offers the library's public segment ops. Six
+the same kernels) on full graphs or on sampled mini-batches (a neighbour
+sampler and a prefetch pipeline feeding the card), reports through a
+metrics registry, spans and build attribution (``obs``), and offers the library's public segment ops. Six
 hand-written CUDA kernels carry it: ``gather_segment_reduce`` (every
 aggregation), ``segment_softmax`` (attention), ``fused_transform_reduce``
 (SpMM + GEMM in one launch), ``segment_matmul`` (the per-relation
@@ -27,9 +29,18 @@ unless the caller passes ``device="cpu"``.
     task = rt.NodeClassification.from_provider(data, model="gcn")
     result = rt.fit(task, data, rt.TrainerConfig(steps=50))   # on the card
 
+    # sampled mini-batches: a neighbour sampler behind the prefetch pipeline
+    with rt.SampledNodeProvider(rt.dataset("ogbn-arxiv"),
+                                fanouts=(15, 10, 5), batch_size=1024,
+                                plan_feat=64) as data:
+        task = rt.NodeClassification.from_provider(data, model="sage")
+        result = rt.fit(task, data, rt.TrainerConfig(steps=50))
+    print(rt.obs.report())         # counters, histograms, build causes
+
 The JAX package ``repro`` is the reference this port is tested against;
 this package imports neither it nor JAX.
 """
+from repro_torch import obs
 from repro_torch.core.config_space import KernelConfig, default_config
 from repro_torch.core.mp import choose_order, mp, mp_transform, mp_typed
 from repro_torch.core.ops import (
@@ -59,6 +70,9 @@ from repro_torch.data.graphs import (
     synth_graph,
     synth_typed_graph,
 )
+from repro_torch.data.pipeline import PrefetchPipeline, SampledBatchProducer
+from repro_torch.data.sampling import (InMemoryStore, NeighborSampler,
+                                       ShardedGraphStore, save_graph_shards)
 from repro_torch.kernels.ops import launch_counts, reset_launch_counts
 from repro_torch.models.gnn import GNN, MODELS, TYPED_MODELS
 from repro_torch.models.gnn import forward as gnn_forward
@@ -66,7 +80,8 @@ from repro_torch.models.gnn import init as gnn_init
 from repro_torch.models.params import from_jax_params
 from repro_torch.serve import GNNServer
 from repro_torch.train import (GraphEpochProvider, NodeClassification,
-                               Trainer, TrainerConfig, TrainState, fit)
+                               SampledNodeProvider, Trainer, TrainerConfig,
+                               TrainState, fit)
 
 __all__ = [
     # graphs
@@ -88,4 +103,10 @@ __all__ = [
     # training
     "GraphEpochProvider", "NodeClassification", "Trainer", "TrainerConfig",
     "TrainState", "fit",
+    # sampled mini-batches
+    "NeighborSampler", "InMemoryStore", "ShardedGraphStore",
+    "save_graph_shards", "SampledBatchProducer", "PrefetchPipeline",
+    "SampledNodeProvider",
+    # telemetry
+    "obs",
 ]

@@ -1,1 +1,3 @@
-"""Graph synthesis, batching and padding (numpy, as in the reference)."""
+"""Graph synthesis, batching and padding, neighbour sampling (numpy, as in
+the reference), and the prefetch pipeline that moves sampled batches to
+the device."""

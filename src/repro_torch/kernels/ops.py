@@ -32,7 +32,10 @@ Accounting: each kernel module keeps a plain-int launch counter
 (:func:`launch_counts`, :func:`reset_launch_counts`), bumped only where
 its kernel launches. :func:`account` / :func:`fusion_scope` record which
 kernels (``fused:<op>``) or plain versions (``unfused:<op>:<impl>``) a
-block of work ran, so a served step can report what it launched.
+block of work ran, so a served step can report what it launched; every
+event is also mirrored into the :mod:`repro_torch.obs` registry
+(``kernel.launches``, labels kind and op), as the reference's
+``account`` does.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.config_space import KernelConfig, default_config
 from repro_torch.kernels import fused_transform_reduce as _ftr
 from repro_torch.kernels import gather_segment_reduce as _gsr
@@ -105,10 +109,23 @@ def _fusion_sink() -> collections.Counter:
     return scopes[-1] if scopes else _FUSION_GLOBAL
 
 
+_LAUNCH_METRIC = None
+
+
+def _launch_metric():
+    global _LAUNCH_METRIC
+    if _LAUNCH_METRIC is None:
+        _LAUNCH_METRIC = obs.get_registry().counter(
+            "kernel.launches", labels=("kind", "op"),
+            help="kernel launch accounting (fused/unfused)")
+    return _LAUNCH_METRIC
+
+
 def account(kind: str, op: str) -> None:
     """Record one ``kind`` ∈ {"fused", "unfused"} event on ``op``."""
     with _FUSION_LOCK:
         _fusion_sink()[f"{kind}:{op}"] += 1
+    _launch_metric().inc(kind=kind, op=op)
 
 
 def fusion_counts() -> dict:

@@ -342,11 +342,16 @@ def loss_fn(model: GNN, x, edge_index, labels, num_nodes: int,
     return cross_entropy(logits, labels)
 
 
-def cross_entropy(logits, labels):
-    """mean(logsumexp(logits) - logits[label]) over the rows, in fp32."""
+def cross_entropy(logits, labels, mask=None):
+    """mean(logsumexp(logits) - logits[label]) over the rows, in fp32; with
+    a (V,) ``mask``, the mean over the rows it weights (the reference's
+    masked loss: sum(mask · nll) / max(sum(mask), 1))."""
     logits = logits.float()
     gold = logits.gather(1, labels.long()[:, None])[:, 0]
-    return (torch.logsumexp(logits, dim=-1) - gold).mean()
+    nll = torch.logsumexp(logits, dim=-1) - gold
+    if mask is None:
+        return nll.mean()
+    return (mask * nll).sum() / mask.sum().clamp_min(1.0)
 
 
 def make_model_plan(edge_index, num_nodes: int, feat: int, config=None,

@@ -11,6 +11,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.device import resolve_device
 from repro_torch.models.gnn import GNN
 
 # the parameter names of each family, in the order of its layer dicts
@@ -106,17 +107,20 @@ def _tensor(arr: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
 
-def from_jax_state(family: str, state, device="cpu"):
+def from_jax_state(family: str, state, device=None):
     """The port's :class:`~repro_torch.train.trainer.TrainState` from the
     reference's (``repro.train.TrainState``: a list of layer dicts of
     parameters, an ``AdamWState`` of moments shaped alike, the step and a
-    PRNG key), read as numpy. Parameter names follow the port's
-    ``named_parameters()`` (``layers.<i>.<name>``). The JAX key has no
-    torch counterpart: the generator is seeded from its bits."""
+    PRNG key), read as numpy, with its tensors on ``device`` (``None``:
+    the card, raising without one; ``"cpu"`` for the plain versions).
+    Parameter names follow the port's ``named_parameters()``
+    (``layers.<i>.<name>``). The JAX key has no torch counterpart: the
+    generator is seeded from its bits."""
     from repro_torch.optim.adamw import AdamWState
     from repro_torch.train.trainer import TrainState
     if family not in LAYER_PARAMS:
         raise ValueError(f"unknown model {family!r}")
+    device = resolve_device(device, "from_jax_state")
 
     def named(tree, convert):
         return {f"layers.{i}.{name}": convert(lay[name])

@@ -12,6 +12,10 @@ launch aggregates every member graph at once — under
   * a **latency deadline** (``max_wait_s``): an under-budget batch is held
     back for more traffic until its oldest member has waited this long.
     ``max_wait_s=0`` (default) serves whatever is queued each step.
+
+Admission is counted in the :mod:`repro_torch.obs` registry
+(``serve.submitted``, ``serve.queue_depth``; optional instruments: nothing
+in the serving contract reads them back).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import time
 from collections import deque
 from typing import Deque, List, Optional
 
+from repro_torch import obs
 from repro_torch.data.graphs import Graph
 
 __all__ = ["GraphRequest", "GraphBatcher"]
@@ -48,12 +53,20 @@ class GraphBatcher:
         self.max_batch_graphs = int(max_batch_graphs)
         self.max_wait_s = float(max_wait_s)
         self.queue: Deque[GraphRequest] = deque()
+        reg = obs.get_registry()
+        self._labels = {"batcher": obs.next_id("batcher")}
+        self._m_submitted = reg.counter("serve.submitted", ("batcher",))
+        self._m_depth = reg.gauge("serve.queue_depth", ("batcher",))
+        self._m_submitted.touch(**self._labels)
+        self._m_depth.touch(**self._labels)
 
     def __len__(self) -> int:
         return len(self.queue)
 
     def submit(self, req: GraphRequest) -> None:
         self.queue.append(req)
+        self._m_submitted.inc(**self._labels)
+        self._m_depth.set(len(self.queue), **self._labels)
 
     def _fits(self, req: GraphRequest, nodes: int, edges: int,
               count: int) -> bool:
@@ -98,4 +111,5 @@ class GraphBatcher:
             for req in reversed(batch):
                 self.queue.appendleft(req)
             return []
+        self._m_depth.set(len(self.queue), **self._labels)
         return batch

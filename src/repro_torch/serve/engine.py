@@ -5,20 +5,31 @@ One ``step()`` of the serving loop:
     queue ──GraphBatcher──▶ block-diagonal batch (batch_graphs)
           ──buckets──────▶ pad to the batch's ShapeBucket (drop-id edges)
           ──PlanCache────▶ BucketEntry: canonical config / max_chunks / stats
+          ──copy─────────▶ the padded arrays to the device
           ──stamp────────▶ per-request chunk metadata, on the device
-          ──forward──────▶ the model's layers, each aggregation one kernel
-          ──unpad/unbatch▶ per-request logits + latency / launch stats
+          ──execute──────▶ the model's layers, each aggregation one kernel
+          ──fetch────────▶ logits back to the host, unpadded and unbatched
 
 A cache hit performs no plan or config work: the per-request cost is one
 ``searchsorted`` stamp on the device, the host-to-device copies, and the
-forward.
+forward. Sampled mini-batches (:meth:`GNNServer.sampled_pipeline`,
+:meth:`GNNServer.serve_sampled`) arrive on the device already stamped by
+the prefetch pipeline's producers, against this engine's own cache.
 
 The server runs on the card by default (``device=None`` means ``"cuda"``)
 and raises when there is none; ``device="cpu"`` runs the plain versions,
-as the tests do. Counters are plain attributes of the server.
+as the tests do. Its accounting lives in the :mod:`repro_torch.obs`
+registry under the engine's instance label (vital instruments: ``stats()``
+works with observability disabled), and each step opens the span tree
+``serve.step`` ⊃ ``serve.batch``, ``serve.pad``, ``serve.plan_cache``,
+``serve.copy``, ``serve.stamp``, ``serve.execute``, ``serve.fetch``. A
+bucket's *build* is its entry's first run (PyTorch compiles nothing):
+``serve.builds`` counts it, :func:`repro_torch.obs.record_build` names its
+cause, and its ``serve.execute`` span carries ``new_bucket=True``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence
@@ -26,12 +37,14 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.config_space import default_config
 from repro_torch.core.device import resolve_device
 from repro_torch.data.graphs import (Graph, batch_graphs, synth_graph,
                                      unbatch_nodes, unpad_nodes)
 from repro_torch.kernels.ops import fusion_scope
 from repro_torch.models.gnn import GNN, MODELS
+from repro_torch.obs import span
 from repro_torch.serve.batcher import GraphBatcher, GraphRequest
 from repro_torch.serve.buckets import BucketPolicy, ShapeBucket, pad_to_bucket
 from repro_torch.serve.plan_cache import BucketEntry, PlanCache
@@ -49,8 +62,8 @@ class ServedResult:
     queue_s: float                # submit -> admission
     serve_s: float                # batch -> pad -> stamp -> forward -> host
     latency_s: float              # submit -> result
-    cache_hit: bool
-    built: bool                   # this step built the bucket's cache entry
+    cache_hit: bool               # the bucket's entry had run before
+    built: bool                   # this step was the entry's first run
     pad_nodes: int                # bucket V minus batch V (waste)
     pad_edges: int
     fusion: Dict[str, int]        # kernels ("fused:…") and plain versions
@@ -60,6 +73,18 @@ class ServedResult:
     #                               copy (to the device), stamp, forward
     #                               (enqueue), fetch (wait for the device +
     #                               logits back to the host)
+
+
+@contextlib.contextmanager
+def _stage(stages: Optional[Dict[str, float]], key: str, name: str,
+           **attrs):
+    """One stage of a step: the span ``name``, and its host-clock seconds
+    in ``stages[key]`` (when ``stages`` is given)."""
+    t0 = time.perf_counter()
+    with span(name, **attrs) as s:
+        yield s
+    if stages is not None:
+        stages[key] = time.perf_counter() - t0
 
 
 class GNNServer:
@@ -100,7 +125,30 @@ class GNNServer:
                                     max_wait_s=max_wait_s)
         self._uid = 0
         self.results: Dict[int, ServedResult] = {}
-        self.reset()
+        reg = obs.get_registry()
+        self._labels = {"engine": obs.next_id("engine")}
+        self._m_requests = reg.counter("serve.requests", ("engine",),
+                                       vital=True)
+        self._m_batches = reg.counter("serve.batches", ("engine",),
+                                      vital=True)
+        self._m_serve_s = reg.counter("serve.serve_s", ("engine",),
+                                      vital=True)
+        self._m_builds = reg.counter("serve.builds", ("engine",), vital=True)
+        self._m_latency = reg.histogram("serve.request_latency_s",
+                                        ("engine",), vital=True)
+        self._m_queue = reg.histogram("serve.queue_s", ("engine",),
+                                      vital=True)
+        self._m_pad_nodes = reg.histogram("serve.pad_node_frac",
+                                          ("engine",), vital=True,
+                                          buckets=(1.0, 1.5, 2.0, 4.0, 8.0))
+        self._m_pad_edges = reg.histogram("serve.pad_edge_frac",
+                                          ("engine",), vital=True,
+                                          buckets=(1.0, 1.5, 2.0, 4.0, 8.0))
+        self._metrics = (self._m_requests, self._m_batches, self._m_serve_s,
+                         self._m_builds, self._m_latency, self._m_queue,
+                         self._m_pad_nodes, self._m_pad_edges)
+        for m in self._metrics:
+            m.touch(**self._labels)
 
     # -- admission -----------------------------------------------------------
     def submit(self, graph: Graph, uid: Optional[int] = None) -> int:
@@ -126,14 +174,27 @@ class GNNServer:
     def _build_entry(self, bucket: ShapeBucket) -> BucketEntry:
         return BucketEntry(bucket, self.feat, default_config(self.feat))
 
-    def _get_entry(self, bucket: ShapeBucket, weight: int = 1, warm=False):
-        """(entry, built): the bucket's cache line and whether this call
-        built it."""
-        before = self.cache.stats.plan_builds
+    def _entry(self, bucket: ShapeBucket, weight: int = 1,
+               warm: bool = False) -> BucketEntry:
         key, build = self._entry_key(bucket), lambda: self._build_entry(bucket)
-        entry = (self.cache.warm(key, build) if warm
-                 else self.cache.get_or_build(key, build, weight=weight))
-        return entry, self.cache.stats.plan_builds > before
+        return (self.cache.warm(key, build) if warm
+                else self.cache.get_or_build(key, build, weight=weight))
+
+    def _execute(self, entry: BucketEntry, cause: str, run):
+        """``run()`` under the ``serve.execute`` span; an entry's first run
+        is the bucket's build: counted and attributed to ``cause``."""
+        new = not entry.executed
+        with span("serve.execute", bucket=str(entry.bucket),
+                  new_bucket=new):
+            out = run()
+        if new:
+            entry.executed = True
+            self._m_builds.inc(**self._labels)
+            obs.record_build("serve.forward", cause,
+                             engine=self._labels["engine"],
+                             bucket=str(entry.bucket), model=self.family,
+                             feat=self.feat, device=str(self.device))
+        return out, new
 
     # -- one serving iteration ----------------------------------------------
     def step(self, flush: bool = False) -> List[ServedResult]:
@@ -141,62 +202,71 @@ class GNNServer:
         reqs = self.batcher.next_batch(flush=flush)
         if not reqs:
             return []
-        t0 = time.perf_counter()
-        batch = batch_graphs([r.graph for r in reqs])
-        t_batch = time.perf_counter()
-        padded, bucket = pad_to_bucket(batch, self.policy)
-        t_pad = time.perf_counter()
-        entry, built = self._get_entry(bucket, weight=len(reqs))
-        stages = {"batch": t_batch - t0, "pad": t_pad - t_batch,
-                  "cache": time.perf_counter() - t_pad}
-        with fusion_scope() as fusion:
-            logits = self._run(entry, padded, stages)
-        t_fwd = time.perf_counter()
-        logits = logits.float().cpu().numpy()      # waits for the device
-        t1 = time.perf_counter()
-        stages["fetch"] = t1 - t_fwd
-        if built:
-            self.builds += 1
-        self.batches += 1
-        self.serve_s += t1 - t0
-        self._pad_nodes.append(bucket.num_nodes / max(batch.num_nodes, 1))
-        self._pad_edges.append(bucket.num_edges / max(batch.num_edges, 1))
-        per_graph = unbatch_nodes(batch, unpad_nodes(padded, logits))
-        out = []
-        for req, y in zip(reqs, per_graph):
-            res = ServedResult(
-                uid=req.uid, logits=y, bucket=bucket, batch_size=len(reqs),
-                queue_s=t0 - req.t_submit, serve_s=t1 - t0,
-                latency_s=t1 - req.t_submit, cache_hit=not built,
-                built=built, pad_nodes=bucket.num_nodes - batch.num_nodes,
-                pad_edges=bucket.num_edges - batch.num_edges,
-                fusion=dict(fusion), stages=stages)
-            self.results[req.uid] = res
-            self.requests += 1
-            self._latency.append(res.latency_s)
-            self._queue.append(res.queue_s)
-            out.append(res)
-        return out
+        stages: Dict[str, float] = {}
+        with span("serve.step", engine=self._labels["engine"],
+                  requests=len(reqs)) as root:
+            t0 = time.perf_counter()
+            with _stage(stages, "batch", "serve.batch", graphs=len(reqs)):
+                batch = batch_graphs([r.graph for r in reqs])
+            with _stage(stages, "pad", "serve.pad"):
+                padded, bucket = pad_to_bucket(batch, self.policy)
+            root.set(bucket=str(bucket))
+            with _stage(stages, "cache", "serve.plan_cache",
+                        bucket=str(bucket)):
+                entry = self._entry(bucket, weight=len(reqs))
+            with fusion_scope() as fusion:
+                logits, built = self._run(entry, padded, stages,
+                                          "bucket_miss")
+            with _stage(stages, "fetch", "serve.fetch"):
+                logits = logits.float().cpu().numpy()  # waits for the device
+            t1 = time.perf_counter()
+            self._m_batches.inc(**self._labels)
+            self._m_serve_s.inc(t1 - t0, **self._labels)
+            self._m_pad_nodes.observe(
+                bucket.num_nodes / max(batch.num_nodes, 1), **self._labels)
+            self._m_pad_edges.observe(
+                bucket.num_edges / max(batch.num_edges, 1), **self._labels)
+            per_graph = unbatch_nodes(batch, unpad_nodes(padded, logits))
+            out = []
+            for req, y in zip(reqs, per_graph):
+                res = ServedResult(
+                    uid=req.uid, logits=y, bucket=bucket,
+                    batch_size=len(reqs), queue_s=t0 - req.t_submit,
+                    serve_s=t1 - t0, latency_s=t1 - req.t_submit,
+                    cache_hit=not built, built=built,
+                    pad_nodes=bucket.num_nodes - batch.num_nodes,
+                    pad_edges=bucket.num_edges - batch.num_edges,
+                    fusion=dict(fusion), stages=stages)
+                self.results[req.uid] = res
+                self._m_requests.inc(**self._labels)
+                self._m_latency.observe(res.latency_s, **self._labels)
+                self._m_queue.observe(res.queue_s, **self._labels)
+                out.append(res)
+            return out
 
     def _run(self, entry: BucketEntry, padded: Graph,
-             stages: Optional[Dict[str, float]] = None):
-        """The padded forward, enqueued; ``stages`` (if given) gains the
+             stages: Optional[Dict[str, float]], cause: str):
+        """The padded forward, enqueued: (logits on the device, whether this
+        was the entry's first run). ``stages`` (if given) gains the
         host-clock seconds of copy, stamp and forward."""
-        t0 = time.perf_counter()
         dev = self.device
         dtype = next(self.model.parameters()).dtype
-        x = torch.from_numpy(padded.x).to(dev, dtype)
-        ei = torch.from_numpy(padded.edge_index).to(dev)
-        dis = torch.from_numpy(padded.deg_inv_sqrt).to(dev, dtype)
-        t1 = time.perf_counter()
-        plan = entry.stamp(ei[1])       # on the device, from the copied dst
-        t2 = time.perf_counter()
-        with torch.inference_mode():
-            out = self.model(x, ei, padded.num_nodes, dis, plan=plan)
+        with _stage(stages, "copy", "serve.copy"):
+            x = torch.from_numpy(padded.x).to(dev, dtype)
+            ei = torch.from_numpy(padded.edge_index).to(dev)
+            dis = torch.from_numpy(padded.deg_inv_sqrt).to(dev, dtype)
+        with _stage(stages, "stamp", "serve.stamp"):
+            plan = entry.stamp(ei[1])   # on the device, from the copied dst
+        t0 = time.perf_counter()
+        out = self._execute(entry, cause, lambda: self._forward(
+            x, ei, padded.num_nodes, dis, plan))
         if stages is not None:
-            stages.update(copy=t1 - t0, stamp=t2 - t1,
-                          forward=time.perf_counter() - t2)
+            stages["forward"] = time.perf_counter() - t0
         return out
+
+    def _forward(self, x, ei, num_nodes: int, dis, plan):
+        with torch.inference_mode():
+            return self.model(x, ei, num_nodes, dis, plan=plan)
 
     def run_until_drained(self, max_steps: int = 100_000
                           ) -> Dict[int, ServedResult]:
@@ -206,11 +276,61 @@ class GNNServer:
             steps += 1
         return self.results
 
+    # -- sampled (out-of-core) ingest -----------------------------------------
+    def sampled_pipeline(self, sampler, *, depth: int = 2,
+                         num_threads: Optional[int] = None):
+        """An async prefetch pipeline whose batches are served by this
+        engine's cache lines: the producer shares ``self.cache`` and builds
+        entries as this engine does, on this engine's device (the
+        card unless the server was built on the CPU), so a batch's plan is
+        stamped under the entry :meth:`serve_sampled` runs — one entry per
+        bucket across the producer threads and the serving loop."""
+        from repro_torch.data.pipeline import (PrefetchPipeline,
+                                               SampledBatchProducer)
+        producer = SampledBatchProducer(
+            sampler, feat=self.feat, policy=self.policy, cache=self.cache,
+            entry_key=self._entry_key, entry_builder=self._build_entry,
+            device=self.device)
+        return PrefetchPipeline(producer, depth=depth,
+                                num_threads=num_threads)
+
+    def serve_sampled(self, batch) -> np.ndarray:
+        """Serve one :class:`~repro_torch.data.pipeline.SampledBatch`: the
+        seed rows' logits, (num_seeds, C). A batch from
+        :meth:`sampled_pipeline` runs with its stamped plan as it is; a
+        batch stamped against another cache's entry is re-stamped under
+        this engine's (the ``serve.stamp`` span carries ``restamp=True``),
+        not rebuilt."""
+        if batch.arrays["x"].device != self.device:
+            raise ValueError(f"the batch lies on {batch.arrays['x'].device}, "
+                             f"the server on {self.device}")
+        batch.ready()
+        with span("serve.step", engine=self._labels["engine"],
+                  bucket=str(batch.bucket), sampled=True):
+            t0 = time.perf_counter()
+            with span("serve.plan_cache", bucket=str(batch.bucket)):
+                entry = self._entry(batch.bucket)
+            plan = batch.plan
+            if batch.entry is not entry:
+                with span("serve.stamp", restamp=True):
+                    plan = entry.stamp(batch.arrays["edge_index"][1])
+            dtype = next(self.model.parameters()).dtype
+            a = batch.arrays
+            logits, _ = self._execute(
+                entry, "sampled_ingest", lambda: self._forward(
+                    a["x"].to(dtype), a["edge_index"], batch.bucket.num_nodes,
+                    a["deg_inv_sqrt"].to(dtype), plan))
+            with span("serve.fetch"):
+                logits = logits[:batch.num_seeds].float().cpu().numpy()
+            self._m_batches.inc(**self._labels)
+            self._m_serve_s.inc(time.perf_counter() - t0, **self._labels)
+            return logits
+
     # -- warmup ---------------------------------------------------------------
     def warmup(self, buckets: Sequence[ShapeBucket]) -> int:
         """Build cache lines ahead of traffic and run each new one once on
         an all-padding member of its bucket (kernels built and loaded,
-        allocator warm). Returns the number of entries built; prefills do
+        allocator warm). Returns the number of entries run; prefills do
         not count as cache misses."""
         buckets = list(buckets)
         if len(buckets) > self.cache.capacity:
@@ -220,48 +340,56 @@ class GNNServer:
                 "prefills immediately; raise cache_capacity")
         built = 0
         for bucket in buckets:
-            entry, new = self._get_entry(bucket, warm=True)
-            if not new:
+            entry = self._entry(bucket, warm=True)
+            if entry.executed:
                 continue
             g = synth_graph(f"warmup-{bucket}", min(2, bucket.num_nodes), 0,
                             feat=self.model.dims[0])
             padded, _ = pad_to_bucket(g, bucket=bucket)
-            self._run(entry, padded).cpu()
+            self._run(entry, padded, None, "warmup")[0].cpu()
             built += 1
-        self.builds += built
         return built
 
     # -- stats ----------------------------------------------------------------
+    @property
+    def builds(self) -> int:
+        """Bucket entries run for the first time (warmup + serving)."""
+        return int(self._m_builds.value(**self._labels))
+
     def stats(self) -> Dict:
-        """The serving-window summary. Well-defined on a cold engine: every
-        count is 0, throughput / latencies 0.0, pad overheads 1.0."""
-        lat = self._latency
+        """The serving-window summary, read off the registry. Well-defined
+        on a cold engine: every count is 0, throughput / latencies 0.0, pad
+        overheads 1.0 (no padding observed == no waste)."""
+        lab = self._labels
+        requests = int(self._m_requests.value(**lab))
+        batches = int(self._m_batches.value(**lab))
+        serve_s = self._m_serve_s.value(**lab)
+        n_lat = self._m_latency.count(**lab)
+        n_pad = self._m_pad_nodes.count(**lab)
         return {
-            "requests": self.requests,
-            "batches": self.batches,
-            "mean_batch_size": (self.requests / self.batches
-                                if self.batches else 0.0),
+            "requests": requests,
+            "batches": batches,
+            "mean_batch_size": requests / batches if batches else 0.0,
             "builds": self.builds,
             "buckets": len(self.cache),
             "cache": self.cache.stats.as_dict(),
-            "throughput_rps": (self.requests / self.serve_s
-                               if self.serve_s else 0.0),
-            "latency_mean_s": float(np.mean(lat)) if lat else 0.0,
-            "latency_p95_s": (float(np.percentile(lat, 95, method="higher"))
-                              if lat else 0.0),
-            "pad_node_overhead": (float(np.mean(self._pad_nodes))
-                                  if self._pad_nodes else 1.0),
-            "pad_edge_overhead": (float(np.mean(self._pad_edges))
-                                  if self._pad_edges else 1.0),
+            "throughput_rps": requests / serve_s if serve_s else 0.0,
+            "latency_mean_s": (self._m_latency.mean(**lab) if n_lat
+                               else 0.0),
+            "latency_p95_s": (self._m_latency.percentile(95, **lab)
+                              if n_lat else 0.0),
+            "pad_node_overhead": (self._m_pad_nodes.mean(**lab) if n_pad
+                                  else 1.0),
+            "pad_edge_overhead": (self._m_pad_edges.mean(**lab) if n_pad
+                                  else 1.0),
         }
 
     def reset(self) -> None:
-        """Zero the serving-window accounting and the delivered results;
-        cache lines are kept."""
-        self.requests = self.batches = self.builds = 0
-        self.serve_s = 0.0
-        self._latency: List[float] = []
-        self._queue: List[float] = []
-        self._pad_nodes: List[float] = []
-        self._pad_edges: List[float] = []
+        """Zero this engine's serving-window accounting (counters,
+        latency/padding histograms, delivered results). Cache lines are
+        kept — ``reset()`` starts a fresh measurement window, not a fresh
+        engine — so ``stats()`` right after is the cold-engine shape."""
+        for m in self._metrics:
+            m.reset(**self._labels)
+            m.touch(**self._labels)
         self.results.clear()

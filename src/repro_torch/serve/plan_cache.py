@@ -15,8 +15,11 @@ padded destinations) under the template — no plan or config work on a
 cache hit. There is no compiled program to keep: PyTorch runs eagerly,
 so an entry is "built" once per bucket and then reused.
 
-The cache is a capacity-bounded, thread-safe LRU; ``warm`` prefills
-entries ahead of traffic without counting a miss.
+The cache is a capacity-bounded, thread-safe LRU (the prefetch pipeline's
+producer threads share it with the consumer); ``warm`` prefills entries
+ahead of traffic without counting a miss. Its counters live in the
+:mod:`repro_torch.obs` registry, and each miss and eviction records an
+attribution event.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from typing import Callable, Dict, Hashable, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.config_space import KernelConfig
 from repro_torch.core.plan import SegmentPlan, SegmentStats
 from repro_torch.kernels.gather_segment_reduce import row_offsets
@@ -60,10 +64,13 @@ def _canonical_stats(bucket: ShapeBucket) -> SegmentStats:
 
 
 class BucketEntry:
-    """One cache line: the bucket's canonical plan template."""
+    """One cache line: the bucket's canonical plan template. ``executed``
+    turns true at the entry's first run (the engine counts that run as
+    the bucket's build)."""
 
     def __init__(self, bucket: ShapeBucket, feat: int, config: KernelConfig):
         self.bucket = bucket
+        self.executed = False
         self.feat = int(feat)
         self.config = config
         self.max_chunks = bucket_max_chunks(bucket, config)
@@ -102,15 +109,28 @@ class BucketEntry:
         return self._stamp_plan(dst, self.template)
 
 
-@dataclasses.dataclass
 class CacheStats:
-    """Hit/miss/eviction and build-time accounting of one cache."""
-    hits: int = 0
-    misses: int = 0
-    evictions: int = 0
-    prefills: int = 0
-    plan_builds: int = 0
-    plan_build_s: float = 0.0
+    """Hit/miss/eviction and build-time accounting of one cache — a view
+    over labeled instruments in the :mod:`repro_torch.obs` registry. Each
+    stats object carries a process-unique ``cache`` label, so every
+    PlanCache's counters export side by side in one dump; the instruments
+    are vital (they count with observability disabled). Attribute reads
+    and writes (``stats.hits += 1``) go straight through to the registry
+    series."""
+
+    _INT_FIELDS = ("hits", "misses", "evictions", "prefills", "plan_builds")
+    _FLOAT_FIELDS = ("plan_build_s",)
+
+    def __init__(self, cache_id: Optional[str] = None):
+        reg = obs.get_registry()
+        self.cache_id = cache_id or obs.next_id("cache")
+        self._labels = {"cache": self.cache_id}
+        self._metrics = {
+            f: reg.counter(f"serve.plan_cache.{f}", labels=("cache",),
+                           vital=True)
+            for f in self._INT_FIELDS + self._FLOAT_FIELDS}
+        for m in self._metrics.values():
+            m.touch(**self._labels)
 
     @property
     def lookups(self) -> int:
@@ -121,9 +141,28 @@ class CacheStats:
         return self.hits / self.lookups if self.lookups else 0.0
 
     def as_dict(self) -> Dict:
-        d = dataclasses.asdict(self)
+        d = {f: getattr(self, f)
+             for f in self._INT_FIELDS + self._FLOAT_FIELDS}
         d["hit_rate"] = round(self.hit_rate, 4)
         return d
+
+
+def _stats_field(field: str, as_int: bool):
+    def fget(self):
+        v = self._metrics[field].value(**self._labels)
+        return int(v) if as_int else v
+
+    def fset(self, v):
+        self._metrics[field].set(float(v), **self._labels)
+
+    return property(fget, fset)
+
+
+for _f in CacheStats._INT_FIELDS:
+    setattr(CacheStats, _f, _stats_field(_f, as_int=True))
+for _f in CacheStats._FLOAT_FIELDS:
+    setattr(CacheStats, _f, _stats_field(_f, as_int=False))
+del _f
 
 
 class PlanCache:
@@ -156,6 +195,8 @@ class PlanCache:
             entry = self._entries.get(key)
             if entry is None:
                 self.stats.misses += weight
+                obs.record_cache_event(self.stats.cache_id, "miss",
+                                       key=str(key), weight=weight)
                 return None
             self._entries.move_to_end(key)
             self.stats.hits += weight
@@ -166,8 +207,11 @@ class PlanCache:
             self._entries[key] = entry
             self._entries.move_to_end(key)
             while len(self._entries) > self.capacity:
-                self._entries.popitem(last=False)
+                old_key, _ = self._entries.popitem(last=False)
                 self.stats.evictions += 1
+                obs.record_cache_event(self.stats.cache_id, "eviction",
+                                       key=str(old_key),
+                                       capacity=self.capacity)
 
     def _build(self, key, builder) -> BucketEntry:
         t0 = time.perf_counter()

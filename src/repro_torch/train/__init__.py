@@ -7,10 +7,12 @@
     task = train.NodeClassification.from_provider(data, model="gcn")
     result = train.fit(task, data, train.TrainerConfig(steps=50))
 
-Tasks and trainers run on the card unless the task is built with
-``device="cpu"``.
+Tasks, trainers and the sampled provider (``SampledNodeProvider``: a
+neighbour sampler behind the prefetch pipeline) run on the card unless
+built with ``device="cpu"``.
 """
-from repro_torch.train.providers import DatasetProvider, GraphEpochProvider
+from repro_torch.train.providers import (DatasetProvider, GraphEpochProvider,
+                                         SampledNodeProvider)
 from repro_torch.train.task import GraphStatic, NodeClassification, Task
 from repro_torch.train.trainer import (FitResult, Trainer, TrainerConfig,
                                        TrainState, fit)
@@ -18,6 +20,7 @@ from repro_torch.train.trainer import (FitResult, Trainer, TrainerConfig,
 __all__ = [
     "DatasetProvider",
     "GraphEpochProvider",
+    "SampledNodeProvider",
     "Task",
     "GraphStatic",
     "NodeClassification",

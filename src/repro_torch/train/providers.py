@@ -12,17 +12,20 @@ Graph providers keep their epoch of graphs as persistent objects, so the
 per-graph plan memo (:meth:`repro_torch.data.graphs.Graph.make_plan`)
 survives across steps: a shape's plan is built once.
 
-Not ported yet: the sampled mini-batch provider (ROADMAP Queue A item 4)
-and the token provider of the LM task (item 7).
+:class:`SampledNodeProvider` is the out-of-core provider: a neighbour
+sampler behind the prefetch pipeline. Not ported yet: the token provider
+of the LM task (ROADMAP Queue A item 7).
 """
 from __future__ import annotations
 
 from typing import Any, Protocol, runtime_checkable
 
-from repro_torch.data.graphs import (batch_graphs, synth_graph,
+from repro_torch.data.graphs import (Graph, batch_graphs, synth_graph,
                                      synth_typed_graph)
+from repro_torch.data.pipeline import PrefetchPipeline, SampledBatchProducer
+from repro_torch.data.sampling import InMemoryStore, NeighborSampler
 
-__all__ = ["DatasetProvider", "GraphEpochProvider"]
+__all__ = ["DatasetProvider", "GraphEpochProvider", "SampledNodeProvider"]
 
 
 @runtime_checkable
@@ -86,3 +89,64 @@ class GraphEpochProvider:
 
     def batch(self, step: int):
         return self._epoch[step % len(self._epoch)]
+
+
+class SampledNodeProvider:
+    """Out-of-core node-classification batches: a
+    :class:`~repro_torch.data.sampling.NeighborSampler` behind the provider
+    protocol, with the prefetch pipeline
+    (:class:`~repro_torch.data.pipeline.PrefetchPipeline`) doing the host
+    work off the critical path, as the reference's.
+
+    ``batch(step)`` returns a
+    :class:`~repro_torch.data.pipeline.SampledBatch` on ``device`` (the
+    card unless ``device="cpu"``; raising without one);
+    :class:`~repro_torch.train.task.NodeClassification` trains on its seed
+    rows only (``label_mask``). A batch is a pure function of
+    ``(seed, step)`` (prefetch threads change timing, never content), so
+    checkpoint replay stays exact.
+
+    ``num_classes`` comes from the store's metadata; ``feat`` is the
+    *input* feature width. Pass ``plan_feat`` (the model's widest layer —
+    ``NodeClassification.plan_feat``). Call :meth:`close` (or use as a
+    context manager) when done — the pipeline owns live threads."""
+
+    def __init__(self, store_or_graph, *, fanouts=(8, 4), batch_size=64,
+                 seed_nodes=None, exact=False, seed=0, plan_feat=128,
+                 policy=None, cache=None, depth=2, num_threads=None,
+                 device=None):
+        if isinstance(store_or_graph, Graph):
+            store_or_graph = InMemoryStore(store_or_graph)
+        self.store = store_or_graph
+        self.sampler = NeighborSampler(
+            store_or_graph, fanouts, batch_size=batch_size,
+            seed_nodes=seed_nodes, exact=exact, seed=seed)
+        self.producer = SampledBatchProducer(
+            self.sampler, feat=plan_feat, policy=policy, cache=cache,
+            device=device)
+        self.pipeline = PrefetchPipeline(self.producer, depth=depth,
+                                         num_threads=num_threads)
+        self.feat = int(self.store.feat)
+        self.num_classes = int(self.store.num_classes)
+        self.num_relations = 0
+        self.typed = False
+
+    def __len__(self) -> int:
+        return len(self.sampler)
+
+    def batch(self, step: int):
+        return self.pipeline.batch(step)
+
+    def stats(self) -> dict:
+        d = self.pipeline.stats()
+        d["cache"] = self.producer.cache.stats.as_dict()
+        return d
+
+    def close(self) -> None:
+        self.pipeline.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -12,8 +12,11 @@ task has three methods:
 :class:`NodeClassification` trains a :mod:`repro_torch.models.gnn` family
 on full graphs on one device: the parameters are a dict named as the
 model's ``named_parameters()``, and the loss runs the model with them
-through ``torch.func.functional_call``. Not ported yet: sampled
-mini-batches (ROADMAP Queue A item 4), sharded training (item 6) and the
+through ``torch.func.functional_call``. It also trains on sampled
+mini-batches (:class:`~repro_torch.data.pipeline.SampledBatch`, from a
+:class:`~repro_torch.train.providers.SampledNodeProvider`): they arrive on
+the device with their plan stamped, and the loss reads only their seed
+rows. Not ported yet: sharded training (ROADMAP Queue A item 6) and the
 LM task (item 7).
 """
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.data.graphs import Graph, TypedGraph
+from repro_torch.data.pipeline import SampledBatch
 from repro_torch.models import gnn
 
 __all__ = ["Task", "GraphStatic", "NodeClassification"]
@@ -46,11 +50,15 @@ class Task(Protocol):
 
 
 class GraphStatic(NamedTuple):
-    """Hashable shape bucket of a full-graph batch on one device."""
+    """Hashable shape bucket of a batch on one device. ``sampled`` marks
+    mini-batches from the out-of-core pipeline: their arrays carry a
+    ``label_mask`` the loss must honour, so they are another bucket than a
+    full graph of the same shape."""
     model: str
     num_nodes: int
     num_edges: int
     typed: bool
+    sampled: bool = False
 
 
 @dataclasses.dataclass
@@ -121,10 +129,11 @@ class NodeClassification:
         if mesh is not None:
             raise NotImplementedError(
                 "sharded training is not ported yet (ROADMAP Queue A item 6)")
+        if isinstance(batch, SampledBatch):
+            return self._prepare_sampled(batch, plan=plan)
         if not isinstance(batch, Graph):
-            raise NotImplementedError(
-                f"batches of type {type(batch).__name__}: only full graphs "
-                "train so far (sampled mini-batches: ROADMAP Queue A item 4)")
+            raise TypeError(f"batches of type {type(batch).__name__}: a "
+                            "task trains on a Graph or a SampledBatch")
         g = batch
         typed = isinstance(g, TypedGraph)
         if typed != (self.model in gnn.TYPED_MODELS):
@@ -155,10 +164,36 @@ class NodeClassification:
                  inv_type_perm=arrays.get("inv_type_perm"),
                  type_counts=arrays.get("type_counts"),
                  rplan=arrays.get("rplan")))
-        labels = arrays["labels"]
+        labels, mask = arrays["labels"], arrays.get("label_mask")
         correct = (logits.argmax(-1) == labels).float()
-        return gnn.cross_entropy(logits, labels), {
-            "accuracy": correct.mean().detach()}
+        if mask is None:
+            accuracy = correct.mean()
+        else:
+            # a sampled mini-batch: only the seed rows carry whole (exact or
+            # fanout-complete) neighbourhoods, so only they are supervised
+            accuracy = (mask * correct).sum() / mask.sum().clamp_min(1.0)
+        return gnn.cross_entropy(logits, labels, mask), {
+            "accuracy": accuracy.detach()}
+
+    def _prepare_sampled(self, batch, *, plan=None):
+        """A sampled mini-batch arrives on the device with its plan
+        stamped under its bucket's cache entry (the producer did the
+        per-shape work once, in the shared
+        :class:`~repro_torch.serve.plan_cache.PlanCache`). Nothing is
+        memoized: every batch is a fresh object."""
+        if self.model in gnn.TYPED_MODELS:
+            raise ValueError(
+                f"model {self.model!r} is relational; the neighbour sampler "
+                "emits homogeneous subgraphs")
+        if batch.arrays["x"].device != self.device:
+            raise ValueError(f"the batch lies on {batch.arrays['x'].device}, "
+                             f"the task on {self.device}")
+        batch.ready()
+        static = GraphStatic(self.model, batch.bucket.num_nodes,
+                             batch.bucket.num_edges, False, sampled=True)
+        arrays = dict(batch.arrays)
+        arrays["plan"] = plan if plan is not None else batch.plan
+        return arrays, static
 
     # -- memoized per-graph state -------------------------------------------
 

@@ -6,9 +6,14 @@ reference's (``repro/train/trainer.py``).
 
 A step is eager: the task's loss (forward), ``torch.autograd.grad``
 (backward through the ops' kernels), ``adamw.update``. The trainer counts
-steps and the distinct shape buckets it has seen with plain counters
-(the metrics registry of ``obs/`` waits for ROADMAP Queue A item 3;
-capturing a step as a CUDA graph comes later).
+steps and the distinct shape buckets it has seen in the
+:mod:`repro_torch.obs` registry (``train.steps``, ``train.buckets``;
+vital), and each step opens the span tree ``train.step`` ⊃
+``train.sample``, ``train.prepare``, ``train.execute`` (host time: the
+step's device work may finish after its spans close). The first step on
+a new ``GraphStatic`` is the bucket's build: its ``train.execute`` span
+carries ``new_bucket=True`` and :func:`repro_torch.obs.record_build`
+attributes it (capturing a step as a CUDA graph comes later).
 
 :class:`TrainState` (params + optimizer state + step + the state of a
 ``torch.Generator``) is the unit of checkpointing. ``fit(resume=True)``
@@ -24,9 +29,11 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.distributed.fault_tolerance import (ResilientLoop,
                                                      ResilientLoopConfig)
+from repro_torch.obs import span
 from repro_torch.optim import adamw, schedule
 
 __all__ = ["TrainState", "TrainerConfig", "FitResult", "Trainer", "fit"]
@@ -97,9 +104,20 @@ class Trainer:
         self.cfg = cfg if cfg is not None else TrainerConfig()
         self.plan = plan
         self.config = config
-        self.steps = 0                  # steps run by this trainer
         self._buckets: dict = {}        # shape buckets seen, in order
         self._lr_scale = schedule.get(self.cfg.lr_schedule)
+        reg = obs.get_registry()
+        self._labels = {"trainer": obs.next_id("trainer")}
+        self._m_steps = reg.counter("train.steps", ("trainer",), vital=True)
+        self._m_buckets = reg.counter("train.buckets", ("trainer",),
+                                      vital=True)
+        self._m_steps.touch(**self._labels)
+        self._m_buckets.touch(**self._labels)
+
+    @property
+    def steps(self) -> int:
+        """Steps run by this trainer."""
+        return int(self._m_steps.value(**self._labels))
 
     @property
     def buckets(self) -> tuple:
@@ -117,20 +135,35 @@ class Trainer:
         and the step's metrics (loss and accuracy as 0-d tensors, the
         gradient norm, the learning rate)."""
         cfg = self.cfg
-        arrays, static = self.task.prepare(self.data.batch(step),
-                                           plan=self.plan, config=self.config)
-        self._buckets.setdefault(static, None)
-        params = state.params
-        loss, metrics = self.task.loss(params, arrays, static,
-                                       _step_generator(state.rng, state.step))
-        grads = torch.autograd.grad(loss, list(params.values()),
-                                    allow_unused=True)
-        grads = {k: torch.zeros_like(p) if g is None else g
-                 for (k, p), g in zip(params.items(), grads)}
-        lr_scale = self._lr_scale(state.step, cfg.warmup_steps, cfg.steps)
-        new_p, new_o, om = adamw.update(grads, state.opt_state, params,
-                                        cfg.opt, lr_scale)
-        self.steps += 1
+        with span("train.step", trainer=self._labels["trainer"],
+                  step=int(step)) as root:
+            with span("train.sample", step=int(step)):
+                batch = self.data.batch(step)
+            with span("train.prepare"):
+                arrays, static = self.task.prepare(batch, plan=self.plan,
+                                                   config=self.config)
+            root.set(static=repr(static))
+            new = static not in self._buckets
+            if new:
+                self._buckets[static] = None
+                self._m_buckets.inc(**self._labels)
+                obs.record_build("train.step", "new_bucket",
+                                 trainer=self._labels["trainer"],
+                                 static=repr(static))
+            with span("train.execute", static=repr(static), new_bucket=new):
+                params = state.params
+                loss, metrics = self.task.loss(
+                    params, arrays, static,
+                    _step_generator(state.rng, state.step))
+                grads = torch.autograd.grad(loss, list(params.values()),
+                                            allow_unused=True)
+                grads = {k: torch.zeros_like(p) if g is None else g
+                         for (k, p), g in zip(params.items(), grads)}
+                lr_scale = self._lr_scale(state.step, cfg.warmup_steps,
+                                          cfg.steps)
+                new_p, new_o, om = adamw.update(grads, state.opt_state,
+                                                params, cfg.opt, lr_scale)
+            self._m_steps.inc(**self._labels)
         return (TrainState(new_p, new_o, state.step + 1, state.rng),
                 dict(metrics, loss=loss.detach(), **om))
 

@@ -596,7 +596,10 @@ def test_cpu_default_is_plain_and_counts_no_launch():
 def test_import_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import repro_torch, repro_torch.serve, repro_torch.models.params, "
-            "repro_torch.kernels.ops, repro_torch.hetero_inference; "
+            "repro_torch.kernels.ops, repro_torch.hetero_inference, "
+            "repro_torch.obs, repro_torch.obs.export, "
+            "repro_torch.data.sampling, repro_torch.data.pipeline, "
+            "repro_torch.train.providers; "
             "assert not any(m == 'repro' or m.startswith(('repro.', 'jax')) "
             "for m in sys.modules if sys.modules[m] is not None); print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -278,7 +278,7 @@ def _pair(family, steps=5, ckpt_dir=None, ckpt_every=3):
 def test_fit_trajectory_matches_reference(family):
     jt, tt = _pair(family)
     jstate = jt.init_state()
-    state = from_jax_state(family, jstate)
+    state = from_jax_state(family, jstate, device="cpu")
     # step-0 gradients, from the same state on the same batch
     arrays, static = jt.task.prepare(jt.data.batch(0))
     jgrads = jax.grad(lambda p: jt.task.loss(p, arrays, static, None)[0])(
@@ -287,7 +287,8 @@ def test_fit_trajectory_matches_reference(family):
     loss, _ = tt.task.loss(state.params, tarrays, tstatic)
     tgrads = dict(zip(state.params, torch.autograd.grad(
         loss, list(state.params.values()))))
-    jflat = from_jax_state(family, jstate._replace(params=jgrads)).params
+    jflat = from_jax_state(family, jstate._replace(params=jgrads),
+                           device="cpu").params
     for k, g in tgrads.items():
         np.testing.assert_allclose(g.numpy(), jflat[k].detach().numpy(),
                                    rtol=1e-5, atol=1e-5, err_msg=k)
@@ -296,6 +297,19 @@ def test_fit_trajectory_matches_reference(family):
     assert len(got.losses) == 5
     np.testing.assert_allclose(got.losses, want.losses, rtol=1e-4)
     assert got.losses[-1] < got.losses[0]
+
+
+def test_from_jax_state_runs_on_the_card_by_default():
+    """Like every entry point, from_jax_state puts its tensors on the card
+    unless the caller asks for the CPU, and raises without a card."""
+    jt, _ = _pair("gcn")
+    jstate = jt.init_state()
+    state = from_jax_state("gcn", jstate, device="cpu")
+    assert all(p.device.type == "cpu" for p in state.params.values())
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        from_jax_state("gcn", jstate)
 
 
 def test_kill_and_resume_is_bitwise(tmp_path):
