@@ -8,7 +8,8 @@ Phases (any failure exits non-zero before the result line):
 
 1. Card and build: prints the card's name and power limit, builds the six
    CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc (one process
-   per source, all started together) and prints the build time. TF32 is
+   per library, all started together: the gather and segment_reduce one
+   a run length, the fused kernel one a tile) and prints the build time. TF32 is
    off for matmuls and cuDNN.
 2. Kernels against their plain PyTorch versions on the card, and the six
    kernels launched twice on the same inputs, which must give the same
@@ -153,6 +154,28 @@ Phases (any failure exits non-zero before the result line):
       tensors already live, and the warm step of the same run with the
       blocking loader (depth 0, its losses bitwise the same); a
       ``{"sampled": [...]}`` line lists them.
+   f. Config selection (after the paths, which run the generated rules'
+      picks with no ``tune=``; each path prints its configs). Sweeps the
+      built kernel instances with ``repro_torch.core.autotune.tune`` into a
+      PerfDB in a temporary directory (median of 20 CUDA-event timings a
+      candidate, every candidate held against its plain version at the
+      tolerances above): the gather at the arxiv bucket (F = 64 and 32),
+      the gather's mean at the AM typed messages' shape (F = 64),
+      segment_reduce on the arxiv destinations (F = 64), the fused kernel
+      32->64 at the arxiv bucket and at gcn's reddit2 request, and the
+      gather (F = 64) and the fused kernel (32->64) at the cora + citeseer
+      + pubmed bucket. Per sweep it prints each candidate's ms, the rules'
+      pick, the measured winner and the shipped values' ms; a second
+      ``tune`` of each must time nothing. Then ``python -m
+      repro_torch.core.train_rules --from-perfdb`` on the DB, whose rules
+      must load; gcn's arxiv request through ``GNNServer(tune=True)`` on
+      the DB, whose bucket must run the measured winners and whose logits
+      must equal ``impl="ref"``; and, for gcn's and sage's layers at the
+      arxiv bucket and gcn's first layer at reddit2's, the order
+      ``choose_order`` picks beside all three orders timed on the card.
+      Before the kernels line, the H100 cost model's ms beside the card's
+      at the six configurations of the kernels line; a ``{"selection":
+      ..., "cost_model": [...]}`` line lists them.
 4. A ``{"kernels": [...]}`` line: per kernel its launches on the main paths
    (and per path: serving, typed, ops, training, sampled), ``cuda_kernels_per_launch``, the port's CUDA kernels that
    one launch of its representative configuration runs, counted from the
@@ -848,6 +871,9 @@ def training_phase(torch, am):
             records.append(train_family(torch, family, data, task_kw,
                                         TRAIN_STEPS, ckpt_root))
             torch.cuda.empty_cache()
+        cfg = data.batch(0).make_plan(HIDDEN, device="cuda").config
+        print(f"  training plan config (generated rules): m_b={cfg.m_b} "
+              f"s_b={cfg.s_b}", flush=True)
         records.append(train_family(
             torch, "rgcn", _Fixed(am),
             dict(d_in=FEAT, hidden=HIDDEN, num_classes=CLASSES,
@@ -1060,8 +1086,7 @@ def sampled_phase(torch, graph, dev):
     def tensors(b):
         p, o = b.plan, b.plan.src_order
         return [b.arrays[k] for k in sorted(b.arrays)] + [
-            p.chunk_first, p.chunk_count, p.row_ptr, o.perm, o.src, o.dst,
-            o.row_ptr]
+            p.row_ptr, o.perm, o.src, o.dst, o.row_ptr]
 
     obs.reset()                 # the report covers this phase
     snap = obs.get_registry().snapshot()
@@ -1197,6 +1222,10 @@ def sampled_phase(torch, graph, dev):
                        "serve_ms": serve_ms, "max_abs_err": serve_err,
                        "builds": st["builds"], "cache_entries": len(srv.cache),
                        "foreign_restamped": True}
+            print("  sampled bucket configs (generated rules): "
+                  + ", ".join(f"{ent.bucket}: m_b={ent.config.m_b} "
+                              f"s_b={ent.config.s_b}"
+                              for _, ent in srv.cache.entries()), flush=True)
             print(f"  check 5: served {SAMPLED_STEPS} sampled gcn batches "
                   f"(median {serving['serve_ms_median']:.3f} ms, "
                   f"max_abs_err {serve_err:.3g}); builds {st['builds']} == "
@@ -1225,6 +1254,209 @@ def sampled_phase(torch, graph, dev):
           f"holds {', '.join(SERVE_STAGES)}", flush=True)
     print(obs.report(), flush=True)
     return records, serving, exact_err
+
+
+# phase 3f: timings a candidate of a sweep takes (median of CUDA events)
+SELECTION_REPS = 20
+
+
+def selection_phase(torch, dev, graphs, am):
+    """Phase 3f: config selection. Sweeps the built instances with
+    ``autotune.tune`` into a PerfDB in a temporary directory (every
+    candidate held against its plain version inside ``tune``), replays
+    each sweep from the DB with no timing, distills rules from the DB with
+    ``train_rules --from-perfdb`` and loads them, serves the arxiv gcn
+    request through ``GNNServer(tune=True)`` on that DB, and times the
+    three transform orders beside ``choose_order``'s pick. With
+    ``REPRO_PERFDB_PATH`` set the sweeps go there (forced fresh) and stay,
+    to train rules from later. Returns the phase's record."""
+    import importlib.util
+
+    from repro_torch.core import autotune
+    from repro_torch.core import mp as tmp
+    from repro_torch.core.config_space import default_config
+    from repro_torch.core.features import InputFeatures
+    from repro_torch.core.heuristics import select_config
+    from repro_torch.data.graphs import batch_graphs
+    from repro_torch.models import gnn
+    from repro_torch.serve import GNNServer, pad_to_bucket
+    from repro_torch.serve.plan_cache import BucketEntry
+
+    kept = os.environ.get("REPRO_PERFDB_PATH")
+    db_dir = kept or tempfile.mkdtemp(prefix="chip_smoke_perfdb_")
+    db = autotune.PerfDB(db_dir)
+    arxiv, r2 = graphs["ogbn-arxiv"], graphs["reddit2"]
+    a_pad, ab = pad_to_bucket(arxiv)
+    r_pad, rb = pad_to_bucket(r2)
+    _, mb = pad_to_bucket(batch_graphs([graphs[n] for n in
+                                        ("cora", "citeseer", "pubmed")]))
+    micro = "cora+citeseer+pubmed bucket"
+    sweeps = [
+        ("gather_segment_reduce", "arxiv bucket", ab.num_edges,
+         ab.num_nodes, HIDDEN, None),
+        ("gather_segment_reduce", "arxiv bucket", ab.num_edges,
+         ab.num_nodes, FEAT, None),
+        ("gather_segment_reduce_mean", "AM typed messages", am.num_edges,
+         am.num_nodes, HIDDEN, None),
+        ("segment_reduce", "arxiv destinations", arxiv.num_edges,
+         arxiv.num_nodes, HIDDEN, None),
+        ("fused_transform_reduce", "arxiv bucket", ab.num_edges,
+         ab.num_nodes, FEAT, HIDDEN),
+        ("fused_transform_reduce", "gcn's reddit2 request", rb.num_edges,
+         rb.num_nodes, FEAT, HIDDEN),
+        ("gather_segment_reduce", micro, mb.num_edges, mb.num_nodes, HIDDEN,
+         None),
+        ("fused_transform_reduce", micro, mb.num_edges, mb.num_nodes, FEAT,
+         HIDDEN),
+    ]
+    records = []
+    try:
+        for op, label, m, s_, f, d_out in sweeps:
+            t0 = time.perf_counter()
+            kw = dict(idx_size=m, num_segments=s_, feat=f, db=db, d_out=d_out)
+            res = autotune.tune(op, reps=SELECTION_REPS, warmup=3,
+                                force=bool(kept), **kw)
+            if res.timings_performed == 0 or res.cache_hit:
+                fail(f"selection: the first sweep of {op} {label} hit the "
+                     "PerfDB")
+            again = autotune.tune(op, **kw)
+            if again.timings_performed != 0 or again.config != res.config:
+                fail(f"selection: replaying {op} {label} timed "
+                     f"{again.timings_performed} candidates")
+            rule = select_config(m, s_, f, op=op, tune=False)
+            shipped = default_config(f)
+            t_rule, t_ship = res.time_of(rule), res.time_of(shipped)
+            if t_rule is None or t_ship is None:
+                fail(f"selection: {op} {label} did not time the rules' pick "
+                     "and the shipped values")
+            ms = {"=".join(map(str, k)): u / 1e3 for k, u in
+                  res.timings.items()}
+            proj = lambda c: "=".join(  # noqa: E731
+                map(str, autotune.config_projection(op, c)))
+            rec = {"op": op, "shape": label, "idx_size": m,
+                   "num_segments": s_, "feat": f, "d_out": d_out,
+                   "candidates_ms": ms, "rule_pick": proj(rule),
+                   "rule_ms": t_rule / 1e3, "winner": proj(res.config),
+                   "winner_ms": min(res.timings.values()) / 1e3,
+                   "shipped_ms": t_ship / 1e3,
+                   "rule_over_shipped": t_rule / t_ship}
+            records.append(rec)
+            width = f"F={f}" + ("" if d_out is None else f"->{d_out}")
+            print(f"  {op} at the {label} (E={m}, S={s_}, {width}): "
+                  + " ".join(f"{k} {v:.4f}" for k, v in ms.items())
+                  + f" ms; rules pick {rec['rule_pick']} "
+                  f"({rec['rule_ms']:.4f} ms), measured winner "
+                  f"{rec['winner']}, shipped {proj(shipped)} "
+                  f"{rec['shipped_ms']:.4f} ms, rules / shipped "
+                  f"{rec['rule_over_shipped']:.3f}; every candidate equal "
+                  f"to its plain version; the replay timed 0 "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        # rules distilled from the measured DB, loaded
+        out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_rules_"),
+                           "rules_measured.py")
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.core.train_rules",
+             "--from-perfdb", db_dir, "--out", out],
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+            capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            fail(f"selection: train_rules --from-perfdb failed:\n"
+                 f"{proc.stdout}{proc.stderr}")
+        spec = importlib.util.spec_from_file_location("rules_measured", out)
+        rules = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(rules)
+        picks = []
+        for op, label, m, s_, f, _ in sweeps:
+            c = rules.select(*InputFeatures(m, s_, f).as_vector())
+            picks.append(f"{label} F={f}: m_b={c.m_b} s_b={c.s_b}")
+        print(f"  rules from --from-perfdb ({len(db)} entries) load; they "
+              f"pick " + "; ".join(picks), flush=True)
+
+        # the tuned engine: its bucket runs the measured winners
+        model = gnn.init("gcn", FEAT, HIDDEN, CLASSES, seed=SEED)
+        srv = GNNServer(model, "gcn", max_batch_nodes=1 << 22, tune=True,
+                        perfdb=db)
+        srv.submit(arxiv)
+        (served,) = srv.step(flush=True)
+        (entry,) = [e for _, e in srv.cache.entries()
+                    if e.bucket == served.bucket]
+        kw = dict(idx_size=ab.num_edges, num_segments=ab.num_nodes,
+                  feat=srv.feat, db=db)
+        g_win = autotune.tune("gather_segment_reduce", **kw)
+        f_win = autotune.tune("fused_transform_reduce", **kw)
+        if not (g_win.cache_hit and f_win.cache_hit):
+            fail("selection: the tuned engine did not store its sweeps")
+        if (entry.config.m_b, entry.config.s_b) != (g_win.config.m_b,
+                                                    f_win.config.s_b):
+            fail(f"selection: the tuned bucket runs {entry.config}, not the "
+                 f"measured winners m_b={g_win.config.m_b} "
+                 f"s_b={f_win.config.s_b}")
+        with torch.inference_mode():
+            want = srv.model(torch.from_numpy(arxiv.x).to(dev),
+                             torch.from_numpy(arxiv.edge_index).to(dev),
+                             arxiv.num_nodes,
+                             torch.from_numpy(arxiv.deg_inv_sqrt).to(dev),
+                             impl="ref").float().cpu()
+        served_err = compare(torch, "tuned engine's arxiv gcn logits",
+                             torch.from_numpy(served.logits), want,
+                             torch.float32)
+        print(f"  GNNServer(tune=True): bucket {served.bucket} runs the "
+              f"measured winners m_b={entry.config.m_b} "
+              f"s_b={entry.config.s_b}; logits equal impl='ref' "
+              f"(max_abs_err={served_err:.3g})", flush=True)
+        del srv, model
+
+        # choose_order's pick beside the three orders timed on the card
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        orders = []
+        for gname, pad, bkt in (("ogbn-arxiv", a_pad, ab),
+                                ("reddit2", r_pad, rb)):
+            ei = torch.from_numpy(pad.edge_index).to(dev)
+            cfg = BucketEntry(bkt, HIDDEN, select_config(
+                max(bkt.num_edges, 1), max(min(bkt.num_edges, bkt.num_nodes),
+                                           1), HIDDEN, tune=False)).config
+            plan = BucketEntry(bkt, HIDDEN, cfg).stamp(ei[1])
+            ew = torch.rand(bkt.num_edges, generator=gen, device=dev)
+            layers = ([("gcn", "sum", d) for d in ((FEAT, HIDDEN),
+                                                    (HIDDEN, HIDDEN),
+                                                    (HIDDEN, CLASSES))]
+                      + [("sage", "mean", d) for d in ((FEAT, HIDDEN),
+                                                       (HIDDEN, HIDDEN),
+                                                       (HIDDEN, CLASSES))]
+                      if gname == "ogbn-arxiv"
+                      else [("gcn", "sum", (FEAT, HIDDEN))])
+            for family, reduce, (d_in, d_out) in layers:
+                x = torch.randn(bkt.num_nodes, d_in, generator=gen,
+                                device=dev)
+                w = torch.randn(d_in, d_out, generator=gen,
+                                device=dev) / d_in ** 0.5
+                wt = ew if reduce == "sum" else None
+                pick = tmp.choose_order(d_in, d_out, plan=plan,
+                                        allow_fused=True)
+                times = {o: time_ms(torch, lambda o=o: tmp.mp_transform(
+                    x, w, ei, bkt.num_nodes, reduce=reduce, edge_weight=wt,
+                    plan=plan, order=o))
+                    for o in ("transform_first", "aggregate_first", "fused")}
+                fastest = min(times, key=times.get)
+                orders.append({"graph": gname, "family": family,
+                               "layer": f"{d_in}->{d_out}", "pick": pick,
+                               "ms": times, "fastest": fastest,
+                               "pick_over_fastest":
+                                   times[pick] / times[fastest]})
+                print(f"  choose_order {family} {d_in}->{d_out} at {bkt}: "
+                      f"picks {pick}; on the card "
+                      + " ".join(f"{o} {t:.4f}" for o, t in times.items())
+                      + f" ms; fastest {fastest}"
+                      + ("" if pick == fastest else
+                         f" ({times[pick] / times[fastest]:.3f}x)"),
+                      flush=True)
+            del ei, plan, ew, x, w
+    finally:
+        if not kept:
+            shutil.rmtree(db_dir, ignore_errors=True)
+    return {"sweeps": records, "orders": orders,
+            "tuned_engine_max_abs_err": served_err}
 
 
 def main() -> None:
@@ -1257,10 +1489,11 @@ def main() -> None:
           f"devices {torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
     _build.build()
-    for name in _build.KERNELS:
-        _build.load(name)
+    for name, instance in _build.units():
+        _build.load(name, instance)
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(_build.KERNELS)} "
-          f"kernels (sm_90a)", flush=True)
+          f"kernels in {len(_build.units())} libraries (sm_90a; the run "
+          f"lengths and tiles one a value)", flush=True)
 
     # -- 2. kernels against their plain versions ------------------------------
     t_phase = time.perf_counter()
@@ -1551,7 +1784,7 @@ def main() -> None:
                        torch.full((37,), s_odd, device=dev)]).int()
     s_src = torch.randint(0, s_odd, (d_odd.numel(),), generator=gen,
                           device=dev).int()
-    odd_cfg = KernelConfig("SR", 32, 64, 16, 1)
+    odd_cfg = KernelConfig("SR", 32, 64, 64, 1)
     odd_plan = make_plan(d_odd, s_odd, config=odd_cfg).to(dev)
     hx = torch.randn(s_odd, HIDDEN, generator=gen, device=dev)
     w_odd = torch.rand(d_odd.numel(), generator=gen, device=dev)
@@ -1954,6 +2187,10 @@ def main() -> None:
         after = kops.launch_counts()
         launched = {k: after[k] - before[k] for k in after}
         print(f"  {family} launches: {launched}", flush=True)
+        print(f"  {family} bucket configs (generated rules): "
+              + ", ".join(f"{ent.bucket}: m_b={ent.config.m_b} "
+                          f"s_b={ent.config.s_b}"
+                          for _, ent in srv.cache.entries()), flush=True)
         for k in path_kernels[family]:
             if launched[k] == 0:
                 fail(f"{family}: kernel {k} of its path was never launched")
@@ -1970,6 +2207,9 @@ def main() -> None:
                     type_perm=torch.from_numpy(am.type_perm).to(dev),
                     inv_type_perm=am_inv, type_counts=sizes)
     am_rplan = am.make_relation_plan(feat=RGAT_HEADS * HIDDEN, device=dev)
+    print(f"  typed plan config (generated rules): m_b={am_plan.config.m_b} "
+          f"s_b={am_plan.config.s_b}; relation plan m_b="
+          f"{am_rplan.config.m_b}", flush=True)
     typed = []
     kops.reset_launch_counts()
     for family in gnn.TYPED_MODELS:
@@ -2091,6 +2331,12 @@ def main() -> None:
                       "exact_max_abs_err": exact_err}))
     del arxiv
 
+    # -- 3f. config selection: sweeps, measured rules, the tuned engine -------
+    t_phase = time.perf_counter()
+    selection = selection_phase(torch, dev, graphs, am)
+    print(f"config selection passed ({time.perf_counter() - t_phase:.1f} s)",
+          flush=True)
+
     # -- 4. the kernels line ----------------------------------------------------
     print(f"bounds over {e_real} real edges, {h_rows} distinct source rows, "
           f"{v} output rows (gather, softmax, fused):", flush=True)
@@ -2119,6 +2365,40 @@ def main() -> None:
                     a_e * HIDDEN)
     d_bound = bound(a_e * 8 + sd_rows * HIDDEN * 4 + a_e * 4,
                     2 * a_e * HIDDEN)
+
+    # the H100 cost model beside the card at the kernel table's
+    # configurations (the shipped values)
+    from repro_torch.core import costmodel as cm
+    cfg0 = default_config(HIDDEN)
+    model_vs_card = []
+    for name, model_s, key in (
+            ("gather_segment_reduce",
+             cm.spmm_cost(e_real, v, HIDDEN, cfg0).total_s,
+             (HIDDEN, torch.float32, "sum", True)),
+            ("segment_softmax",
+             cm.segment_softmax_cost(e_real, v, heads).total_s,
+             ("softmax", torch.float32)),
+            ("fused_transform_reduce",
+             cm.fused_transform_reduce_cost(e_real, v, FEAT, HIDDEN,
+                                            cfg0).total_s,
+             ("fused", FEAT, HIDDEN, torch.float32, "sum")),
+            ("segment_matmul",
+             cm.segment_matmul_cost(m_typed, HIDDEN, HIDDEN,
+                                    AM_RELATIONS).total_s,
+             ("smm", HIDDEN, HIDDEN, torch.float32)),
+            ("segment_reduce", cm.segment_reduce_cost(a_e, a_v, HIDDEN,
+                                                      cfg0).total_s,
+             ("srd", HIDDEN, torch.float32, "sum")),
+            ("sddmm", cm.sddmm_cost(a_e, sd_rows, HIDDEN).total_s,
+             ("sddmm", HIDDEN, torch.float32, "dst-sorted"))):
+        card_ms = results[key][1]
+        model_vs_card.append({"name": name, "model_ms": model_s * 1e3,
+                              "card_ms": card_ms,
+                              "card_over_model": card_ms / (model_s * 1e3)})
+        print(f"  cost model {name}: {model_s * 1e3:.4f} ms, card "
+              f"{card_ms:.4f} ms ({card_ms / (model_s * 1e3):.2f}x)",
+              flush=True)
+    print(json.dumps({"selection": selection, "cost_model": model_vs_card}))
 
     paths = {"serving": launches_serving, "typed": launches_typed,
              "ops": launches_ops, "training": launches_training,

@@ -6,7 +6,11 @@ classification, runs relation-typed RGCN / RGAT inference, trains every
 family (``fit``: AdamW, checkpoints, resume; every op's backward runs on
 the same kernels) on full graphs or on sampled mini-batches (a neighbour
 sampler and a prefetch pipeline feeding the card), reports through a
-metrics registry, spans and build attribution (``obs``), and offers the library's public segment ops. Six
+metrics registry, spans and build attribution (``obs``), and offers the
+library's public segment ops. Each plan's kernel config (the run length
+and tile the kernels read) is selected from the graph's O(1) features by
+generated decision-tree rules, or measured on the card (``tune=True``,
+kept in a PerfDB). Six
 hand-written CUDA kernels carry it: ``gather_segment_reduce`` (every
 aggregation), ``segment_softmax`` (attention), ``fused_transform_reduce``
 (SpMM + GEMM in one launch), ``segment_matmul`` (the per-relation
@@ -42,6 +46,7 @@ this package imports neither it nor JAX.
 """
 from repro_torch import obs
 from repro_torch.core.config_space import KernelConfig, default_config
+from repro_torch.core.heuristics import select_config, select_plan_config
 from repro_torch.core.mp import choose_order, mp, mp_transform, mp_typed
 from repro_torch.core.ops import (
     fused_transform_reduce,
@@ -89,7 +94,8 @@ __all__ = [
     "batch_graphs", "pad_graph",
     # plans + config
     "SegmentPlan", "RelationPlan", "make_plan", "make_graph_plan",
-    "make_relation_plan", "KernelConfig", "default_config",
+    "make_relation_plan", "KernelConfig", "default_config", "select_config",
+    "select_plan_config",
     # ops + message passing
     "segment_reduce", "gather", "sddmm", "grouped_segment_matmul",
     "segment_matmul", "index_segment_reduce", "index_weight_segment_reduce",

@@ -1,29 +1,44 @@
 """Tunable hierarchical tiling space (paper §III-A/B, Table I) on Hopper.
 
-The paper's GPU parameters, as the port's CUDA kernels read them:
+What a :class:`KernelConfig` means to the port's CUDA kernels:
 
-    T_M  (segments per thread group)  →  S_b  segments owned by one CUDA block
-    M_t  (rows per thread group)      →  M_b  rows per chunk of the plan
-    N_t  (columns per thread group)   →  N_b  feature columns per block tile
-    schedule (SR / PR)                →  the sequential walk; a PR request
-                                         runs the same walk on Hopper
+    M_t  (rows per thread group)      →  M_b  rows per run of the row-run
+                                         kernels: the gather and
+                                         segment_reduce (``RUN`` of
+                                         ``csrc/row_runs.cuh``)
+    T_M  (segments per thread group)  →  S_b  segments per tile of the fused
+                                         transform-reduce (``TILE`` of
+                                         ``csrc/fused_transform_reduce.cu``)
+    schedule (SR / PR)                →  ``"SR"`` only: a PR request ran the
+                                         same walk on Hopper, so the lattice
+                                         emits no PR point
+    N_t  (columns per thread group)   →  N_b  the feature width rounded up
+                                         to a warp, at most 256; read by no
+                                         kernel (segment_matmul's metadata
+                                         tiles rows by M_b)
+    G_t  (synced threads)             →  K_c  = 1, read by no kernel
 
-No segment kernel of the port reads this tiling any more: the gather,
-segment_reduce and softmax kernels split the rows into runs of a fixed
-length of their own (``csrc/row_runs.cuh``, ``csrc/segment_softmax.cu``),
-the fused transform-reduce splits the segments into tiles of its own
-(``csrc/fused_transform_reduce.cu``), and each folds the segments its runs
-cut in run order from the plan's row offsets: no atomics, and the result is
-deterministic. The plans still carry the chunk ranges of ``S_b``-segment
-windows, so that they compare one to one with the reference's.
+Each kernel is built once for every value of its axis (:data:`RUN_LENGTHS`,
+:data:`TILE_SIZES`; the launch picks the instance at run time and refuses
+any other value), so a selected config reaches the card without a rebuild.
+The values are those a sweep of build-time variants found worth keeping
+on the H100 (``python -m repro_torch.kernel_variants``, PERF.md): at most
+three an axis. The softmax, sddmm and segment_matmul
+read no axis of a config (their run lengths and tiles stay constants).
 
 Hopper limits: 227 KB (232,448 B) of shared memory per block, warps of 32
-threads. Measured config selection (PerfDB, decision-tree rules) is not
-part of this package yet; :func:`default_config` is a fixed default.
+threads. A lattice point whose fused block (W resident, the tile's
+aggregate, slots and output stage at width F → F) does not fit is pruned
+(:func:`enumerate_configs`, with the ``smem_bytes`` that ``fusable``
+checks). :func:`default_config` is the shipped values, M_b = 64, S_b = 64
+(the hand-crafted tier); the selection tiers are in
+:mod:`repro_torch.core.heuristics`.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
+from typing import Iterator, List
 
 SMEM_BYTES = 232_448        # dynamic shared memory one block may use
 WARP = 32                   # threads per warp
@@ -78,27 +93,70 @@ class KernelConfig:
 
 
 # Tunable op keys: every kernel a selection tier may be asked about (the
-# same keys as the reference package, so measured databases line up).
-OP_KEYS = (
-    "segment_reduce",
-    "gather_segment_reduce",
-    "gather_segment_reduce_mean",
-    "gather_segment_reduce_max",
-    "segment_softmax",
-    "segment_matmul",
-    "grouped_segment_matmul",
-    "sddmm",
-    "fused_transform_reduce",
-)
+# same keys as the reference package, so measured databases line up), and
+# the axis of a config each one's kernel reads (None: it reads none).
+OP_AXIS = {
+    "segment_reduce": "m_b",
+    "gather_segment_reduce": "m_b",
+    "gather_segment_reduce_mean": "m_b",
+    "gather_segment_reduce_max": "m_b",
+    "segment_softmax": None,
+    "segment_matmul": None,
+    "grouped_segment_matmul": None,
+    "sddmm": None,
+    "fused_transform_reduce": "s_b",
+}
+OP_KEYS = tuple(OP_AXIS)
+
+
+# The built instances of each axis: the row-run kernels' run lengths
+# (FOR_RUN_LENGTHS in csrc/row_runs.cuh) and the fused kernel's tiles
+# (FOR_TILES in csrc/fused_transform_reduce.cu).
+RUN_LENGTHS = (64, 128, 256)
+TILE_SIZES = (32, 64, 128)
+SCHEDULES = ("SR",)
+DEFAULT_M_B, DEFAULT_S_B = 64, 64
+
+
+def _n_b(feat_dim) -> int:
+    return min(256, _round_up(max(int(feat_dim), 1), WARP))
+
+
+def enumerate_configs(feat_dim: "int | None" = None,
+                      dtype="float32") -> Iterator[KernelConfig]:
+    """Every lattice point M_b ∈ :data:`RUN_LENGTHS` × S_b ∈
+    :data:`TILE_SIZES` at width ``feat_dim`` (None: 128) whose fused block
+    at ``feat_dim`` → ``feat_dim`` in ``dtype`` fits a Hopper block. At a
+    width where no tile fits, the fused kernel never runs and S_b is the
+    default alone."""
+    from repro_torch.kernels.fused_transform_reduce import smem_bytes
+    f = 128 if feat_dim is None else max(int(feat_dim), 1)
+    tiles = [t for t in TILE_SIZES if smem_bytes(f, f, dtype, t) <= SMEM_BYTES]
+    for m_b, s_b in itertools.product(RUN_LENGTHS, tiles or [DEFAULT_S_B]):
+        yield KernelConfig("SR", s_b, _n_b(f), m_b, 1)
+
+
+def all_configs(feat_dim: "int | None" = None) -> List[KernelConfig]:
+    return list(enumerate_configs(feat_dim))
 
 
 def default_config(feat_dim: int = 128) -> KernelConfig:
-    """The fixed Hopper default that plans record: S_b = 32, M_b = 64
-    (the chunk ranges of the reference's windows), and N_b the feature
-    width rounded up to a warp, at most 256. segment_matmul tiles rows by
-    M_b; the segment kernels read none of it."""
-    n_b = min(256, _round_up(max(int(feat_dim), 1), WARP))
-    return KernelConfig("SR", 32, n_b, 64, 1)
+    """The shipped values (the hand-crafted tier): M_b = 64 rows a run,
+    S_b = 64 segments a tile, N_b the feature width rounded up to a warp,
+    at most 256."""
+    return KernelConfig("SR", DEFAULT_S_B, _n_b(feat_dim), DEFAULT_M_B, 1)
+
+
+def rule_config(s_b: int, m_b: int, log2_feat: float) -> KernelConfig:
+    """A generated rule's leaf at width 2**log2_feat: its S_b, or the
+    largest built tile below it whose fused block fits at F → F (the
+    default where none does), and its M_b."""
+    from repro_torch.kernels.fused_transform_reduce import smem_bytes
+    f = max(int(round(2.0 ** log2_feat)), 1)
+    fits = [t for t in TILE_SIZES
+            if t <= s_b and smem_bytes(f, f, "float32", t) <= SMEM_BYTES]
+    return KernelConfig("SR", max(fits) if fits else DEFAULT_S_B, _n_b(f),
+                        m_b, 1)
 
 
 def _round_up(x: int, m: int) -> int:

@@ -11,11 +11,11 @@
       aggregate(X @ W)        (transform-first)   reduce width = d_out
       fused(X, W)             (fused)             SpMM+GEMM, one launch
 
-  ``order="auto"`` is a fixed rule (:func:`choose_order`): fused when the
-  reduce is linear, the backend is the CUDA kernel and the Hopper
-  shared-memory gate :func:`~repro_torch.kernels.fused_transform_reduce.fusable`
-  holds; otherwise aggregate-first iff ``d_in < d_out``; otherwise
-  transform-first. Reordering is valid only for linear reduces (sum / mean
+  ``order="auto"`` costs the three on the H100 model
+  (:func:`choose_order`, with the plan's degree skew): the fused arm only
+  with the CUDA kernel and where the Hopper shared-memory gate
+  :func:`~repro_torch.kernels.fused_transform_reduce.fusable` holds at the
+  config's tile. Reordering is valid only for linear reduces (sum / mean
   commute with ``W``); ``max`` pins transform-first.
 
 * :func:`mp_typed` — relation-typed message passing: the per-relation
@@ -43,24 +43,65 @@ _LINEAR_REDUCES = ("sum", "mean")
 _ORDERS = ("auto", "aggregate_first", "transform_first", "fused")
 
 
-def choose_order(d_in: int, d_out: int, *, config: Optional[KernelConfig] = None,
+def choose_order(d_in: int, d_out: int, *, plan=None,
+                 num_edges: Optional[int] = None,
+                 num_nodes: Optional[int] = None,
+                 config: Optional[KernelConfig] = None,
                  allow_fused: bool = False, dtype=torch.float32) -> str:
-    """The deterministic order rule for a linear reduce (no cost model on
-    Hopper yet): ``"fused"`` when allowed and the shared-memory gate
-    holds, else ``"aggregate_first"`` iff ``d_in < d_out``, else
-    ``"transform_first"``."""
-    if allow_fused and fusable(d_in, d_out, dtype, config):
-        return "fused"
-    return "aggregate_first" if d_in < d_out else "transform_first"
+    """The H100 cost model's order for a linear reduce:
+    ``"transform_first"``, ``"aggregate_first"`` or (with ``allow_fused``
+    and where the fused block fits at the config's tile) ``"fused"``.
+
+    Each order is costed end to end (:mod:`repro_torch.core.costmodel`):
+    the two-launch orders run the gather at width d_out or d_in plus the
+    dense product; the fused arm skips the (S, d_in) aggregate's round trip
+    and the second launch. With a ``plan``, |E|, |V|, the config and the
+    degree skew come from it; otherwise ``num_edges`` and ``num_nodes``
+    must be given (skew 1). Tie-breaks are the reference's:
+    transform-first is the default, aggregate-first must win strictly, and
+    the fused arm must beat both strictly."""
+    from repro_torch.core import costmodel
+    from repro_torch.core.config_space import io_dtype_bytes
+    if plan is not None:
+        m, s = plan.stats.num_rows, plan.stats.num_segments
+        skew = plan.stats.skew
+        cfg = config or plan.config
+    else:
+        if num_edges is None or num_nodes is None:
+            raise ValueError("choose_order needs a plan or "
+                             "num_edges + num_nodes")
+        m, s, skew = int(num_edges), int(num_nodes), 1.0
+        cfg = config
+    if cfg is None:
+        from repro_torch.core.heuristics import select_config
+        cfg = select_config(max(m, 1), max(s, 1), max(d_in, d_out),
+                            tune=False)
+    db = io_dtype_bytes(dtype)
+    dense = costmodel.dense_matmul_cost(s, d_in, d_out, db).total_s
+    # insertion order is the tie-break (min keeps the first minimum)
+    t = {
+        "transform_first":
+            costmodel.spmm_cost(m, s, d_out, cfg, db, skew=skew).total_s
+            + dense,
+        "aggregate_first":
+            costmodel.spmm_cost(m, s, d_in, cfg, db, skew=skew).total_s
+            + dense,
+    }
+    if allow_fused and fusable(d_in, d_out, dtype, cfg):
+        t["fused"] = costmodel.fused_transform_reduce_cost(
+            m, s, d_in, d_out, cfg, db, skew=skew).total_s
+    return min(t, key=t.get)
 
 
 def resolve_order(reduce: str, order: str, d_in: int, d_out: int, *,
+                  plan=None, num_edges: Optional[int] = None,
+                  num_nodes: Optional[int] = None,
                   config: Optional[KernelConfig] = None,
                   allow_fused: bool = False, dtype=torch.float32) -> str:
     """Validate and resolve the transform/aggregate order for one layer.
     Non-linear reduces do not commute with ``W`` and pin transform-first;
     ``"fused"`` needs a linear reduce and the CUDA backend
-    (``allow_fused``)."""
+    (``allow_fused``); ``"auto"`` is :func:`choose_order`."""
     if order not in _ORDERS:
         raise ValueError(f"unknown order: {order!r}")
     if reduce not in _LINEAR_REDUCES:
@@ -73,7 +114,8 @@ def resolve_order(reduce: str, order: str, d_in: int, d_out: int, *,
         raise ValueError("order='fused' needs the one-launch CUDA kernel "
                          "(impl='cuda' on CUDA tensors)")
     if order == "auto":
-        return choose_order(d_in, d_out, config=config,
+        return choose_order(d_in, d_out, plan=plan, num_edges=num_edges,
+                            num_nodes=num_nodes, config=config,
                             allow_fused=allow_fused, dtype=dtype)
     return order
 
@@ -114,8 +156,9 @@ def mp_transform(x, w, edge_index, num_nodes: int, *, reduce: str = "sum",
     if config is None and plan is not None:
         config = plan.config
     order = resolve_order(reduce, order, int(x.shape[-1]), int(w.shape[-1]),
-                          config=config, allow_fused=(impl == "cuda"),
-                          dtype=x.dtype)
+                          plan=plan, num_edges=int(edge_index.shape[-1]),
+                          num_nodes=num_nodes, config=config,
+                          allow_fused=(impl == "cuda"), dtype=x.dtype)
     if order == "fused":
         src, dst = edge_index[0], edge_index[1]
         return geot.fused_transform_reduce(x, w, src, edge_weight, dst,

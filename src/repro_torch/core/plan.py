@@ -3,20 +3,17 @@
 A :class:`SegmentPlan` captures, once per graph, everything the segment
 kernels otherwise derive on every call:
 
-  * ``chunk_first`` / ``chunk_count`` — int32 tensors (out_blocks,): the
-    chunk range of each ownership window of the reference's kernels (see
-    :func:`repro_torch.kernels.segment_reduce.chunk_metadata`); no kernel
-    of the port reads them, and they are kept so that plans compare one to
-    one with the reference's;
   * ``row_ptr`` — int64 tensor (num_segments + 1,): each segment's row
     offsets in the index, which the row-run schedules of the gather,
     segment_reduce and softmax kernels and the tiles of the fused kernel
     read (:func:`repro_torch.kernels.gather_segment_reduce.row_offsets`);
-  * a tight ``max_chunks`` — the most chunks any block owns. The CUDA
-    kernels bound their loop by the block's own ``chunk_count`` and do not
-    need it; it is kept so plans compare one to one with the reference;
-  * degree statistics of the segment index;
-  * the selected :class:`~repro_torch.core.config_space.KernelConfig`;
+  * degree statistics of the segment index (their ``skew`` feeds
+    :func:`repro_torch.core.mp.choose_order`);
+  * the selected :class:`~repro_torch.core.config_space.KernelConfig`
+    (its run length M_b and tile S_b are what the kernels read), chosen by
+    :func:`repro_torch.core.heuristics.select_plan_config` unless given:
+    a measured PerfDB winner with ``tune=True``, else the generated
+    rules;
   * for a graph (:func:`make_graph_plan`), a :class:`SourceOrder`: the
     real edges in stable source order, the schedule on which the backward
     passes scatter a gradient into the source rows as one run of the
@@ -38,19 +35,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.config_space import KernelConfig, default_config
+from repro_torch.core.config_space import KernelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels.gather_segment_reduce import row_offsets
 from repro_torch.kernels.segment_matmul import group_metadata
-from repro_torch.kernels.segment_reduce import chunk_metadata
 
 __all__ = ["SegmentStats", "SegmentPlan", "SourceOrder", "RelationPlan",
            "segment_stats", "source_order", "make_plan", "make_graph_plan",
            "make_relation_plan"]
-
-
-def _round_up(x: int, m: int) -> int:
-    return (x + m - 1) // m * m
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,12 +137,9 @@ def source_order(gather_idx, seg_idx, num_segments: int, num_sources: int,
 @dataclasses.dataclass(frozen=True)
 class SegmentPlan:
     """Precomputed schedule for one (sorted idx, num_segments) instance."""
-    chunk_first: torch.Tensor    # (out_blocks,) int32
-    chunk_count: torch.Tensor    # (out_blocks,) int32
     row_ptr: torch.Tensor        # (num_segments + 1,) int64
     num_rows: int
     num_segments: int
-    max_chunks: int              # tight: max(chunk_count), >= 1
     config: KernelConfig
     stats: SegmentStats
     # the graph's edges in source order (make_graph_plan); valid for ops
@@ -159,17 +148,15 @@ class SegmentPlan:
 
     @property
     def device(self) -> torch.device:
-        return self.chunk_first.device
+        return self.row_ptr.device
 
     def to(self, device) -> "SegmentPlan":
         """The same plan with its metadata on ``device``."""
         device = torch.device(device)
-        if self.chunk_first.device == device:
+        if self.row_ptr.device == device:
             return self
         return dataclasses.replace(
-            self, chunk_first=self.chunk_first.to(device),
-            chunk_count=self.chunk_count.to(device),
-            row_ptr=self.row_ptr.to(device),
+            self, row_ptr=self.row_ptr.to(device),
             src_order=(None if self.src_order is None
                        else self.src_order.to(device)))
 
@@ -180,18 +167,6 @@ class SegmentPlan:
         if self.src_order is None:
             return self
         return dataclasses.replace(self, src_order=None)
-
-    @property
-    def worst_case_chunks(self) -> int:
-        """The chunk bound a plan-less caller must assume."""
-        return _round_up(max(self.num_rows, 1), self.config.m_b) // self.config.m_b
-
-    def pin_worst_case(self) -> "SegmentPlan":
-        """The same plan with ``max_chunks`` pinned to the shape-static
-        worst case, as bucket-reuse paths canonicalize it."""
-        if self.max_chunks == self.worst_case_chunks:
-            return self
-        return dataclasses.replace(self, max_chunks=self.worst_case_chunks)
 
     def validate(self, num_rows: int, num_segments: int) -> None:
         """Consistency check against the arrays of an op call."""
@@ -210,12 +185,16 @@ def _host_index(idx) -> np.ndarray:
 
 def make_plan(idx, num_segments: int, feat: int = 128,
               config: Optional[KernelConfig] = None,
-              device=None) -> SegmentPlan:
+              device=None, tune: Optional[bool] = None) -> SegmentPlan:
     """Build a :class:`SegmentPlan` from a concrete sorted segment index
     (numpy array or tensor). It is built on the host and its tensors are
     moved once to ``device`` (``None``: the card, raising without one;
-    ``"cpu"`` for the plain versions). ``feat`` is the widest layer width;
-    with no ``config`` it sizes :func:`default_config`."""
+    ``"cpu"`` for the plain versions). ``feat`` is the widest layer width.
+    With no ``config`` the selection tiers pick one from the index's O(1)
+    features: ``tune=True`` (or ``REPRO_AUTOTUNE=1`` with ``tune=None``)
+    sweeps the built instances on the card once per shape class and reuses
+    the measured winner from the PerfDB; else the generated rules decide
+    (:func:`repro_torch.core.heuristics.select_plan_config`)."""
     device = resolve_device(device, "make_plan")
     idx_np = _host_index(idx)
     if idx_np.ndim != 1:
@@ -224,22 +203,14 @@ def make_plan(idx, num_segments: int, feat: int = 128,
         raise ValueError("idx must be sorted non-decreasing")
     stats = segment_stats(idx_np, num_segments)
     if config is None:
-        config = default_config(feat)
-
-    m = int(idx_np.size)
-    m_pad = _round_up(max(m, 1), config.m_b)
-    idxp = np.full((m_pad,), num_segments, np.int32)
-    idxp[:m] = idx_np
-    chunk_first, chunk_count = chunk_metadata(idxp, num_segments, config.s_b,
-                                              config.m_b, m_pad)
-    max_chunks = max(1, int(chunk_count.max())) if chunk_count.numel() else 1
+        from repro_torch.core.heuristics import select_plan_config
+        config = select_plan_config(max(int(idx_np.size), 1),
+                                    max(stats.live_segments, 1), feat,
+                                    tune=tune)
     return SegmentPlan(
-        chunk_first=chunk_first.to(device),
-        chunk_count=chunk_count.to(device),
-        row_ptr=row_offsets(torch.from_numpy(idxp), num_segments).to(device),
-        num_rows=m,
+        row_ptr=row_offsets(torch.from_numpy(idx_np), num_segments).to(device),
+        num_rows=int(idx_np.size),
         num_segments=int(num_segments),
-        max_chunks=max_chunks,
         config=config,
         stats=stats,
     )
@@ -247,17 +218,17 @@ def make_plan(idx, num_segments: int, feat: int = 128,
 
 def make_graph_plan(edge_index, num_nodes: int, feat: int = 128,
                     config: Optional[KernelConfig] = None,
-                    device=None) -> SegmentPlan:
+                    device=None, tune: Optional[bool] = None) -> SegmentPlan:
     """Plan for GNN aggregation over ``edge_index`` (2, E) with
     ``edge_index[1]`` (destinations) sorted non-decreasing, on ``device``
-    (as :func:`make_plan`), with the :class:`SourceOrder` of its sources
-    built there. One plan serves every layer of a model on the same graph,
-    forward and backward."""
+    (as :func:`make_plan`, config selected the same way), with the
+    :class:`SourceOrder` of its sources built there. One plan serves every
+    layer of a model on the same graph, forward and backward."""
     edge_index = _host_index(edge_index)
     if edge_index.ndim != 2 or edge_index.shape[0] != 2:
         raise ValueError(f"edge_index must be (2, E), got {edge_index.shape}")
     plan = make_plan(edge_index[1], num_nodes, feat=feat, config=config,
-                     device=device)
+                     device=device, tune=tune)
     src, dst = (torch.from_numpy(a).to(plan.device) for a in edge_index)
     order = source_order(src, dst, num_nodes, num_nodes,
                          num_real=int(np.sum(edge_index[1] < num_nodes)))
@@ -318,12 +289,15 @@ class RelationPlan:
 def make_relation_plan(group_sizes, num_rows: Optional[int] = None,
                        feat: int = 128,
                        config: Optional[KernelConfig] = None,
-                       device=None) -> RelationPlan:
+                       device=None, tune: Optional[bool] = None
+                       ) -> RelationPlan:
     """Build a :class:`RelationPlan` from concrete per-relation row counts
     (R,), non-negative. ``num_rows`` defaults to their sum (pass the padded
     row count when X carries trailing rows of no group). ``feat`` is the
-    output width that sizes :func:`default_config`. Built on the host and
-    moved once to ``device``, as :func:`make_plan`."""
+    output width. Without ``config``, the selection tiers pick one for the
+    ``grouped_segment_matmul`` key (a measured winner with ``tune=True``,
+    else the rules): its M_b is the metadata's row-block granularity. Built
+    on the host and moved once to ``device``, as :func:`make_plan`."""
     device = resolve_device(device, "make_relation_plan")
     sizes = _host_index(group_sizes).astype(np.int64)
     if sizes.ndim != 1 or sizes.size == 0:
@@ -338,7 +312,9 @@ def make_relation_plan(group_sizes, num_rows: Optional[int] = None,
     # the relation-size histogram is a degenerate sorted segment index
     stats = segment_stats(np.repeat(np.arange(sizes.size), sizes), sizes.size)
     if config is None:
-        config = default_config(feat)
+        from repro_torch.core.heuristics import select_config
+        config = select_config(max(m, 1), max(int(sizes.size), 1), feat,
+                               op="grouped_segment_matmul", tune=tune)
     offsets, fg, gc = group_metadata(torch.from_numpy(sizes.astype(np.int32)),
                                      m, config.m_b)
     max_groups = max(1, int(gc.max())) if gc.numel() else 1

@@ -57,22 +57,24 @@ class Graph:
         return 1 if self.node_ptr is None else len(self.node_ptr) - 1
 
     def make_plan(self, feat: Optional[int] = None, config=None,
-                  device=None):
+                  device=None, tune: Optional[bool] = None):
         """The reduction schedule for this graph (see
         :mod:`repro_torch.core.plan`), with its source order, on ``device``
-        (``None``: the card; ``"cpu"`` for the plain versions). Memoized
-        per ``(feat, config, device)``: a trainer asking every step pays
-        for it once."""
+        (``None``: the card; ``"cpu"`` for the plain versions).
+        ``tune=True`` picks the config from a sweep measured on the card
+        (the PerfDB's, once per shape class). Memoized per ``(feat,
+        config, tune, device)``: a trainer asking every step pays for it
+        once."""
         from repro_torch.core.device import resolve_device
         from repro_torch.core.plan import make_graph_plan
         feat = self.x.shape[1] if feat is None else feat
         device = resolve_device(device, "Graph.make_plan")
-        key = (int(feat), config, str(device))
+        key = (int(feat), config, tune, str(device))
         plan = self._plan_cache.get(key)
         if plan is None:
             plan = self._plan_cache[key] = make_graph_plan(
                 self.edge_index, self.num_nodes, feat=feat, config=config,
-                device=device)
+                device=device, tune=tune)
         return plan
 
 
@@ -166,7 +168,7 @@ class TypedGraph(Graph):
         return self.edge_index[0][self.type_perm]
 
     def make_relation_plan(self, feat: Optional[int] = None, config=None,
-                           device=None):
+                           device=None, tune: Optional[bool] = None):
         """The grouped-matmul schedule over the relation groups (see
         :func:`repro_torch.core.plan.make_relation_plan`), on ``device``;
         memoized like :meth:`make_plan`."""
@@ -174,12 +176,12 @@ class TypedGraph(Graph):
         from repro_torch.core.plan import make_relation_plan
         feat = self.x.shape[1] if feat is None else feat
         device = resolve_device(device, "TypedGraph.make_relation_plan")
-        key = ("relation", int(feat), config, str(device))
+        key = ("relation", int(feat), config, tune, str(device))
         plan = self._plan_cache.get(key)
         if plan is None:
             plan = self._plan_cache[key] = make_relation_plan(
                 self.type_counts, num_rows=self.num_edges, feat=feat,
-                config=config, device=device)
+                config=config, device=device, tune=tune)
         return plan
 
 

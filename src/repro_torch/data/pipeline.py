@@ -14,8 +14,8 @@ critical path between device steps. This module moves it off:
       pad_to_bucket`), resolve the bucket's
       :class:`~repro_torch.serve.plan_cache.BucketEntry` from a
       thread-safe :class:`~repro_torch.serve.plan_cache.PlanCache`, copy
-      the arrays to the device, and stamp the plan there — its chunk
-      metadata and row offsets, plus the graph's
+      the arrays to the device, and stamp the plan there — its row
+      offsets, plus the graph's
       :class:`~repro_torch.core.plan.SourceOrder`, so a training step's
       backward walks follow it instead of sorting on the device.
 
@@ -57,7 +57,6 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.core.config_space import default_config
 from repro_torch.core.device import resolve_device
 from repro_torch.core.plan import SegmentPlan, source_order
 from repro_torch.data.graphs import Graph
@@ -65,14 +64,14 @@ from repro_torch.data.sampling import NeighborSampler
 from repro_torch.obs import span
 from repro_torch.serve.buckets import (BucketPolicy, ShapeBucket, bucket_for,
                                        pad_to_bucket)
-from repro_torch.serve.plan_cache import BucketEntry, PlanCache
+from repro_torch.serve.plan_cache import BucketEntry, PlanCache, bucket_config
 
 __all__ = ["SampledBatch", "SampledBatchProducer", "PrefetchPipeline"]
 
 
 def _plan_tensors(plan: SegmentPlan):
     """Every tensor a plan holds (its source order's too)."""
-    out = [plan.chunk_first, plan.chunk_count, plan.row_ptr]
+    out = [plan.row_ptr]
     order = plan.src_order
     if order is not None:
         out += [order.perm, order.src, order.dst, order.row_ptr]
@@ -126,8 +125,11 @@ class SampledBatchProducer:
     :meth:`GNNServer.sampled_pipeline` does) to share cache lines with an
     engine, or let the defaults build engine-equivalent entries. ``feat``
     is the plans' representative feature width (the model's widest
-    layer). ``device``: where batches go (``None``: the card, raising
-    without one; ``"cpu"`` for the plain versions)."""
+    layer). The default entries take the engine's precedence without the
+    sweep (producer threads never time kernels): the PerfDB's measured
+    winner (``perfdb``, else the default one) > the generated rules.
+    ``device``: where batches go (``None``: the card, raising without one;
+    ``"cpu"`` for the plain versions)."""
 
     def __init__(self, sampler: NeighborSampler, *,
                  feat: int = 128,
@@ -136,7 +138,7 @@ class SampledBatchProducer:
                  entry_key: Optional[Callable[[ShapeBucket], object]] = None,
                  entry_builder: Optional[
                      Callable[[ShapeBucket], BucketEntry]] = None,
-                 device=None):
+                 device=None, perfdb=None):
         self.device = resolve_device(device, "SampledBatchProducer")
         self.sampler = sampler
         self.feat = int(feat)
@@ -144,8 +146,10 @@ class SampledBatchProducer:
         self.cache = cache if cache is not None else PlanCache()
         self._entry_key = entry_key or (
             lambda b: (b, self.feat, "sampled"))
+        self._perfdb = perfdb
         self._entry_builder = entry_builder or (
-            lambda b: BucketEntry(b, self.feat, default_config(self.feat)))
+            lambda b: BucketEntry(b, self.feat, bucket_config(
+                b, self.feat, db=self._perfdb)))
         self._local = threading.local()     # each thread's CUDA stream
 
     def entry_for(self, bucket: ShapeBucket) -> BucketEntry:

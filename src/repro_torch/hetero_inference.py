@@ -74,8 +74,8 @@ def main(argv=None) -> dict:
     plan = g.make_plan(feat=width, device=dev)
     rplan = g.make_relation_plan(feat=width, device=dev)
     print(f"  plans built on {dev} in {(time.perf_counter() - t0) * 1e3:.1f}"
-          f" ms: reduce chunks {plan.max_chunks} (of "
-          f"{plan.worst_case_chunks}), groups {rplan.max_groups} (of "
+          f" ms: runs of {plan.config.m_b} rows, tiles of "
+          f"{plan.config.s_b} segments, groups {rplan.max_groups} (of "
           f"{rplan.worst_case_groups})")
 
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731

@@ -2,13 +2,11 @@
 
     python -m repro_torch.kernel_variants [--rounds 3] [--kernels a,b]
 
-Compiles copies of ``kernels/csrc/gather_segment_reduce.cu`` and
-``segment_reduce.cu`` with their run length ``RUN`` set to 64, 128 and 256
-rows, of ``segment_softmax.cu`` with ``RUN`` = 64, 128, 256 and 512, of
-``segment_matmul.cu`` with its ring of ``STAGES`` = 2, 3 and 4 X stages, of
-``fused_transform_reduce.cu`` with its tile of ``TILE`` = 32, 64 and 128
-segments and ``U`` = 2, 4 and 8 rows of H in flight a lane group (its
-product is the tensor-core one only), and of ``sddmm.cu`` with runs of
+Compiles copies of ``kernels/csrc/segment_softmax.cu`` with ``RUN`` = 64,
+128, 256 and 512, of ``segment_matmul.cu`` with its ring of ``STAGES`` =
+2, 3 and 4 X stages, of ``fused_transform_reduce.cu`` with ``U`` = 2, 4
+and 8 rows of H in flight a lane group (its product is the tensor-core one
+only; it runs at the default tile, S_b = 64), and of ``sddmm.cu`` with runs of
 ``RUN`` = 16, 32 and 64 pairs and ``LPR`` = 4, 8 and 16 lanes a row (each
 constant swept with the others at their shipped values; a variant is
 named ``CONST=value``), each into a library of its own (nvcc with the
@@ -16,12 +14,6 @@ flags of ``kernels/_build.py``, all started together, into the build
 directory), and times each through its C entry point at the shapes
 ``chip_smoke.py`` uses:
 
-  * gather: the weighted sum at the ogbn-arxiv bucket (fp32 F=64, 32 and
-    3, bf16 F=64), and the mean of the (E, F) typed messages gathered by
-    ``inv_type_perm`` into the nodes of the AM-scale typed graph (fp32 F=64
-    and 32, bf16 F=64);
-  * segment_reduce: sum, mean and max fp32 F=64, sum fp32 F=32 and bf16
-    F=64 on the ogbn-arxiv destinations;
   * segment_softmax: fp32 and bf16 (E, 4) and fp32 (E,) at the ogbn-arxiv
     bucket, fp32 (E, 2) over the AM typed rows;
   * segment_matmul: fp32 and bf16 64->64 and 64->128 over the AM typed rows;
@@ -46,9 +38,13 @@ bf16 2e-2, atol the same times the largest magnitude). The variants of one
 configuration are timed in turns, ``--rounds`` rounds of the median of 20
 CUDA-event timings after 3 warm-ups, each behind a busy-wait kernel so host
 launch time stays out; the median over the rounds is printed, with the
-card's name and power limit. The shipped values are RUN = 64 (the gather,
-segment_reduce), RUN = 128 (the softmax), RUN = 32 and LPR = 8 (sddmm),
-STAGES = 2, and TILE = 64 and U = 4 (the fused kernel).
+card's name and power limit. The shipped values are RUN = 128 (the
+softmax), RUN = 32 and LPR = 8 (sddmm), STAGES = 2, and U = 4 (the fused
+kernel). The gather's and segment_reduce's run length and the fused
+kernel's tile are no longer build-time variants: each is built for every
+value of its config axis and picked at run time, and
+:func:`repro_torch.core.autotune.tune` sweeps them (``chip_smoke.py``
+phase 3f).
 Needs one CUDA device; exits non-zero without one.
 """
 from __future__ import annotations
@@ -71,12 +67,9 @@ AM_NODES, AM_EDGES, AM_RELATIONS = 1_666_764, 5_988_321, 133
 # lanes a row (4: four 16-byte vectors a lane at F = 64 fp32, one pair's
 # loads at a time; 16: one vector, four pairs')
 VARIANTS = {
-    "gather_segment_reduce": [("constexpr int RUN = {};", (64, 128, 256))],
-    "segment_reduce": [("constexpr int RUN = {};", (64, 128, 256))],
     "segment_softmax": [("constexpr int RUN = {};", (64, 128, 256, 512))],
     "segment_matmul": [("constexpr int STAGES = {};", (2, 3, 4))],
-    "fused_transform_reduce": [("constexpr int TILE = {};", (32, 64, 128)),
-                               ("constexpr int U = {};", (2, 4, 8))],
+    "fused_transform_reduce": [("constexpr int U = {};", (2, 4, 8))],
     "sddmm": [("constexpr int RUN = {};", (16, 32, 64)),
               ("constexpr int LPR = {};", (4, 8, 16))]}
 # rows in flight of the read probe (csrc/probes/row_reads.cu), and the
@@ -192,12 +185,11 @@ def main() -> None:
         ap.error(f"--kernels: each of {list(VARIANTS)}")
     if not torch.cuda.is_available():
         sys.exit("kernel_variants: needs a CUDA device")
-    from repro_torch.core.config_space import default_config
-    from repro_torch.core.plan import make_plan
+    from repro_torch.core.config_space import DEFAULT_S_B, default_config
     from repro_torch.data.graphs import dataset, synth_typed_graph
     from repro_torch.kernels import _build
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels.gather_segment_reduce import DTYPE_CODE, REDUCES
+    from repro_torch.kernels.gather_segment_reduce import DTYPE_CODE
     from repro_torch.serve import pad_to_bucket
     from repro_torch.serve.plan_cache import BucketEntry
 
@@ -275,21 +267,6 @@ def main() -> None:
             rate = f", {nbytes} B at {nbytes / t / 1e9:.2f} TB/s"
         print(f"    {label} alone: {u} {t:.4f} ms{rate}", flush=True)
 
-    def gather(key, h, gidx, seg, num_segments, weight, reduce_code,
-               row_ptr):
-        lib, cfg = libs[("gather_segment_reduce", key)]
-        run = cfg["RUN"]
-        num_rows, feat = int(seg.numel()), int(h.shape[1])
-        out = torch.empty((num_segments, feat), dtype=h.dtype, device=dev)
-        part = torch.empty((2 * -(-num_rows // run), feat),
-                           dtype=torch.float32, device=dev)
-        _build.check(lib.gsr_launch(
-            DTYPE_CODE[h.dtype], reduce_code, int(weight is not None),
-            ptr(h), ptr(gidx), ptr(seg), ptr(h if weight is None else weight),
-            ptr(row_ptr), ptr(part), ptr(out), num_rows, feat, num_segments,
-            run, stream(h)), f"gather variant {key}")
-        return out
-
     def smm(key, x, w, rplan):
         lib, _ = libs[("segment_matmul", key)]
         m, k = (int(d) for d in x.shape)
@@ -300,19 +277,6 @@ def main() -> None:
             ptr(rplan.first_group), ptr(rplan.group_count), ptr(out), m, k,
             n, g, rplan.config.m_b, stream(x)), f"segment_matmul variant "
             f"{key}")
-        return out
-
-    def srd(key, x, seg, num_segments, reduce_code, row_ptr):
-        lib, cfg = libs[("segment_reduce", key)]
-        run = cfg["RUN"]
-        num_rows, feat = (int(d) for d in x.shape)
-        out = torch.empty((num_segments, feat), dtype=x.dtype, device=dev)
-        part = torch.empty((2 * -(-num_rows // run), feat),
-                           dtype=torch.float32, device=dev)
-        _build.check(lib.srd_launch(
-            DTYPE_CODE[x.dtype], reduce_code, ptr(x), ptr(seg), ptr(row_ptr),
-            ptr(part), ptr(out), num_rows, feat, num_segments, run,
-            stream(x)), f"segment_reduce variant {key}")
         return out
 
     def ssm(key, x, seg, num_segments, row_ptr):
@@ -330,14 +294,14 @@ def main() -> None:
         return out
 
     def ftr(key, h, wm, gidx, seg, num_segments, weight, mean, row_ptr):
-        lib, cfg = libs[("fused_transform_reduce", key)]
+        lib, _ = libs[("fused_transform_reduce", key)]
         out = torch.empty((num_segments, int(wm.shape[1])), dtype=h.dtype,
                           device=dev)
         _build.check(lib.ftr_launch(
             DTYPE_CODE[h.dtype], int(mean), int(weight is not None), ptr(h),
             ptr(wm), ptr(gidx), ptr(h if weight is None else weight),
             ptr(row_ptr), ptr(out), int(h.shape[1]), int(wm.shape[1]),
-            num_segments, cfg["TILE"], stream(h)), f"fused variant {key}")
+            num_segments, DEFAULT_S_B, stream(h)), f"fused variant {key}")
         return out
 
     def sdd(key, a, b, row, col):
@@ -355,21 +319,6 @@ def main() -> None:
     src = torch.from_numpy(padded.edge_index[0]).to(dev).int().contiguous()
     dst = torch.from_numpy(padded.edge_index[1]).to(dev).int().contiguous()
     plan = BucketEntry(bucket, HIDDEN, default_config(HIDDEN)).stamp(dst)
-    if "gather_segment_reduce" in names:
-        runs = variant_keys("gather_segment_reduce")
-        wts = torch.rand(dst.numel(), generator=gen, device=dev)
-        print(f"gather, variants {runs}:", flush=True)
-        for feat, dtype in ((HIDDEN, torch.float32), (FEAT, torch.float32),
-                            (HIDDEN, torch.bfloat16), (3, torch.float32)):
-            h = torch.randn(v, feat, generator=gen, device=dev).to(dtype)
-            w = wts.to(dtype)
-            timed(f"weighted sum {str(dtype)[6:]} F={feat} at {bucket}",
-                  {r: (lambda r=r: gather(r, h, src, dst, v, w, 0,
-                                          plan.row_ptr)) for r in runs},
-                  kops.gather_segment_reduce(h.float(), src, dst, v,
-                                             w.float(), "sum", impl="ref"),
-                  dtype)
-        del h, w, wts
     if "segment_softmax" in names:
         runs = variant_keys("segment_softmax")
         print(f"segment_softmax, variants {runs}:", flush=True)
@@ -437,7 +386,7 @@ def main() -> None:
                    torch.float32, probe_calls("H rows", h, r2_real))
         ceiling(ms, "H rows", h, r2_real)
         del r2, r2_pad, r2_src, r2_dst, r2_plan, r2_w, h, wm, r2_real
-    if "segment_reduce" in names or "sddmm" in names:
+    if "sddmm" in names:
         a_dst = torch.from_numpy(g.edge_index[1]).to(dev).int().contiguous()
         a_src = torch.from_numpy(g.edge_index[0]).to(dev).int().contiguous()
     if "sddmm" in names:
@@ -465,29 +414,9 @@ def main() -> None:
             ceiling(ms, "B rows", b, cols)
             ceiling(ms, "A+B rows")
         del perm, sa, sb, a, b, rows, cols
-    if "segment_reduce" in names:
-        runs = variant_keys("segment_reduce")
-        a_dst = torch.from_numpy(g.edge_index[1]).to(dev).int().contiguous()
-        a_plan = make_plan(a_dst, g.num_nodes, feat=HIDDEN, device=dev)
-        print(f"segment_reduce on the ogbn-arxiv destinations, variants {runs}:",
-              flush=True)
-        for feat, dtype, reduces in (
-                (HIDDEN, torch.float32, ("sum", "mean", "max")),
-                (FEAT, torch.float32, ("sum",)),
-                (HIDDEN, torch.bfloat16, ("sum",))):
-            x = torch.randn(a_dst.numel(), feat, generator=gen,
-                            device=dev).to(dtype)
-            for reduce in reduces:
-                code = REDUCES.index(reduce)
-                timed(f"{reduce} {str(dtype)[6:]} F={feat}",
-                      {r: (lambda r=r: srd(r, x, a_dst, g.num_nodes, code,
-                                           a_plan.row_ptr)) for r in runs},
-                      kops.segment_reduce(x.float(), a_dst, g.num_nodes,
-                                          reduce, impl="ref"), dtype)
-        del x, a_dst, a_plan
     del plan, src, dst
 
-    typed = {"gather_segment_reduce", "segment_softmax", "segment_matmul"}
+    typed = {"segment_softmax", "segment_matmul"}
     if typed.isdisjoint(names):
         print(card, flush=True)
         return
@@ -496,21 +425,6 @@ def main() -> None:
     m = am.num_edges
     am_dst = torch.from_numpy(am.edge_index[1]).to(dev).int().contiguous()
     am_plan = am.make_plan(feat=HIDDEN, device=dev)
-    if "gather_segment_reduce" in names:
-        runs = variant_keys("gather_segment_reduce")
-        am_inv = torch.from_numpy(am.inv_type_perm).to(dev).int().contiguous()
-        for feat, dtype in ((HIDDEN, torch.float32), (FEAT, torch.float32),
-                            (HIDDEN, torch.bfloat16)):
-            msg = torch.randn(m, feat, generator=gen, device=dev).to(dtype)
-            timed(f"typed mean {str(dtype)[6:]} F={feat}, H=({m}, {feat}) "
-                  "by inv_type_perm",
-                  {r: (lambda r=r: gather(r, msg, am_inv, am_dst,
-                                          am.num_nodes, None, 1,
-                                          am_plan.row_ptr)) for r in runs},
-                  kops.gather_segment_reduce(msg.float(), am_inv, am_dst,
-                                             am.num_nodes, None, "mean",
-                                             impl="ref"), dtype)
-            del msg
     if "segment_softmax" in names:
         runs = variant_keys("segment_softmax")
         x = torch.randn(m, 2, generator=gen, device=dev) * 5

@@ -7,8 +7,17 @@ library with a plain C interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o <build>/<name>-<hash>.so csrc/<name>.cu
 
-The file name carries a hash of the source, the headers and the flags, so
-an edited source is rebuilt and a stale library is never loaded. The build
+The gather, segment_reduce and the fused kernel are built once for every
+value of their config axis (the run length M_b, the tile S_b), each value
+into a library of its own, compiled from a two-line wrapper in the build
+directory that narrows the source's list of instances (``FOR_RUN_LENGTHS``,
+``FOR_TILES``) to that value and includes it: the instances compile in
+parallel, and a launch loads the library of its config's value
+(:data:`INSTANCES`).
+
+The file name carries a hash of the source, the headers, the flags and
+the wrapper, so an edited source is rebuilt and a stale library is never
+loaded. The build
 directory is ``kernels/_build/`` beside this file (listed in .gitignore),
 or ``$REPRO_TORCH_BUILD_DIR``; delete it to force a rebuild. Nothing here
 runs at import time: the CPU tests import every module and have no nvcc.
@@ -22,7 +31,10 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional, Tuple
+
+from repro_torch.core.config_space import (DEFAULT_M_B, DEFAULT_S_B,
+                                           RUN_LENGTHS, TILE_SIZES)
 
 CSRC = Path(__file__).parent / "csrc"
 KERNELS = ("gather_segment_reduce", "segment_softmax", "fused_transform_reduce",
@@ -30,8 +42,18 @@ KERNELS = ("gather_segment_reduce", "segment_softmax", "fused_transform_reduce",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
+# kernel -> (the source's macro listing its instances, the values built,
+# the default): one library a value
+INSTANCES = {
+    "gather_segment_reduce": ("FOR_RUN_LENGTHS", RUN_LENGTHS, DEFAULT_M_B),
+    "segment_reduce": ("FOR_RUN_LENGTHS", RUN_LENGTHS, DEFAULT_M_B),
+    "fused_transform_reduce": ("FOR_TILES", TILE_SIZES, DEFAULT_S_B),
+}
+
+Unit = Tuple[str, Optional[int]]        # (kernel, instance or None)
+
 _LOCK = threading.Lock()
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[Unit, ctypes.CDLL] = {}
 
 # C signatures of the entry points (every pointer and the stream is a
 # c_void_p, or ctypes would cut it to 32 bits); each returns cudaError_t
@@ -88,55 +110,93 @@ def nvcc() -> str:
                        "(set CUDA_HOME)")
 
 
-def _library_path(name: str) -> Path:
+def units(names: Iterable[str] = KERNELS) -> list:
+    """The libraries of the named kernels: one a built value of a kernel
+    with :data:`INSTANCES`, else one."""
+    return [(n, v) for n in names
+            for v in (INSTANCES[n][1] if n in INSTANCES else (None,))]
+
+
+def _wrapper(unit: Unit) -> Optional[str]:
+    """The source of an instance's wrapper: the instance list narrowed to
+    its value, then the kernel's source."""
+    name, value = unit
+    if value is None:
+        return None
+    return (f"#define {INSTANCES[name][0]}(X) X({value})\n"
+            f'#include "{CSRC / f"{name}.cu"}"\n')
+
+
+def _library_path(unit: Unit) -> Path:
+    name, value = unit
     h = hashlib.sha256()
     for path in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
         h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
+    h.update((_wrapper(unit) or "").encode())
+    stem = name if value is None else f"{name}-{value}"
+    return build_dir() / f"{stem}-{h.hexdigest()[:16]}.so"
 
 
-def _compile_cmd(name: str, out: Path) -> list:
-    return [nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+def _compile_cmd(unit: Unit, out: Path) -> list:
+    src = CSRC / f"{unit[0]}.cu"
+    wrapper = _wrapper(unit)
+    if wrapper is not None:
+        src = out.with_suffix(".cu")
+        src.write_text(wrapper)
+    return [nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
 
 
-def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
-    """Compile every named library that is not built yet, one ``nvcc``
-    process per source, all started together. Returns name → library path.
-    Raises with the compiler's output if any build fails."""
-    paths = {n: _library_path(n) for n in names}
-    todo = {n: p for n, p in paths.items() if not p.exists()}
+def build(names: Iterable[str] = KERNELS, only: Optional[Iterable[Unit]] = None
+          ) -> Dict[Unit, Path]:
+    """Compile every library of the named kernels (or the ``only`` units)
+    that is not built yet, one ``nvcc`` process each, all started together.
+    Returns (kernel, instance) → library path. Raises with the compiler's
+    output if any build fails."""
+    paths = {u: _library_path(u) for u in (units(names) if only is None
+                                           else only)}
+    todo = {u: p for u, p in paths.items() if not p.exists()}
     if todo:
         build_dir().mkdir(parents=True, exist_ok=True)
         procs = {}
-        for n, p in todo.items():
+        for u, p in todo.items():
             tmp = p.with_suffix(f".tmp{os.getpid()}")
-            procs[n] = (tmp, subprocess.Popen(
-                _compile_cmd(n, tmp), stdout=subprocess.PIPE,
+            procs[u] = (tmp, subprocess.Popen(
+                _compile_cmd(u, tmp), stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True))
         failures = []
-        for n, (tmp, proc) in procs.items():
+        for u, (tmp, proc) in procs.items():
             log, _ = proc.communicate()
             if proc.returncode != 0:
-                failures.append(f"--- nvcc {n}.cu (exit {proc.returncode})\n{log}")
+                failures.append(f"--- nvcc {u[0]}.cu {u[1] or ''} "
+                                f"(exit {proc.returncode})\n{log}")
                 tmp.unlink(missing_ok=True)
             else:
-                os.replace(tmp, todo[n])     # atomic: never a half-written .so
+                os.replace(tmp, todo[u])     # atomic: never a half-written .so
         if failures:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return paths
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+def load(name: str, instance: Optional[int] = None) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (for a kernel with
+    :data:`INSTANCES`, of its ``instance``: the default value if None),
+    built first if needed."""
+    if name in INSTANCES:
+        macro, values, default = INSTANCES[name]
+        instance = default if instance is None else int(instance)
+        if instance not in values:
+            raise ValueError(f"{name}: no instance is built for {instance}; "
+                             f"built: {values}")
+    unit = (name, instance)
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get(unit)
         if lib is None:
-            lib = ctypes.CDLL(str(build([name])[name]))
+            lib = ctypes.CDLL(str(build(only=[unit])[unit]))
             for fn, argtypes in SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
-            _LIBS[name] = lib
+            _LIBS[unit] = lib
         return lib
 
 

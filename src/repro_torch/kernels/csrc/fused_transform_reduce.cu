@@ -13,7 +13,8 @@
 // the (S, d_in) aggregate's round trip through device memory and a launch.
 //
 // Design: segment tiles over the plan's row offsets. Block b owns the TILE
-// consecutive segments [b * TILE, b * TILE + TILE) and their rows
+// (a template argument: the config's S_b, one of FOR_TILES, picked at run
+// time by ftr_launch) consecutive segments [b * TILE, b * TILE + TILE) and their rows
 // [row_ptr[lo], row_ptr[hi]) of the sorted index; it reads no chunk ranges
 // and no `seg` word (the row offsets say where each segment starts).
 //  * A tile with no rows (the padded nodes of a bucket) writes its zeros
@@ -63,10 +64,10 @@
 // fp32, 4 mod 32 bf16); the TILE + 1 row offsets and a fold plan of 8
 // bytes a segment. At 32 -> 64: 37,904 B fp32, 35,856 B bf16.
 //
-// TILE = 64 and U = 4 are the sweep's choice (python -m
-// repro_torch.kernel_variants --kernels fused_transform_reduce; H100 80GB
-// HBM3, 700 W): weighted sum fp32 32 -> 64 at the ogbn-arxiv bucket took
-// 0.1154 / 0.0995 / 0.1068 ms at TILE 32 / 64 / 128 and 0.1132 / 0.0994 /
+// U = 4 and the default tile TILE = 64 are the sweep's choice (python -m
+// repro_torch.kernel_variants; H100 80GB HBM3, 700 W; the measured PerfDB
+// of repro_torch.core.autotune picks the tile per shape class): weighted
+// sum fp32 32 -> 64 at the ogbn-arxiv bucket took 0.1154 / 0.0995 / 0.1068 ms at TILE 32 / 64 / 128 and 0.1132 / 0.0994 /
 // 0.1110 ms at U 2 / 4 / 8; 64 and 4 were the fastest, or within 0.1 %,
 // also at bf16 32 -> 64, fp32 64 -> 64 and 64 -> 16 and the mean (a larger
 // U holds more registers, so fewer blocks fit an SM; a larger tile leaves
@@ -82,29 +83,33 @@ namespace {
 
 constexpr int THREADS = 256;       // 8 warps
 constexpr int WARPS = THREADS / 32;
-constexpr int TILE = 64;           // segments a block owns
 constexpr int BN = 64;             // output columns of one product pass
 constexpr int MAX_SMEM = 232448;   // dynamic shared memory a block may use
 constexpr int SLAB = 16;           // rows of one mma fragment
-constexpr int SLABS = TILE / SLAB;
-static_assert(TILE % SLAB == 0 && WARPS % SLABS == 0 || SLABS % WARPS == 0,
-              "TILE must be 16, 32, 64 or 128");
+
+// The tiles built (the S_b axis of repro_torch.core.config_space,
+// TILE_SIZES there, which must list the same values): X(T) is expanded
+// once for each. kernels/_build.py compiles one library a value, from a
+// wrapper that defines this list as that value alone.
+#ifndef FOR_TILES
+#define FOR_TILES(X) X(32) X(64) X(128)
+#endif
 
 // Shared-memory geometry, in 32-bit words, for host and device.
 struct Geometry {
   int kstep, k_pad, kstride, n_pad, ostride, rp_words, w_words, a_words, s_words, o_words;
-  __host__ __device__ Geometry(bool f32, int d_in, int d_out) {
+  __host__ __device__ Geometry(bool f32, int d_in, int d_out, int tile) {
     kstep = f32 ? 8 : 16;
     k_pad = (d_in + kstep - 1) / kstep * kstep;
     const int kw = f32 ? k_pad : k_pad / 2;  // words of one row along k
     kstride = kw + (36 - kw % 32) % 32;
     n_pad = (d_out + 7) / 8 * 8;
     ostride = f32 ? BN + 8 : BN / 2 + 4;
-    rp_words = (2 * (TILE + 1) + 2 * TILE + 3) / 4 * 4;  // row offsets, fold plan
+    rp_words = (2 * (tile + 1) + 2 * tile + 3) / 4 * 4;  // row offsets, fold plan
     w_words = n_pad * kstride;
-    a_words = TILE * kstride;
+    a_words = tile * kstride;
     s_words = 2 * THREADS * (f32 ? 4 : 8);  // fp32 partials of a 16-byte vector
-    o_words = TILE * ostride;
+    o_words = tile * ostride;
   }
   // the output stage reuses the slots, which are dead once the fold is done
   __host__ __device__ int bytes() const {
@@ -112,7 +117,7 @@ struct Geometry {
   }
 };
 
-template <typename T, int V, int LPR>
+template <typename T, int V, int LPR, int TILE>
 __global__ void __launch_bounds__(THREADS)
 ftr_tiles(const T* __restrict__ h, const T* __restrict__ wm, const int* __restrict__ gidx,
           const T* __restrict__ wt, const int64_t* __restrict__ row_ptr, T* __restrict__ out,
@@ -125,8 +130,11 @@ ftr_tiles(const T* __restrict__ h, const T* __restrict__ wm, const int* __restri
   constexpr int NB = LPR > 8 ? LPR : 8;       // rows per index round
   constexpr int IPL = NB / LPR;               // index words a lane loads per round
   constexpr int U = 4;                        // H rows in flight per group
+  constexpr int SLABS = TILE / SLAB;
+  static_assert(TILE % SLAB == 0 && (WARPS % SLABS == 0 || SLABS % WARPS == 0),
+                "TILE must be 16, 32, 64 or 128");
   extern __shared__ __align__(16) uint32_t smem[];
-  const Geometry geo(F32, d_in, d_out);
+  const Geometry geo(F32, d_in, d_out, TILE);
   int64_t* rp = reinterpret_cast<int64_t*>(smem);
   int2* fold = reinterpret_cast<int2*>(rp + TILE + 1);     // per segment: see below
   uint32_t* ws = smem + geo.rp_words;                        // W^T, n_pad x kstride
@@ -384,12 +392,12 @@ struct Args {
   int d_in, d_out, num_segments, weighted, mean, vec_out;
 };
 
-template <typename T, int V, int LPR>
+template <typename T, int V, int LPR, int TILE>
 int launch(const Args& a, cudaStream_t st) {
-  const Geometry geo(sizeof(T) == 4, a.d_in, a.d_out);
+  const Geometry geo(sizeof(T) == 4, a.d_in, a.d_out, TILE);
   const int smem = geo.bytes();
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  auto kernel = ftr_tiles<T, V, LPR>;
+  auto kernel = ftr_tiles<T, V, LPR, TILE>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -401,40 +409,47 @@ int launch(const Args& a, cudaStream_t st) {
   return 0;
 }
 
-template <typename T, int V>
+template <typename T, int V, int TILE>
 int by_lanes(int lpr, const Args& a, cudaStream_t st) {
   switch (lpr) {
-    case 4: return launch<T, V, 4>(a, st);
-    case 8: return launch<T, V, 8>(a, st);
-    case 16: return launch<T, V, 16>(a, st);
-    case 32: return launch<T, V, 32>(a, st);
+    case 4: return launch<T, V, 4, TILE>(a, st);
+    case 8: return launch<T, V, 8, TILE>(a, st);
+    case 16: return launch<T, V, 16, TILE>(a, st);
+    case 32: return launch<T, V, 32, TILE>(a, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
+template <typename T, int TILE>
 int by_vec(int v, int lpr, const Args& a, cudaStream_t st) {
   switch (v) {
-    case 1: return by_lanes<T, 1>(lpr, a, st);
-    case 2: return by_lanes<T, 2>(lpr, a, st);
-    case 4: return by_lanes<T, 4>(lpr, a, st);
+    case 1: return by_lanes<T, 1, TILE>(lpr, a, st);
+    case 2: return by_lanes<T, 2, TILE>(lpr, a, st);
+    case 4: return by_lanes<T, 4, TILE>(lpr, a, st);
     case 8:
-      if constexpr (sizeof(T) == 2) return by_lanes<T, 8>(lpr, a, st);
+      if constexpr (sizeof(T) == 2) return by_lanes<T, 8, TILE>(lpr, a, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+template <int TILE>
+int by_dtype(int dtype, int v, int lpr, const Args& a, cudaStream_t st) {
+  return dtype == DT_F32 ? by_vec<float, TILE>(v, lpr, a, st)
+                         : by_vec<__nv_bfloat16, TILE>(v, lpr, a, st);
 }
 
 }  // namespace
 
 // Launches on `stream` and returns a CUDA error code (0 on success).
 // `row_ptr` holds num_segments + 1 int64 row offsets of the sorted segment
-// index; `wt` is read only when `weighted`.
+// index; `wt` is read only when `weighted`; `tile_segments` is the tile,
+// the config's S_b: one of the built FOR_TILES, any other is refused.
 extern "C" int ftr_launch(int dtype, int mean, int weighted, const void* h, const void* wm,
                           const void* gidx, const void* wt, const void* row_ptr, void* out,
                           int d_in, int d_out, int num_segments, int tile_segments,
                           void* stream) {
   cudaGetLastError();  // clear a stale error so the return is this launch's
-  if (tile_segments != TILE || d_in < 1 || d_out < 1 || num_segments < 1 ||
+  if (d_in < 1 || d_out < 1 || num_segments < 1 ||
       (dtype != DT_F32 && dtype != DT_BF16))
     return (int)cudaErrorInvalidValue;
   const int es = dtype == DT_F32 ? 4 : 2;
@@ -448,8 +463,15 @@ extern "C" int ftr_launch(int dtype, int mean, int weighted, const void* h, cons
   Args a{h, wm, gidx, wt, row_ptr, out, d_in, d_out, num_segments, weighted != 0,
          mean != 0, vec_out};
   cudaStream_t st = (cudaStream_t)stream;
-  const int err = dtype == DT_F32 ? by_vec<float>(v, lpr, a, st)
-                                  : by_vec<__nv_bfloat16>(v, lpr, a, st);
+  int err = (int)cudaErrorInvalidValue;
+  switch (tile_segments) {
+#define FTR_TILE(T)                                 \
+  case T:                                           \
+    err = by_dtype<T>(dtype, v, lpr, a, st);        \
+    break;
+    FOR_TILES(FTR_TILE)
+#undef FTR_TILE
+  }
   if (err != 0) return err;
   return (int)cudaGetLastError();
 }

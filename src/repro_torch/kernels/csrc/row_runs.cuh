@@ -7,11 +7,12 @@
 // Work is split by rows, not by segments, so no walk is longer than one run
 // whatever the degrees:
 //  * Pass 1 (gsr_runs). The sorted rows are cut into runs of RUN
-//    consecutive rows (a constant of the including kernel). A group of LPR
-//    lanes owns one run and spans a feature row with 16-byte vector loads
-//    (F = 64 fp32: 16 lanes a row, two runs a warp; bf16: 8 lanes, four
-//    runs). The group loads its run's seg (and gidx, w) words
-//    cooperatively, one coalesced word a lane, hands them out with
+//    consecutive rows (a template argument: the config's M_b, one of
+//    RUN_LENGTHS, picked at run time by the including kernel's launch).
+//    A group of LPR lanes owns one run and spans a feature row with
+//    16-byte vector loads (F = 64 fp32: 16 lanes a row, two runs a warp;
+//    bf16: 8 lanes, four runs). The group loads its run's seg (and gidx,
+//    w) words cooperatively, one coalesced word a lane, hands them out with
 //    __shfl_sync, and keeps 8 rows in flight while the next indices are
 //    already loading. It walks its run in order with an fp32 running value.
 //    A segment that lies wholly inside the run is written to Y; the one or
@@ -36,10 +37,18 @@
 //
 // An including file instantiates only what it launches: the gather
 // row_runs_launch<RUN, true>, segment_reduce row_runs_launch<RUN, false>
-// (no gather index, no weight).
+// (no gather index, no weight), each for every RUN of RUN_LENGTHS.
 #pragma once
 
 #include "common.cuh"
+
+// The run lengths built (the M_b axis of repro_torch.core.config_space,
+// RUN_LENGTHS there, which must list the same values): X(R) is expanded
+// once for each. kernels/_build.py compiles one library a value, from a
+// wrapper that defines this list as that value alone.
+#ifndef FOR_RUN_LENGTHS
+#define FOR_RUN_LENGTHS(X) X(64) X(128) X(256)
+#endif
 
 namespace {
 

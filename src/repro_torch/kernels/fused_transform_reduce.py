@@ -13,7 +13,7 @@ is cast to the io dtype before the product, as the reference does.
     ``repro/kernels/fused_transform_reduce.py:_fused_transform_reduce_impl``.
   * :func:`fused_transform_reduce_ref` — the plain PyTorch version.
   * :func:`fused_transform_reduce_blocked` — the kernel's schedule in plain
-    PyTorch: tiles of :data:`TILE_SEGMENTS` segments over the plan's row
+    PyTorch: tiles of ``tile`` segments (the config's S_b) over the plan's row
     offsets, one run of rows per lane group, cut segments folded in run
     order, the aggregate cast once, then the product.
   * :func:`fusable` — does one block's shared-memory footprint fit Hopper?
@@ -22,24 +22,22 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.config_space import SMEM_BYTES, KernelConfig, io_dtype_bytes
+from repro_torch.core.config_space import (DEFAULT_S_B, SMEM_BYTES, TILE_SIZES,
+                                           KernelConfig, io_dtype_bytes)
 from repro_torch.kernels import _build
 from repro_torch.kernels.gather_segment_reduce import (DTYPE_CODE, check_row_ptr,
                                                        check_rows,
                                                        gather_segment_reduce_ref)
 
-# segments of one block's tile: the constant TILE of
-# csrc/fused_transform_reduce.cu, which the launch checks against this copy
-TILE_SEGMENTS = 64
 THREADS = 256       # threads of a block (THREADS in the .cu source)
 BN = 64             # output columns of one product pass (BN in the .cu source)
 
 launches = 0        # launches of the CUDA kernel in this process
 
 
-def smem_bytes(d_in: int, d_out: int, dtype) -> int:
-    """One block's shared memory, as the kernel's ``Geometry`` lays it out:
-    the tile's TILE + 1 int64 row offsets and its fold plan (two int32 a
+def smem_bytes(d_in: int, d_out: int, dtype, tile: int = DEFAULT_S_B) -> int:
+    """One block's shared memory, as the kernel's ``Geometry`` lays it out
+    for a tile of ``tile`` segments: the tile + 1 int64 row offsets and its fold plan (two int32 a
     segment); W transposed (n_pad rows of the k words, padded to 4 mod 32);
     the (TILE, d_in) aggregate in the io dtype (the same row stride); and
     the larger of the slots (two fp32 partials of a 16-byte vector a
@@ -53,18 +51,19 @@ def smem_bytes(d_in: int, d_out: int, dtype) -> int:
     kstride = kw + (36 - kw % 32) % 32
     n_pad = -(-max(d_out, 1) // 8) * 8
     ostride = BN + 8 if f32 else BN // 2 + 4
-    rp_words = (2 * (TILE_SEGMENTS + 1) + 2 * TILE_SEGMENTS + 3) // 4 * 4
+    rp_words = (2 * (tile + 1) + 2 * tile + 3) // 4 * 4
     s_words = 2 * THREADS * (16 // es)
-    return 4 * (rp_words + n_pad * kstride + TILE_SEGMENTS * kstride
-                + max(s_words, TILE_SEGMENTS * ostride))
+    return 4 * (rp_words + n_pad * kstride + tile * kstride
+                + max(s_words, tile * ostride))
 
 
 def fusable(d_in: int, d_out: int, dtype, config: KernelConfig = None,
             budget: int = SMEM_BYTES) -> bool:
     """Does one launch's shared-memory footprint (W resident, the tile's
-    aggregate, slots and output stage) fit a Hopper block? ``config`` is
-    kept for the reference's signature; it no longer sizes the block."""
-    return smem_bytes(d_in, d_out, dtype) <= budget
+    aggregate, slots and output stage) fit a Hopper block, at the tile of
+    ``config`` (its S_b; the default tile without one)?"""
+    tile = DEFAULT_S_B if config is None else config.s_b
+    return smem_bytes(d_in, d_out, dtype, tile) <= budget
 
 
 def fused_transform_reduce_ref(h, w, gather_idx, seg_idx, num_segments: int,
@@ -92,9 +91,9 @@ def lanes_per_row(d_in: int, dtype) -> int:
 
 def fused_transform_reduce_blocked(h, w, gather_idx, seg_idx,
                                    num_segments: int, weight, reduce: str,
-                                   row_ptr, tile: int = TILE_SEGMENTS):
+                                   row_ptr, tile: int = DEFAULT_S_B):
     """The CUDA kernel's schedule in plain PyTorch. The segments are cut
-    into tiles of ``tile`` (the kernel's, unless a test asks for another).
+    into tiles of ``tile`` (the config's S_b, or another a test asks for).
     A tile's rows ``[row_ptr[lo], row_ptr[hi])`` are split evenly into one
     run per lane group (``THREADS / lanes_per_row`` runs of ceil(rows /
     runs) rows); each run reduces its rows per segment, writes a segment
@@ -157,15 +156,21 @@ def fused_transform_reduce_blocked(h, w, gather_idx, seg_idx,
 
 
 def fused_transform_reduce_cuda(h, w, gather_idx, seg_idx, num_segments: int,
-                                weight, reduce: str, row_ptr):
+                                weight, reduce: str, row_ptr,
+                                tile: int = DEFAULT_S_B):
     """Launch the Hopper kernel on the current stream (asynchronous).
     ``row_ptr`` is the plan's int64 row offsets of ``seg_idx`` on h's
     device; the kernel reads them and the gather indices, not ``seg_idx``
-    itself."""
+    itself. ``tile`` is the config's S_b, one of the built
+    :data:`~repro_torch.core.config_space.TILE_SIZES`."""
     global launches
     if reduce not in ("sum", "mean"):
         raise ValueError(f"fused transform-reduce is linear-only: reduce "
                          f"must be sum or mean, got {reduce!r}")
+    if tile not in TILE_SIZES:
+        raise ValueError(f"fused_transform_reduce: no kernel instance is "
+                         f"built for tiles of {tile} segments (S_b); built: "
+                         f"{TILE_SIZES}")
     num_rows = int(seg_idx.shape[0])
     check_rows("fused_transform_reduce", h,
                {"gather_idx": gather_idx, "seg_idx": seg_idx}, weight,
@@ -178,23 +183,23 @@ def fused_transform_reduce_cuda(h, w, gather_idx, seg_idx, num_segments: int,
     if gather_idx.shape[0] != num_rows:
         raise ValueError("gather_idx and seg_idx must have the same length")
     check_row_ptr("fused_transform_reduce", row_ptr, num_segments, h.device)
-    if not fusable(d_in, d_out, h.dtype):
+    if smem_bytes(d_in, d_out, h.dtype, tile) > SMEM_BYTES:
         raise ValueError(
-            f"(d_in={d_in}, d_out={d_out}) needs "
-            f"{smem_bytes(d_in, d_out, h.dtype)} B of shared memory, over "
+            f"(d_in={d_in}, d_out={d_out}) at a tile of {tile} needs "
+            f"{smem_bytes(d_in, d_out, h.dtype, tile)} B of shared memory, over "
             f"the {SMEM_BYTES} B of a Hopper block; use the two-launch "
             f"mp_transform path")
     out = torch.empty((num_segments, d_out), dtype=h.dtype, device=h.device)
     if num_segments == 0 or d_out == 0:
         return out
-    lib = _build.load("fused_transform_reduce")
+    lib = _build.load("fused_transform_reduce", tile)
     with torch.cuda.device(h.device):
         err = lib.ftr_launch(
             DTYPE_CODE[h.dtype], int(reduce == "mean"), int(weight is not None),
             _build.ptr(h), _build.ptr(w), _build.ptr(gather_idx),
             _build.ptr(weight if weight is not None else h),
             _build.ptr(row_ptr), _build.ptr(out), d_in, d_out, num_segments,
-            TILE_SEGMENTS, _build.stream_of(h))
+            tile, _build.stream_of(h))
     _build.check(err, "fused_transform_reduce")
     launches += 1
     return out

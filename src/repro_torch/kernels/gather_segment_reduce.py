@@ -14,8 +14,8 @@ the io dtype of ``h``):
   * :func:`gather_segment_reduce_ref` — the plain PyTorch version
     (``index_select`` + ``index_add_`` / ``scatter_reduce_`` in fp32).
   * :func:`gather_segment_reduce_blocked` — the kernel's schedule in plain
-    PyTorch: runs of :data:`RUN_ROWS` rows that write whole segments or keep partials
-    of cut ones, then a pass over the plan's row offsets that writes empty
+    PyTorch: runs of ``run_rows`` rows (the config's M_b) that write whole
+    segments or keep partials of cut ones, then a pass over the plan's row offsets that writes empty
     segments and folds the partials in run order. It is the CPU evidence
     that the kernel's use of the plan metadata is right.
 
@@ -25,15 +25,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.config_space import DEFAULT_M_B, RUN_LENGTHS
 from repro_torch.kernels import _build
 
 REDUCES = ("sum", "mean", "max")
 _REDUCE_CODE = {"sum": 0, "mean": 1, "max": 2}
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-# rows of one run of the kernel's schedule: the constant RUN of
-# csrc/gather_segment_reduce.cu, which the launch checks against this copy
-RUN_ROWS = 64
 
 launches = 0    # wrapper launches in this process (each is two kernels)
 
@@ -91,10 +88,11 @@ def row_offsets(seg_idx, num_segments: int):
 
 def gather_segment_reduce_blocked(h, gather_idx, seg_idx, num_segments: int,
                                   weight, reduce: str, row_ptr,
-                                  run_rows: int = RUN_ROWS):
+                                  run_rows: int = DEFAULT_M_B):
     """The CUDA kernel's row-run schedule in plain PyTorch. Pass 1: the rows
-    are cut into runs of ``run_rows`` (the kernel's, unless a test asks for
-    shorter runs to cut more segments at a small size); each run reduces its rows per segment, and
+    are cut into runs of ``run_rows`` (the config's M_b: any built length,
+    or a shorter one a test asks for to cut more segments at a small size);
+    each run reduces its rows per segment, and
     writes a segment that lies wholly inside it to the output, or keeps the
     value as a partial (slot 0: the segment of the run's first row, slot 1:
     that of its last row) if the run's ends cut it. Pass 2, per segment from
@@ -172,15 +170,26 @@ def check_row_ptr(name: str, row_ptr, num_segments: int, device) -> None:
                          f"({num_segments + 1},) int64 tensor on {device}")
 
 
+def check_run_rows(name: str, run_rows: int) -> None:
+    """A run length the row-run kernels were built for, or ValueError
+    before any launch."""
+    if run_rows not in RUN_LENGTHS:
+        raise ValueError(f"{name}: no kernel instance is built for runs of "
+                         f"{run_rows} rows (M_b); built: {RUN_LENGTHS}")
+
+
 def gather_segment_reduce_cuda(h, gather_idx, seg_idx, num_segments: int,
-                               weight, reduce: str, row_ptr):
+                               weight, reduce: str, row_ptr,
+                               run_rows: int = DEFAULT_M_B):
     """Launch the Hopper kernel on the current stream (asynchronous): two
     kernels, the runs and the fix-up pass, counted as one launch.
     ``row_ptr`` is :func:`row_offsets` of ``seg_idx`` on h's device (the
-    plan's)."""
+    plan's); ``run_rows`` is the config's M_b, one of the built
+    :data:`~repro_torch.core.config_space.RUN_LENGTHS`."""
     global launches
     if reduce not in REDUCES:
         raise ValueError(f"unknown reduce: {reduce!r}")
+    check_run_rows("gather_segment_reduce", run_rows)
     num_rows = int(seg_idx.shape[0])
     check_rows("gather_segment_reduce", h,
                {"gather_idx": gather_idx, "seg_idx": seg_idx}, weight,
@@ -192,16 +201,16 @@ def gather_segment_reduce_cuda(h, gather_idx, seg_idx, num_segments: int,
     out = torch.empty((num_segments, feat), dtype=h.dtype, device=h.device)
     if num_segments == 0 or feat == 0:
         return out
-    runs = (num_rows + RUN_ROWS - 1) // RUN_ROWS
+    runs = (num_rows + run_rows - 1) // run_rows
     part = torch.empty((2 * runs, feat), dtype=torch.float32, device=h.device)
-    lib = _build.load("gather_segment_reduce")
+    lib = _build.load("gather_segment_reduce", run_rows)
     with torch.cuda.device(h.device):
         err = lib.gsr_launch(
             DTYPE_CODE[h.dtype], _REDUCE_CODE[reduce], int(weight is not None),
             _build.ptr(h), _build.ptr(gather_idx), _build.ptr(seg_idx),
             _build.ptr(weight if weight is not None else h),
             _build.ptr(row_ptr), _build.ptr(part), _build.ptr(out),
-            num_rows, feat, num_segments, RUN_ROWS, _build.stream_of(h))
+            num_rows, feat, num_segments, run_rows, _build.stream_of(h))
     _build.check(err, "gather_segment_reduce")
     launches += 1
     return out

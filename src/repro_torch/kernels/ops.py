@@ -13,12 +13,17 @@ Backend (``impl``):
 
 There is no fallback: a CUDA tensor reaches the kernel or the call raises.
 
-Config: segment_matmul tiles by ``plan`` > explicit ``config=`` > the
-Hopper default. The segment kernels (gather_segment_reduce, segment_reduce,
-segment_softmax, fused_transform_reduce) have run lengths and tiles of
-their own and read nothing of a config: for them ``config=`` is only
-checked against the plan. Either way a plan's tiling is authoritative and
-an explicit config must agree with it.
+Config: every kernel reads its axis from ``plan`` > explicit ``config=``
+> :func:`~repro_torch.core.config_space.default_config`. The gather and
+segment_reduce run in runs of the config's M_b rows, the fused kernel in
+tiles of its S_b segments (each launch loads the built instance; a value
+with none raises ValueError before the launch and never runs another),
+segment_matmul's metadata tiles rows by M_b; the softmax and sddmm read
+no axis. A plan's tiling is authoritative and an explicit
+config must agree with it. The ``"blocked"`` mirrors run the same run
+length and tile. The backward's transposed walks (:func:`transposed_gather`)
+run at the default run length: their index is the graph's sources, not the
+shape class the forward's config was selected for.
 A plan's metadata must lie on the data's device: no call copies it (build
 plans with ``device=``, or move one once with ``plan.to``).
 
@@ -55,7 +60,6 @@ from repro_torch.kernels import sddmm as _sdd
 from repro_torch.kernels import segment_matmul as _smm
 from repro_torch.kernels import segment_reduce as _srd
 from repro_torch.kernels import segment_softmax as _ssm
-from repro_torch.kernels.segment_reduce import _resolve_plan
 
 IMPLS = ("cuda", "ref", "blocked")
 _KERNEL_MODULES = {"gather_segment_reduce": _gsr,
@@ -175,11 +179,20 @@ def fusion_scope():
 # plan metadata
 # ---------------------------------------------------------------------------
 
-def _check_plan(plan, num_rows: int, num_segments: int,
-                config: Optional[KernelConfig]) -> None:
-    """For the segment kernels, which read no tiling: the plan must fit
-    the data and an explicit config must agree with the plan's."""
-    _resolve_plan(plan, num_rows, num_segments, config, None)
+def _segment_config(plan, num_rows: int, num_segments: int,
+                    config: Optional[KernelConfig], feat: int) -> KernelConfig:
+    """The config a segment kernel runs: the plan's (which must fit the
+    data, and with which an explicit config must agree on (s_b, m_b)),
+    else the explicit one, else the default for ``feat``."""
+    if plan is None:
+        return config if config is not None else default_config(feat)
+    plan.validate(num_rows, num_segments)
+    if config is not None and \
+            (config.s_b, config.m_b) != (plan.config.s_b, plan.config.m_b):
+        raise ValueError(
+            f"explicit config (s_b={config.s_b}, m_b={config.m_b}) conflicts "
+            f"with plan tiling (s_b={plan.config.s_b}, m_b={plan.config.m_b})")
+    return plan.config
 
 
 def _on_device(plan, t) -> None:
@@ -216,8 +229,7 @@ def gather_segment_reduce(h, gather_idx, seg_idx, num_segments: int,
                           impl: Optional[str] = None):
     """Y[s] = reduce_{seg[i]==s} (w[i]·) H[gather_idx[i]], one launch for
     every reduce ∈ {sum, mean, max}, weighted or not. ``seg_idx`` must be
-    sorted non-decreasing. ``config`` is only checked against ``plan``: the
-    kernel's run length is its own."""
+    sorted non-decreasing. Runs of the config's M_b rows."""
     if reduce not in _gsr.REDUCES:
         raise ValueError(f"unknown reduce: {reduce!r}")
     impl = resolve_impl(h, impl)
@@ -230,16 +242,18 @@ def gather_segment_reduce(h, gather_idx, seg_idx, num_segments: int,
         account("unfused", f"{op}:ref")
         return _gsr.gather_segment_reduce_ref(h, gather_idx, seg_idx,
                                               num_segments, weight, reduce)
-    _check_plan(plan, int(seg_idx.shape[0]), num_segments, config)
+    m_b = _segment_config(plan, int(seg_idx.shape[0]), num_segments, config,
+                          int(h.shape[-1])).m_b
     row_ptr = _row_ptr(plan, seg_idx, num_segments)
     if impl == "blocked":
         account("unfused", f"{op}:blocked")
         return _gsr.gather_segment_reduce_blocked(
-            h, gather_idx, seg_idx, num_segments, weight, reduce, row_ptr)
+            h, gather_idx, seg_idx, num_segments, weight, reduce, row_ptr,
+            m_b)
     account("fused", op)
     return _gsr.gather_segment_reduce_cuda(
         h.contiguous(), _index32(gather_idx), _index32(seg_idx), num_segments,
-        None if weight is None else weight.contiguous(), reduce, row_ptr)
+        None if weight is None else weight.contiguous(), reduce, row_ptr, m_b)
 
 
 def transposed_gather(g, rows, src, row_ptr, num_out: int, weight=None,
@@ -272,12 +286,12 @@ def segment_softmax(x, idx, num_segments: int,
                     impl: Optional[str] = None):
     """Softmax within sorted segments, (E,) or (E, H) logits, one launch.
     ``config`` is only checked against ``plan``: the kernel's run length is
-    its own."""
+    a constant of its own."""
     impl = resolve_impl(x, impl)
     if impl == "ref":
         account("unfused", "segment_softmax:ref")
         return _ssm.segment_softmax_ref(x, idx, num_segments)
-    _check_plan(plan, int(idx.shape[0]), num_segments, config)
+    _segment_config(plan, int(idx.shape[0]), num_segments, config, 1)
     row_ptr = _row_ptr(plan, idx, num_segments)
     if impl == "blocked":
         account("unfused", "segment_softmax:blocked")
@@ -294,8 +308,7 @@ def fused_transform_reduce(h, w, gather_idx, seg_idx, num_segments: int,
     """One-launch SpMM+GEMM: Y[s] = (reduce_{seg[i]==s} wt[i]·H[gidx[i]]) @ W
     for reduce ∈ {sum, mean}; neither the (|E|, d) edge tensor nor the
     (S, d_in) aggregate is materialized. ``seg_idx`` must be sorted
-    non-decreasing. ``config`` is only checked against ``plan``: the
-    kernel's tile is its own."""
+    non-decreasing. Tiles of the config's S_b segments."""
     if reduce not in ("sum", "mean"):
         raise ValueError(f"unknown reduce: {reduce!r} "
                          "(fused transform-reduce supports sum/mean)")
@@ -308,18 +321,19 @@ def fused_transform_reduce(h, w, gather_idx, seg_idx, num_segments: int,
         account("unfused", f"{op}:ref")
         return _ftr.fused_transform_reduce_ref(h, w, gather_idx, seg_idx,
                                                num_segments, weight, reduce)
-    _check_plan(plan, int(seg_idx.shape[0]), num_segments, config)
+    s_b = _segment_config(plan, int(seg_idx.shape[0]), num_segments, config,
+                          int(h.shape[-1])).s_b
     row_ptr = _row_ptr(plan, seg_idx, num_segments)
     if impl == "blocked":
         account("unfused", f"{op}:blocked")
         return _ftr.fused_transform_reduce_blocked(
             h, w.to(h.dtype), gather_idx, seg_idx, num_segments, weight,
-            reduce, row_ptr)
+            reduce, row_ptr, s_b)
     account("fused", op)
     return _ftr.fused_transform_reduce_cuda(
         h.contiguous(), w.to(h.dtype).contiguous(), _index32(gather_idx),
         _index32(seg_idx), num_segments,
-        None if weight is None else weight.contiguous(), reduce, row_ptr)
+        None if weight is None else weight.contiguous(), reduce, row_ptr, s_b)
 
 
 def segment_reduce(x, idx, num_segments: int, reduce: str = "sum",
@@ -327,8 +341,7 @@ def segment_reduce(x, idx, num_segments: int, reduce: str = "sum",
                    impl: Optional[str] = None):
     """Y[s] = reduce_{idx[i]==s} X[i], one launch for reduce ∈ {sum, mean,
     max} (the mean's count lives in the kernel). ``idx`` must be sorted
-    non-decreasing. ``config`` is only checked against ``plan``: the
-    kernel's run length is its own."""
+    non-decreasing. Runs of the config's M_b rows."""
     if reduce not in _gsr.REDUCES:
         raise ValueError(f"unknown reduce: {reduce!r}")
     impl = resolve_impl(x, impl)
@@ -336,15 +349,16 @@ def segment_reduce(x, idx, num_segments: int, reduce: str = "sum",
     if impl == "ref":
         account("unfused", f"{op}:ref")
         return _srd.segment_reduce_ref(x, idx, num_segments, reduce)
-    _check_plan(plan, int(idx.shape[0]), num_segments, config)
+    m_b = _segment_config(plan, int(idx.shape[0]), num_segments, config,
+                          int(x.shape[-1])).m_b
     row_ptr = _row_ptr(plan, idx, num_segments)
     if impl == "blocked":
         account("unfused", f"{op}:blocked")
         return _srd.segment_reduce_blocked(x, idx, num_segments, reduce,
-                                           row_ptr)
+                                           row_ptr, m_b)
     account("fused", op)
     return _srd.segment_reduce_cuda(x.contiguous(), _index32(idx),
-                                    num_segments, reduce, row_ptr)
+                                    num_segments, reduce, row_ptr, m_b)
 
 
 def sddmm(a, b, row_idx, col_idx, impl: Optional[str] = None):

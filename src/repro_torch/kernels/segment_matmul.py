@@ -22,9 +22,12 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.gather_segment_reduce import DTYPE_CODE
-from repro_torch.kernels.segment_reduce import _round_up
 
 launches = 0    # launches of the CUDA kernel in this process
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
 
 
 def group_metadata(group_sizes, num_rows: int, m_b: int):

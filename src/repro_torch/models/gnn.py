@@ -354,10 +354,13 @@ def cross_entropy(logits, labels, mask=None):
     return (mask * nll).sum() / mask.sum().clamp_min(1.0)
 
 
-def make_model_plan(edge_index, num_nodes: int, feat: int, config=None,
-                    device=None):
-    """One :class:`~repro_torch.core.plan.SegmentPlan` for every layer of a
-    model on this graph (``feat``: the widest layer width), on ``device``."""
+def make_model_plan(edge_index, num_nodes: int, feat: int,
+                    tune: Optional[bool] = None, config=None, device=None):
+    """One :class:`~repro_torch.core.plan.SegmentPlan` for every layer (and
+    every backward) of a model on this graph (``feat``: the widest layer
+    width), on ``device``. ``tune=True`` selects the config from a sweep
+    measured on the card, once per shape class (kept in the PerfDB),
+    instead of the generated rules."""
     from repro_torch.core.plan import make_graph_plan
     return make_graph_plan(edge_index, num_nodes, feat=feat, config=config,
-                           device=device)
+                           device=device, tune=tune)

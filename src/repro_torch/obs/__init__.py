@@ -10,7 +10,8 @@ stdlib only.
     context managers building per-request / per-step span trees, with a
     ring-buffer trace log and Chrome ``trace_event`` export.
   * **attribution hooks** (:mod:`repro_torch.obs.hooks`) — every bucket
-    build, plan-cache miss or eviction and bucket probe records a
+    build, plan-cache miss or eviction, autotuner consult and bucket probe
+    records a
     structured cause, so ``why_built()`` answers "why did step 37 build?".
 
 The counter APIs (``fusion_counts``, ``CacheStats``, ``GNNServer.stats``,
@@ -51,17 +52,19 @@ is the reference's with these changes (``=``: the same name):
     train.steps                     trainer       =
     train.buckets                   trainer       train.traces
     build.events                    site, cause   compile.events
+    autotune.tunes                  op, outcome   =
     -                                             serve.plan_cache.compiles
     -                                             serve.plan_cache.compile_s
-    -                                             autotune.tunes
 
 ``serve.builds`` counts the first run of a bucket's entry;
 ``train.buckets`` the first step on a new ``GraphStatic``;
 ``build.events`` is filled by :func:`record_build` (the reference's
 ``record_compile``) and read by :func:`why_built` (``why_compiled``).
 The plan cache's ``plan_builds`` / ``plan_build_s`` already count the
-entry, so its compile pair is dropped; ``autotune.tunes`` and
-``record_tune`` wait for the autotuner. No span is named ``*.compile``:
+entry, so its compile pair is dropped. ``autotune.tunes`` counts
+:func:`record_tune`'s consults of the autotuner (outcome ``hit`` or
+``sweep``); a sweep runs inside the span ``autotune.tune``. No span is
+named ``*.compile``:
 ``serve.execute`` and ``train.execute`` carry ``new_bucket=True`` on a
 bucket's first run.
 
@@ -83,7 +86,7 @@ from repro_torch.obs.export import (start_flusher, stop_flusher, to_jsonl,
                                     write_prometheus)
 from repro_torch.obs.hooks import (attributions, record_build,
                                    record_cache_event, record_probe,
-                                   reset_events, why_built)
+                                   record_tune, reset_events, why_built)
 from repro_torch.obs.registry import (Counter, Gauge, Histogram,
                                       MetricsRegistry, get_registry, next_id)
 from repro_torch.obs.trace import (Span, chrome_trace, current_span,
@@ -99,7 +102,7 @@ __all__ = [
     "span", "spans", "current_span", "reset_spans", "Span",
     "chrome_trace", "write_chrome_trace",
     # attribution
-    "record_build", "record_cache_event", "record_probe",
+    "record_build", "record_cache_event", "record_tune", "record_probe",
     "attributions", "why_built", "reset_events",
     # export
     "to_jsonl", "write_jsonl", "to_prometheus", "write_prometheus",
@@ -140,8 +143,9 @@ OBS_SCHEMA = {
     # trainer (one label value per Trainer instance)
     "train.steps":                ("trainer",),
     "train.buckets":              ("trainer",),
-    # attribution counter
+    # attribution counters
     "build.events":               ("site", "cause"),
+    "autotune.tunes":             ("op", "outcome"),
 }
 
 

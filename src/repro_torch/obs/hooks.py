@@ -1,5 +1,6 @@
 """Attribution hooks: every expensive or surprising event — a bucket's
-first run, a plan-cache miss or eviction, a bucket probe — records a
+first run, a plan-cache miss or eviction, an autotuner sweep or PerfDB
+hit, a bucket probe — records a
 structured *cause*, so "why did step 37 build?" is answerable from the
 telemetry dump alone. As the reference's (``repro/obs/hooks.py``), with
 builds in place of compiles: PyTorch runs eagerly, so what the port pays
@@ -27,7 +28,7 @@ from typing import List, Optional
 
 from repro_torch.obs import registry as _registry
 
-__all__ = ["record_build", "record_cache_event", "record_probe",
+__all__ = ["record_build", "record_cache_event", "record_tune", "record_probe",
            "attributions", "why_built", "reset_events"]
 
 _RING_CAP = int(os.environ.get("REPRO_OBS_EVENTS", "1024"))
@@ -59,6 +60,17 @@ def record_cache_event(cache: str, cause: str, **detail) -> None:
     cache's counters carry). Hits are not recorded here — they are the
     steady state the counters already measure."""
     _record("cache", f"plan_cache:{cache}", cause, detail)
+
+
+def record_tune(op: str, *, cache_hit: bool, timings: int = 0,
+                **detail) -> None:
+    """One autotuner consult: a warm PerfDB hit or a paid sweep on the card
+    (``timings`` kernel configurations timed)."""
+    outcome = "hit" if cache_hit else "sweep"
+    _registry.get_registry().counter(
+        "autotune.tunes", labels=("op", "outcome")).inc(op=op,
+                                                        outcome=outcome)
+    _record("tune", f"autotune:{op}", outcome, dict(detail, timings=timings))
 
 
 def record_probe(site: str, bucket, **detail) -> None:

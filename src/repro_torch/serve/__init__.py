@@ -4,9 +4,9 @@ from repro_torch.serve.buckets import (BucketPolicy, ShapeBucket, bucket_for,
                                        bucket_rungs, bucket_size, pad_to_bucket)
 from repro_torch.serve.engine import GNNServer, ServedResult
 from repro_torch.serve.plan_cache import (BucketEntry, CacheStats, PlanCache,
-                                          bucket_max_chunks)
+                                          measured_config)
 
 __all__ = ["GraphBatcher", "GraphRequest", "BucketPolicy", "ShapeBucket",
            "bucket_for", "bucket_rungs", "bucket_size", "pad_to_bucket",
            "GNNServer", "ServedResult", "BucketEntry", "CacheStats",
-           "PlanCache", "bucket_max_chunks"]
+           "PlanCache", "measured_config"]

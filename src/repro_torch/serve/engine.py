@@ -4,9 +4,9 @@ One ``step()`` of the serving loop:
 
     queue ──GraphBatcher──▶ block-diagonal batch (batch_graphs)
           ──buckets──────▶ pad to the batch's ShapeBucket (drop-id edges)
-          ──PlanCache────▶ BucketEntry: canonical config / max_chunks / stats
+          ──PlanCache────▶ BucketEntry: canonical config / stats
           ──copy─────────▶ the padded arrays to the device
-          ──stamp────────▶ per-request chunk metadata, on the device
+          ──stamp────────▶ per-request row offsets, on the device
           ──execute──────▶ the model's layers, each aggregation one kernel
           ──fetch────────▶ logits back to the host, unpadded and unbatched
 
@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -38,7 +39,6 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.core.config_space import default_config
 from repro_torch.core.device import resolve_device
 from repro_torch.data.graphs import (Graph, batch_graphs, synth_graph,
                                      unbatch_nodes, unpad_nodes)
@@ -47,7 +47,7 @@ from repro_torch.models.gnn import GNN, MODELS
 from repro_torch.obs import span
 from repro_torch.serve.batcher import GraphBatcher, GraphRequest
 from repro_torch.serve.buckets import BucketPolicy, ShapeBucket, pad_to_bucket
-from repro_torch.serve.plan_cache import BucketEntry, PlanCache
+from repro_torch.serve.plan_cache import BucketEntry, PlanCache, bucket_config
 
 __all__ = ["ServedResult", "GNNServer"]
 
@@ -97,8 +97,12 @@ class GNNServer:
 
     Knobs: bucket ``policy`` (pad waste vs cache entries),
     ``cache_capacity`` (entries held), batch budget + ``max_wait_s``
-    (throughput vs tail latency). On the card every aggregation runs its
-    CUDA kernel; on the CPU its plain version.
+    (throughput vs tail latency), ``tune`` (pay sweeps on the card, at a
+    bucket's first build, for measured kernel configs) and ``perfdb``
+    (the :class:`~repro_torch.core.autotune.PerfDB` the buckets' configs
+    are looked up in and swept into; the default one otherwise). On the
+    card every aggregation runs its CUDA kernel; on the CPU its plain
+    version.
     """
 
     def __init__(self, model: GNN, family: Optional[str] = None, *,
@@ -108,7 +112,9 @@ class GNNServer:
                  max_batch_nodes: int = 4096,
                  max_batch_edges: Optional[int] = None,
                  max_batch_graphs: int = 16,
-                 max_wait_s: float = 0.0):
+                 max_wait_s: float = 0.0,
+                 tune: bool = False,
+                 perfdb=None):
         family = model.family if family is None else family
         if family not in MODELS or family != model.family:
             raise ValueError(f"model is a {model.family!r}; family must be "
@@ -118,6 +124,12 @@ class GNNServer:
         self.family = family
         self.feat = max(model.dims)     # sizes the bucket's kernel config
         self.policy = policy or BucketPolicy()
+        self.tune = bool(tune)
+        if perfdb is None or isinstance(perfdb, (str, os.PathLike)):
+            # one PerfDB for the engine's lifetime: its JSON is parsed once
+            from repro_torch.core.autotune import PerfDB
+            perfdb = PerfDB(perfdb)
+        self._perfdb = perfdb
         self.cache = PlanCache(capacity=cache_capacity)
         self.batcher = GraphBatcher(max_batch_nodes=max_batch_nodes,
                                     max_batch_edges=max_batch_edges,
@@ -172,7 +184,13 @@ class GNNServer:
         return (bucket, self.feat, self.family, str(self.device))
 
     def _build_entry(self, bucket: ShapeBucket) -> BucketEntry:
-        return BucketEntry(bucket, self.feat, default_config(self.feat))
+        """The bucket's cache line, its config resolved once
+        (:func:`~repro_torch.serve.plan_cache.bucket_config`): the measured
+        PerfDB winner for the bucket's shape class > with ``tune=True``, a
+        sweep on the card > the generated rules."""
+        return BucketEntry(bucket, self.feat,
+                           bucket_config(bucket, self.feat, tune=self.tune,
+                                         db=self._perfdb))
 
     def _entry(self, bucket: ShapeBucket, weight: int = 1,
                warm: bool = False) -> BucketEntry:

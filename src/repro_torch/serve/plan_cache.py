@@ -2,18 +2,19 @@
 
 A :class:`BucketEntry` canonicalizes everything static per bucket:
 
-  * one :class:`~repro_torch.core.config_space.KernelConfig` (the Hopper
-    default for the served width; measured selection is not ported yet);
-  * ``max_chunks`` pinned to the bucket-static worst case;
+  * one :class:`~repro_torch.core.config_space.KernelConfig`, resolved once
+    per bucket by the engine — a measured PerfDB winner when one exists for
+    the bucket's shape class (:func:`measured_config`, a pure lookup), a
+    sweep with ``tune=True``, else the generated rules;
   * canonical per-bucket :class:`~repro_torch.core.plan.SegmentStats`
-    (skew 1), so every decision made from the template is a function of the
-    bucket, not of the request.
+    (skew 1), so every decision made from the template (the transform
+    order included) is a function of the bucket, not of the request.
 
-Per request only the plan's chunk metadata and row offsets change:
-:meth:`BucketEntry.stamp` recomputes them (``searchsorted`` over the
-padded destinations) under the template — no plan or config work on a
-cache hit. There is no compiled program to keep: PyTorch runs eagerly,
-so an entry is "built" once per bucket and then reused.
+Per request only the plan's row offsets change: :meth:`BucketEntry.stamp`
+recomputes them (``searchsorted`` over the padded destinations) under the
+template — no plan or config work on a cache hit. There is no compiled
+program to keep: PyTorch runs eagerly, so an entry is "built" once per
+bucket and then reused.
 
 The cache is a capacity-bounded, thread-safe LRU (the prefetch pipeline's
 producer threads share it with the consumer); ``warm`` prefills entries
@@ -36,21 +37,48 @@ from repro_torch import obs
 from repro_torch.core.config_space import KernelConfig
 from repro_torch.core.plan import SegmentPlan, SegmentStats
 from repro_torch.kernels.gather_segment_reduce import row_offsets
-from repro_torch.kernels.segment_reduce import chunk_metadata
 from repro_torch.serve.buckets import ShapeBucket
 
-__all__ = ["CacheStats", "BucketEntry", "PlanCache", "bucket_max_chunks"]
+__all__ = ["CacheStats", "BucketEntry", "PlanCache", "measured_config",
+           "bucket_config"]
 
 
-def _round_up(x: int, m: int) -> int:
-    return (x + m - 1) // m * m
+def measured_config(bucket: ShapeBucket, feat: int,
+                    op: str = "gather_segment_reduce",
+                    db=None) -> Optional[KernelConfig]:
+    """The PerfDB's measured winner of ``op`` for the bucket's shape class
+    on this card, or None. A lookup only: serving never pays a sweep
+    inline (populate the DB with ``tune=True``)."""
+    from repro_torch.core import autotune
+    return autotune.lookup(op, idx_size=max(bucket.num_edges, 1),
+                           num_segments=max(bucket.num_nodes, 1), feat=feat,
+                           db=db)
 
 
-def bucket_max_chunks(bucket: ShapeBucket, config: KernelConfig) -> int:
-    """Bucket-static chunk bound: every row block (``ceil(E_bucket / m_b)``)
-    covers any graph in the bucket."""
-    m_pad = _round_up(max(bucket.num_edges, 1), config.m_b)
-    return max(m_pad // config.m_b, 1)
+def bucket_config(bucket: ShapeBucket, feat: int, *, tune: bool = False,
+                  db=None) -> KernelConfig:
+    """The bucket's canonical config, per axis: the PerfDB's measured
+    winner for the bucket's shape class (the gather's for M_b, the fused
+    kernel's for S_b) > with ``tune=True``, a sweep on the card, stored
+    under the same shape class and ``db`` > the generated rules."""
+    from repro_torch.core import autotune
+    from repro_torch.core.heuristics import fusable_width, select_config
+    e, v = max(bucket.num_edges, 1), max(bucket.num_nodes, 1)
+    rules = select_config(e, max(min(bucket.num_edges, bucket.num_nodes), 1),
+                          feat, tune=False)
+
+    def measured(op: str) -> Optional[KernelConfig]:
+        cfg = measured_config(bucket, feat, op, db)
+        if cfg is None and tune:
+            cfg = autotune.tune(op=op, idx_size=e, num_segments=v,
+                                feat=feat, db=db).config
+        return cfg
+
+    m_b = (measured("gather_segment_reduce") or rules).m_b
+    s_b = rules.s_b
+    if fusable_width(feat):
+        s_b = (measured("fused_transform_reduce") or rules).s_b
+    return KernelConfig("SR", s_b, rules.n_b, m_b, 1)
 
 
 def _canonical_stats(bucket: ShapeBucket) -> SegmentStats:
@@ -73,40 +101,25 @@ class BucketEntry:
         self.executed = False
         self.feat = int(feat)
         self.config = config
-        self.max_chunks = bucket_max_chunks(bucket, config)
-        self.m_pad = _round_up(max(bucket.num_edges, 1), config.m_b)
-        # all-pad index: the template's metadata describes "no real edges";
-        # stamp() replaces it with a request's actual chunk metadata
-        self.template = self._stamp_plan(
-            torch.full((0,), bucket.num_nodes, dtype=torch.int32),
-            template=None)
-
-    def _stamp_plan(self, dst: torch.Tensor, template) -> SegmentPlan:
-        v, cfg = self.bucket.num_nodes, self.config
-        idxp = torch.full((self.m_pad,), v, dtype=torch.int32,
-                          device=dst.device)
-        idxp[:dst.numel()] = dst
-        cf, cc = chunk_metadata(idxp, v, cfg.s_b, cfg.m_b, self.m_pad)
-        rp = row_offsets(idxp, v)
-        if template is not None:
-            return dataclasses.replace(template, chunk_first=cf,
-                                       chunk_count=cc, row_ptr=rp)
-        return SegmentPlan(chunk_first=cf, chunk_count=cc, row_ptr=rp,
-                           num_rows=self.bucket.num_edges, num_segments=v,
-                           max_chunks=self.max_chunks, config=cfg,
-                           stats=_canonical_stats(self.bucket))
+        # all-pad index: the template's row offsets describe "no real
+        # edges"; stamp() replaces them with a request's
+        self.template = SegmentPlan(
+            row_ptr=torch.zeros(bucket.num_nodes + 1, dtype=torch.int64),
+            num_rows=bucket.num_edges, num_segments=bucket.num_nodes,
+            config=config, stats=_canonical_stats(bucket))
 
     def stamp(self, dst) -> SegmentPlan:
-        """A servable plan for one padded graph: the request's chunk
-        metadata and row offsets under the bucket's static fields. It is computed where
-        ``dst`` lies (a numpy array gives CPU tensors), so a server stamps
-        on the card from the destinations it has already copied there."""
+        """A servable plan for one padded graph: the request's row offsets
+        under the bucket's static fields. They are computed where ``dst``
+        lies (a numpy array gives CPU tensors), so a server stamps on the
+        card from the destinations it has already copied there."""
         dst = torch.as_tensor(dst)
         if dst.numel() != self.bucket.num_edges:
             raise ValueError(
                 f"stamp expects {self.bucket.num_edges} padded edges "
                 f"(bucket {self.bucket}), got {dst.numel()}")
-        return self._stamp_plan(dst, self.template)
+        return dataclasses.replace(
+            self.template, row_ptr=row_offsets(dst, self.bucket.num_nodes))
 
 
 class CacheStats:
@@ -189,6 +202,12 @@ class PlanCache:
     def keys(self):
         with self._lock:
             return list(self._entries)
+
+    def entries(self) -> list:
+        """(key, entry) of every cache line, least recently used first;
+        counts no hit or miss."""
+        with self._lock:
+            return list(self._entries.items())
 
     def lookup(self, key: Hashable, weight: int = 1) -> Optional[BucketEntry]:
         with self._lock:

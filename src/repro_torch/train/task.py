@@ -4,7 +4,7 @@ loop runs (the trainer). As the reference's (``repro/train/task.py``), a
 task has three methods:
 
   * ``init(rng) -> params``: a dict of parameter tensors;
-  * ``prepare(batch, *, plan=None, config=None, mesh=None)
+  * ``prepare(batch, *, plan=None, config=None, tune=None, mesh=None)
     -> (arrays, static)``: the batch's tensors on the task's device with
     its plans, and a hashable shape bucket;
   * ``loss(params, arrays, static, rng) -> (loss, metrics)``.
@@ -41,7 +41,7 @@ class Task(Protocol):
     def init(self, rng) -> Any:                        # pragma: no cover
         ...
 
-    def prepare(self, batch, *, plan=None, config=None,
+    def prepare(self, batch, *, plan=None, config=None, tune=None,
                 mesh=None) -> tuple:                   # pragma: no cover
         ...
 
@@ -125,7 +125,8 @@ class NodeClassification:
         return {k: p.detach().requires_grad_()
                 for k, p in model.named_parameters()}
 
-    def prepare(self, batch, *, plan=None, config=None, mesh=None):
+    def prepare(self, batch, *, plan=None, config=None, tune=None,
+                mesh=None):
         if mesh is not None:
             raise NotImplementedError(
                 "sharded training is not ported yet (ROADMAP Queue A item 6)")
@@ -147,10 +148,10 @@ class NodeClassification:
         # once, at its first step
         arrays["plan"] = (plan if plan is not None else
                           g.make_plan(self.plan_feat, config=config,
-                                      device=self.device))
+                                      device=self.device, tune=tune))
         if typed:
             arrays["rplan"] = g.make_relation_plan(
-                self.plan_feat, config=config, device=self.device)
+                self.plan_feat, config=config, device=self.device, tune=tune)
         return arrays, static
 
     def loss(self, params, arrays, static, rng=None):

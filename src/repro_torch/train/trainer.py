@@ -90,12 +90,14 @@ class Trainer:
     """``Trainer(task, data, cfg).fit()``: see the module docstring.
 
     ``task`` follows :class:`~repro_torch.train.task.Task`; ``data`` any
-    provider with ``batch(step)``. An explicit ``plan=`` is used for every
-    batch (single-shape data); else ``config=`` pins the kernel config
-    each graph's plan is built with."""
+    provider with ``batch(step)``. ``(plan=, config=, tune=)`` follow the
+    library-wide precedence: an explicit ``plan=`` is used for every batch
+    (single-shape data), else ``config=`` pins the kernel config each
+    graph's plan is built with, else ``tune=True`` selects it from a sweep
+    measured on the card, else the generated rules decide."""
 
     def __init__(self, task, data, cfg: Optional[TrainerConfig] = None, *,
-                 plan=None, config=None, mesh=None):
+                 plan=None, config=None, tune=None, mesh=None):
         if mesh is not None:
             raise NotImplementedError(
                 "sharded training is not ported yet (ROADMAP Queue A item 6)")
@@ -104,6 +106,7 @@ class Trainer:
         self.cfg = cfg if cfg is not None else TrainerConfig()
         self.plan = plan
         self.config = config
+        self.tune = tune
         self._buckets: dict = {}        # shape buckets seen, in order
         self._lr_scale = schedule.get(self.cfg.lr_schedule)
         reg = obs.get_registry()
@@ -141,7 +144,8 @@ class Trainer:
                 batch = self.data.batch(step)
             with span("train.prepare"):
                 arrays, static = self.task.prepare(batch, plan=self.plan,
-                                                   config=self.config)
+                                                   config=self.config,
+                                                   tune=self.tune)
             root.set(static=repr(static))
             new = static not in self._buckets
             if new:
@@ -211,10 +215,13 @@ class Trainer:
 
 
 def fit(task, data, trainer: Optional[TrainerConfig] = None, *, plan=None,
-        config=None, resume: bool = False,
+        config=None, tune=None, resume: bool = False,
         state: Optional[TrainState] = None,
         metrics_cb: Optional[Callable] = None) -> FitResult:
     """One-call training: ``repro_torch.fit(task, data, trainer_cfg)``
-    builds a :class:`Trainer` and runs :meth:`Trainer.fit`."""
-    return Trainer(task, data, trainer, plan=plan, config=config).fit(
-        resume=resume, state=state, metrics_cb=metrics_cb)
+    builds a :class:`Trainer` and runs :meth:`Trainer.fit`;
+    ``(plan=, config=, tune=)`` carry the precedence plan > config > tune >
+    rules into every batch's planning."""
+    return Trainer(task, data, trainer, plan=plan, config=config,
+                   tune=tune).fit(resume=resume, state=state,
+                                  metrics_cb=metrics_cb)

@@ -63,19 +63,20 @@ def _graph(dev, v, e, f, seed, gapped=False, pad=0, hub=0):
     return t(src), t(dst), t(x), t(w)
 
 
+# each built run length (the config's m_b) runs on some shape
 SHAPES = [
     dict(v=700, e=3400, f=12, cfg=KernelConfig("SR", 64, 128, 64, 1)),
-    dict(v=5000, e=40000, f=64, cfg=KernelConfig("SR", 32, 256, 64, 1)),
+    dict(v=5000, e=40000, f=64, cfg=KernelConfig("SR", 32, 256, 128, 1)),
     # num_segments % s_b != 0, gapped ids, padding rows, F above one block
-    dict(v=1001, e=6000, f=300, cfg=KernelConfig("SR", 32, 128, 32, 1),
+    dict(v=1001, e=6000, f=300, cfg=KernelConfig("SR", 32, 128, 256, 1),
          gapped=True, pad=77),
     # a hub of 100,000 rows (1,563 runs of 64) amid short segments
     dict(v=3000, e=20000, f=16, cfg=KernelConfig("SR", 32, 128, 64, 1),
          hub=100_000),
     # widths that are not a multiple of the 16-byte vector
-    dict(v=2000, e=15000, f=40, cfg=KernelConfig("SR", 32, 128, 64, 1),
+    dict(v=2000, e=15000, f=40, cfg=KernelConfig("SR", 32, 128, 128, 1),
          gapped=True, pad=50),
-    dict(v=2000, e=15000, f=3, cfg=KernelConfig("SR", 32, 128, 16, 1),
+    dict(v=2000, e=15000, f=3, cfg=KernelConfig("SR", 32, 128, 256, 1),
          pad=5),
 ]
 
@@ -201,8 +202,8 @@ def test_segment_softmax_all_neg_inf_segment(dev, heads):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("reduce", ["sum", "mean"])
 @pytest.mark.parametrize("weighted", [False, True])
-@pytest.mark.parametrize("dims", [(32, 64, 32), (100, 48, 32), (256, 128, 128),
-                                  (40, 24, 32), (3, 16, 32)])
+@pytest.mark.parametrize("dims", [(32, 64, 32), (100, 48, 128), (256, 128, 64),
+                                  (40, 24, 32), (3, 16, 128)])
 def test_fused_transform_reduce_kernel(dev, dtype, reduce, weighted, dims):
     d_in, d_out, s_b = dims
     cfg = KernelConfig("SR", s_b, 128, 64, 1)
@@ -275,8 +276,8 @@ def test_fused_kernel_launches_exactly_where_fusable(dev, dtype, d_in, d_out):
     launches exactly where fusable says the block fits, and then agrees
     with the plain version."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.fused_transform_reduce import (DTYPE_CODE,
-                                                            TILE_SEGMENTS)
+    from repro_torch.core.config_space import DEFAULT_S_B
+    from repro_torch.kernels.fused_transform_reduce import DTYPE_CODE
     src, dst, x, w = _graph(dev, 300, 2000, d_in, seed=d_in + d_out, pad=3)
     xi, wi = x.to(dtype), w.to(dtype)
     wm = (torch.randn(d_in, d_out, device=dev) / d_in ** 0.5).to(dtype)
@@ -285,7 +286,7 @@ def test_fused_kernel_launches_exactly_where_fusable(dev, dtype, d_in, d_out):
     err = _build.load("fused_transform_reduce").ftr_launch(
         DTYPE_CODE[dtype], 0, 1, _build.ptr(xi), _build.ptr(wm),
         _build.ptr(src), _build.ptr(wi), _build.ptr(plan.row_ptr),
-        _build.ptr(out), d_in, d_out, 300, TILE_SEGMENTS,
+        _build.ptr(out), d_in, d_out, 300, DEFAULT_S_B,
         _build.stream_of(xi))
     torch.cuda.synchronize()
     assert (err == 0) == fusable(d_in, d_out, dtype), err
@@ -319,9 +320,8 @@ def test_bucket_stamp_on_device_matches_host(dev):
     entry = BucketEntry(bucket, 64, KernelConfig("SR", 32, 64, 64, 1))
     host = entry.stamp(padded.edge_index[1])
     card = entry.stamp(torch.from_numpy(padded.edge_index[1]).to(dev))
-    assert card.chunk_first.is_cuda and card.chunk_count.is_cuda
-    assert torch.equal(card.chunk_first.cpu(), host.chunk_first)
-    assert torch.equal(card.chunk_count.cpu(), host.chunk_count)
+    assert card.row_ptr.is_cuda
+    assert torch.equal(card.row_ptr.cpu(), host.row_ptr)
 
 
 # ---------------------------------------------------------------------------
@@ -481,7 +481,7 @@ def test_plan_on_the_host_is_refused_for_card_data(dev):
         kops.segment_reduce(torch.randn(3000, 8, device=dev), dst, 500,
                             plan=host_plan, impl="cuda")
     card_plan = make_plan(dst, 500)
-    assert card_plan.chunk_first.is_cuda and host_plan.to(dev).chunk_first.is_cuda
+    assert card_plan.row_ptr.is_cuda and host_plan.to(dev).row_ptr.is_cuda
 
 
 @pytest.mark.parametrize("family", ["rgcn", "rgat"])
@@ -669,8 +669,7 @@ def _sampled_producer(dev):
 def _sampled_tensors(b):
     p, o = b.plan, b.plan.src_order
     return ([b.arrays[k] for k in _SAMPLED_ARRAYS]
-            + [p.chunk_first, p.chunk_count, p.row_ptr, o.perm, o.src, o.dst,
-               o.row_ptr])
+            + [p.row_ptr, o.perm, o.src, o.dst, o.row_ptr])
 
 
 def test_producer_works_on_a_side_stream_and_records_an_event(dev):

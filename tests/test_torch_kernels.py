@@ -27,7 +27,8 @@ from repro.core.config_space import KernelConfig as JConfig  # noqa: E402
 
 from repro_torch.core import mp as tmp  # noqa: E402
 from repro_torch.core.config_space import KernelConfig as TConfig  # noqa: E402
-from repro_torch.core.config_space import default_config  # noqa: E402
+from repro_torch.core.config_space import (  # noqa: E402
+    DEFAULT_M_B, DEFAULT_S_B, RUN_LENGTHS, TILE_SIZES, default_config)
 from repro_torch.core.plan import make_plan  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import fused_transform_reduce as tftr  # noqa: E402
@@ -204,9 +205,9 @@ def _pallas_gather(graph, reduce, weighted):
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("tiling", [(32, 64), (32, 7), (64, 1000)])
 def test_blocked_schedule_matches_plain(graph, reduce, weighted, tiling):
-    """Through the wrapper the schedule runs the kernel's runs of
-    RUN_ROWS; called directly it also runs runs of the tiling's m_b rows,
-    which cut more segments at this small size."""
+    """Through the wrapper the schedule runs runs of the config's m_b rows
+    (the tiling's: short ones cut more segments at this small size), as
+    it does called directly."""
     src, dst, x, w, v = _GRAPHS[graph]()
     cfg = TConfig("SR", tiling[0], 128, tiling[1], 1)
     run = cfg.m_b
@@ -216,9 +217,9 @@ def test_blocked_schedule_matches_plain(graph, reduce, weighted, tiling):
     np.testing.assert_array_equal(
         rp, np.searchsorted(dst, np.arange(v + 1), side="left"))
     if graph == "windowed" and cfg.s_b == 32:
-        assert int(plan.chunk_count[1]) == 0, "block 1 must own no rows"
+        assert rp[64] == rp[32], "segments 32..63 must own no rows"
     if graph == "hub":      # the hub is cut by a run end, or spans several
-        assert rp[41] // tgsr.RUN_ROWS > rp[40] // tgsr.RUN_ROWS
+        assert rp[41] // DEFAULT_M_B > rp[40] // DEFAULT_M_B
         if run < 300:
             assert rp[41] // run - rp[40] // run >= 2
     wt = _t(w) if weighted else None
@@ -246,12 +247,20 @@ def test_blocked_schedule_matches_plain(graph, reduce, weighted, tiling):
 
 
 def test_run_length_matches_kernel_source():
-    """The wrapper sizes the kernel's scratch and the blocked schedule cuts
-    its runs with RUN_ROWS: it must be the kernel's own constant."""
+    """The run lengths the config space offers (M_b) are the instances the
+    row-run kernels build, and the gather's launch dispatches on them."""
+    import inspect
+    hdr = (ROOT / "src/repro_torch/kernels/csrc/row_runs.cuh").read_text()
+    (line,) = re.findall(r"#define FOR_RUN_LENGTHS\(X\) (.*)", hdr)
+    assert tuple(int(v) for v in re.findall(r"X\((\d+)\)", line)) == \
+        RUN_LENGTHS
     src = (ROOT / "src/repro_torch/kernels/csrc/gather_segment_reduce.cu"
            ).read_text()
-    assert re.findall(r"constexpr int RUN = (\d+);", src) == [
-        str(tgsr.RUN_ROWS)]
+    assert "FOR_RUN_LENGTHS(GSR_RUN)" in src
+    assert "constexpr int RUN" not in src
+    blocked = tgsr.gather_segment_reduce_blocked
+    assert inspect.signature(blocked).parameters["run_rows"].default == \
+        DEFAULT_M_B
 
 
 # the two kernels that share the row-run schedule: segment_reduce (the
@@ -265,7 +274,7 @@ def _segment_rows(graph):
     """The graph's sorted destinations, padding rows included, with the
     row offsets of its plan."""
     _, dst, _, _, v = _GRAPHS[graph]()
-    plan = make_plan(dst, v, device="cpu")
+    plan = make_plan(dst, v, config=default_config(9), device="cpu")
     return dst, v, plan
 
 
@@ -280,7 +289,7 @@ def _pallas_segment_reduce(graph, reduce):
 
 @pytest.mark.parametrize("graph", list(_GRAPHS))
 @pytest.mark.parametrize("reduce", ["sum", "mean", "max"])
-@pytest.mark.parametrize("run", [tsrd.RUN_ROWS, SHORT_RUN])
+@pytest.mark.parametrize("run", [DEFAULT_M_B, SHORT_RUN])
 def test_blocked_segment_reduce_matches_plain_and_pallas(graph, reduce, run):
     dst, v, plan = _segment_rows(graph)
     rp = plan.row_ptr.numpy()
@@ -289,8 +298,9 @@ def test_blocked_segment_reduce_matches_plain_and_pallas(graph, reduce, run):
     x, want_pallas = _pallas_segment_reduce(graph, reduce)
     xt, it = _t(x), _t(dst)
     want = kops.segment_reduce(xt, it, v, reduce, impl="ref")
-    if run == tsrd.RUN_ROWS:    # through the wrapper, with the plan and without
-        gots = [kops.segment_reduce(xt, it, v, reduce, plan=p, impl="blocked")
+    if run == DEFAULT_M_B:    # through the wrapper, with the plan and without
+        gots = [kops.segment_reduce(xt, it, v, reduce, plan=p,
+                                    config=default_config(9), impl="blocked")
                 for p in (plan, None)]
     else:
         gots = [tsrd.segment_reduce_blocked(xt, it, v, reduce, plan.row_ptr,
@@ -402,7 +412,7 @@ def _pallas_fused(graph, reduce, weighted, dtype):
 @pytest.mark.parametrize("graph", list(_FUSED_GRAPHS))
 @pytest.mark.parametrize("reduce", ["sum", "mean"])
 @pytest.mark.parametrize("weighted", [False, True])
-@pytest.mark.parametrize("tile", [tftr.TILE_SEGMENTS, SHORT_TILE])
+@pytest.mark.parametrize("tile", [DEFAULT_S_B, SHORT_TILE])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_blocked_fused_transform_reduce_matches_plain_and_pallas(
         graph, reduce, weighted, tile, dtype):
@@ -414,7 +424,7 @@ def test_blocked_fused_transform_reduce_matches_plain_and_pallas(
     at the 120- and 300-row hubs the sums reach ~20 and their fp32 rounding
     ~2e-5, which the product with W carries into the output."""
     src, dst, x, w, v, wm = _fused_inputs(graph)
-    plan = make_plan(dst, v, device="cpu")
+    plan = make_plan(dst, v, config=default_config(x.shape[1]), device="cpu")
     rp = plan.row_ptr.numpy()
     tiles = [(lo, min(lo + tile, v)) for lo in range(0, v, tile)]
     if graph == "gapped":       # S % T != 0 and a tile with no rows
@@ -430,9 +440,11 @@ def test_blocked_fused_transform_reduce_matches_plain_and_pallas(
     wt = _t(w, dtype) if weighted else None
     want = kops.fused_transform_reduce(xt, wmt, _t(src), _t(dst), v, wt,
                                        reduce, impl="ref")
-    if tile == tftr.TILE_SEGMENTS:      # the wrapper, with the plan and without
+    if tile == DEFAULT_S_B:      # the wrapper, with the plan and without
         gots = [kops.fused_transform_reduce(xt, wmt, _t(src), _t(dst), v, wt,
-                                            reduce, plan=p, impl="blocked")
+                                            reduce, plan=p,
+                                            config=plan.config,
+                                            impl="blocked")
                 for p in (plan, None)]
     else:
         gots = [tftr.fused_transform_reduce_blocked(
@@ -462,18 +474,21 @@ def test_blocked_fused_transform_reduce_empty_graph():
 
 
 def test_fused_tile_matches_kernel_source():
-    """The wrapper's tile, block and pass widths, and with them the shared
-    memory that fusable checks, must be the kernel's own constants."""
+    """The wrapper's tiles (the S_b the config space offers, the kernel's
+    built instances), block and pass widths, and with them the shared
+    memory that fusable checks, must be the kernel's own."""
     import inspect
     src = (ROOT / "src/repro_torch/kernels/csrc/fused_transform_reduce.cu"
            ).read_text()
-    for name, value in (("TILE", tftr.TILE_SEGMENTS), ("THREADS", tftr.THREADS),
-                        ("BN", tftr.BN)):
+    for name, value in (("THREADS", tftr.THREADS), ("BN", tftr.BN)):
         assert re.findall(rf"constexpr int {name} = (\d+);", src) == [
             str(value)], name
+    (line,) = re.findall(r"#define FOR_TILES\(X\) (.*)", src)
+    assert tuple(int(v) for v in re.findall(r"X\((\d+)\)", line)) == \
+        TILE_SIZES == tftr.TILE_SIZES
     blocked = tftr.fused_transform_reduce_blocked
     assert inspect.signature(blocked).parameters["tile"].default == \
-        tftr.TILE_SEGMENTS
+        DEFAULT_S_B
     # the footprints the kernel's header note quotes
     assert tftr.smem_bytes(32, 64, torch.float32) == 37_904
     assert tftr.smem_bytes(32, 64, torch.bfloat16) == 35_856
@@ -484,15 +499,20 @@ def test_fused_tile_matches_kernel_source():
                                             ("segment_softmax", tssm)])
 def test_row_run_length_matches_kernel_source(kernel, module):
     """Each row-run kernel's wrapper sizes its scratch and the blocked
-    mirror cuts its runs with the module's RUN_ROWS: it must be the kernel's
-    own constant."""
+    mirror cuts its runs by the kernel's own run length: the softmax's
+    constant RUN_ROWS; segment_reduce's run-time M_b, whose launch
+    dispatches on the built lengths."""
     import inspect
     src = (ROOT / f"src/repro_torch/kernels/csrc/{kernel}.cu").read_text()
+    blocked = getattr(module, f"{kernel}_blocked")
+    default = inspect.signature(blocked).parameters["run_rows"].default
+    if kernel == "segment_reduce":
+        assert "FOR_RUN_LENGTHS(SRD_RUN)" in src
+        assert "constexpr int RUN" not in src and default == DEFAULT_M_B
+        return
     assert re.findall(r"constexpr int RUN = (\d+);", src) == [
         str(module.RUN_ROWS)]
-    blocked = getattr(module, f"{kernel}_blocked")
-    assert inspect.signature(blocked).parameters["run_rows"].default == \
-        module.RUN_ROWS
+    assert default == module.RUN_ROWS
 
 
 @pytest.mark.parametrize("kernel", ["gather_segment_reduce", "segment_reduce",
@@ -501,9 +521,13 @@ def test_row_run_length_matches_kernel_source(kernel, module):
 def test_sweep_lines_match_kernel_source(kernel):
     """Every source line the sweep module rewrites stands once in the
     kernel's source, at one of the values it sweeps; a variant is named
-    CONST=value."""
+    CONST=value. The gather and segment_reduce have no line left to
+    rewrite: their run length is a run-time axis of the config."""
     from repro_torch import kernel_variants as kv
     src = (ROOT / f"src/repro_torch/kernels/csrc/{kernel}.cu").read_text()
+    if kernel in ("gather_segment_reduce", "segment_reduce"):
+        assert kernel not in kv.VARIANTS and "FOR_RUN_LENGTHS" in src
+        return
     keys = []
     for line, values in kv.VARIANTS[kernel]:
         assert sum(src.count(line.format(v)) for v in values) == 1, line
@@ -526,13 +550,19 @@ def test_fusable_rejects_over_budget():
     # window kernel, which streamed W, took it)
     assert not fusable(512, 256, torch.float32, cfg)
     assert not fusable(512, 256, torch.bfloat16, cfg)
-    # the config no longer sizes the block: the tile is the kernel's own
-    assert fusable(64, 64, torch.float32, TConfig("SR", 2048, 128, 64, 1))
-    # the order rule: fused only with the kernel and a fitting footprint
-    assert tmp.choose_order(32, 64, allow_fused=True) == "fused"
-    assert tmp.choose_order(4096, 8192, allow_fused=True) == "aggregate_first"
-    assert tmp.choose_order(32, 64) == "aggregate_first"
-    assert tmp.choose_order(64, 16) == "transform_first"
+    # the config's tile sizes the block again, as the reference's does
+    assert fusable(64, 64, torch.float32, TConfig("SR", 128, 128, 64, 1))
+    assert not fusable(64, 64, torch.float32, TConfig("SR", 2048, 128, 64, 1))
+    # the order rule, on the H100 model at ogbn-arxiv: fused only with the
+    # kernel and a fitting footprint
+    arxiv = dict(num_edges=1_166_243, num_nodes=169_343)
+    assert tmp.choose_order(32, 64, allow_fused=True, **arxiv) == "fused"
+    assert tmp.choose_order(4096, 8192, allow_fused=True,
+                            **arxiv) == "aggregate_first"
+    assert tmp.choose_order(32, 64, **arxiv) == "aggregate_first"
+    assert tmp.choose_order(64, 16, **arxiv) == "transform_first"
+    with pytest.raises(ValueError, match="plan or"):
+        tmp.choose_order(32, 64)
     assert tmp.resolve_order("max", "auto", 32, 64,
                              allow_fused=True) == "transform_first"
     with pytest.raises(ValueError, match="CUDA"):

@@ -242,6 +242,8 @@ def test_attribution_records_and_counters():
     obs.record_build("train.step", "new_bucket", static="sig")
     obs.record_cache_event("cache9", "miss", key="k")
     obs.record_probe("pipeline.warmup_probe", "V64xE64", step=3)
+    obs.record_tune("segment_reduce", cache_hit=False, timings=3, key="k")
+    obs.record_tune("segment_reduce", cache_hit=True, key="k")
     builds = obs.why_built()
     assert [e["cause"] for e in builds] == ["bucket_miss", "new_bucket"]
     assert builds[0]["bucket"] == "V64xE128"
@@ -249,8 +251,12 @@ def test_attribution_records_and_counters():
         site="serve.forward", cause="bucket_miss") == 1.0
     assert obs.attributions("cache")[0]["site"] == "plan_cache:cache9"
     assert obs.attributions("probe")[0]["step"] == 3
+    tunes = obs.attributions("tune")
+    assert [(e["cause"], e["timings"]) for e in tunes] == [("sweep", 3),
+                                                          ("hit", 0)]
+    assert obs.get_registry().get("autotune.tunes").value(
+        op="segment_reduce", outcome="sweep") == 1.0
     assert not hasattr(obs, "record_compile")
-    assert not hasattr(obs, "record_tune")
 
 
 # ---------------------------------------------------------------------------
@@ -426,11 +432,10 @@ def test_schema_is_the_documented_table_and_the_reference_renamed():
     assert {renames[k]: v for k, v in ref.items()
             if renames[k] is not None} == obs.OBS_SCHEMA
     assert {k for k, v in renames.items() if v is None} == {
-        "serve.plan_cache.compiles", "serve.plan_cache.compile_s",
-        "autotune.tunes"}
+        "serve.plan_cache.compiles", "serve.plan_cache.compile_s"}
 
 
-def test_exported_schema_is_exactly_the_documented_set():
+def test_exported_schema_is_exactly_the_documented_set(tmp_path):
     """Exercise every instrumented part, then the registry's names and
     label sets are exactly OBS_SCHEMA."""
     srv = _tiny_server(max_batch_graphs=4)
@@ -449,6 +454,9 @@ def test_exported_schema_is_exactly_the_documented_set():
     task = train.NodeClassification.from_provider(data, model="gcn",
                                                   hidden=8, device="cpu")
     train.fit(task, data, train.TrainerConfig(steps=1))
+    from repro_torch.core import autotune
+    autotune.tune("gather_segment_reduce", idx_size=300, num_segments=40,
+                  feat=8, db=autotune.PerfDB(tmp_path), measure_fn=lambda c: 1.0)
     exported = {n: tuple(labels)
                 for n, labels in obs.get_registry().schema().items()
                 if not n.startswith("t.")}

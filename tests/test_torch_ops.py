@@ -239,7 +239,7 @@ def test_impl_cuda_on_cpu_tensors_raises(call):
 def test_plan_on_another_device_raises():
     g = synth_graph("g", 60, 400, feat=8, seed=2)
     plan = g.make_plan(device="cpu")
-    assert plan.chunk_first.device.type == "cpu"
+    assert plan.row_ptr.device.type == "cpu"
     elsewhere = plan.to("meta")
     assert elsewhere.device.type == "meta" and plan.to("cpu") is plan
     x = torch.randn(60, 8)

@@ -40,7 +40,6 @@ from repro_torch.data.pipeline import (PrefetchPipeline, SampledBatch,  # noqa: 
                                        SampledBatchProducer)
 from repro_torch.data.sampling import NeighborSampler  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.segment_reduce import chunk_metadata  # noqa: E402
 from repro_torch.models import gnn  # noqa: E402
 from repro_torch.models.params import from_jax_params, from_jax_state  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -78,8 +77,7 @@ def _equal_batches(a, b):
     assert a.num_seeds == b.num_seeds
     for k in ARRAYS:
         assert torch.equal(a.arrays[k], b.arrays[k]), k
-    for f in ("chunk_first", "chunk_count", "row_ptr"):
-        assert torch.equal(getattr(a.plan, f), getattr(b.plan, f)), f
+    assert torch.equal(a.plan.row_ptr, b.plan.row_ptr)
     for f in ("perm", "src", "dst", "row_ptr"):
         assert torch.equal(getattr(a.plan.src_order, f),
                            getattr(b.plan.src_order, f)), f
@@ -92,8 +90,8 @@ def _equal_batches(a, b):
 @pytest.mark.parametrize("step", [0, 3])
 def test_producer_batch_matches_reference_producer(step):
     """The padded graph, label mask, bucket and seeds are bitwise the
-    reference producer's; the stamped plan's chunk metadata and row
-    offsets are those of its padded destinations; the source order is
+    reference producer's; the stamped plan's row offsets are those of its
+    padded destinations; the source order is
     the stable sort of its real edges by source."""
     prod = _producer()
     b = prod.produce(step)
@@ -115,13 +113,7 @@ def test_producer_batch_matches_reference_producer(step):
     dst = want.graph.edge_index[1]
     np.testing.assert_array_equal(
         b.plan.row_ptr.numpy(), np.searchsorted(dst, np.arange(v + 1)))
-    cfg = default_config(32)
-    m_pad = -(-max(e, 1) // cfg.m_b) * cfg.m_b
-    idxp = np.full(m_pad, v, np.int32)
-    idxp[:e] = dst
-    cf, cc = chunk_metadata(idxp, v, cfg.s_b, cfg.m_b, m_pad)
-    assert torch.equal(b.plan.chunk_first, cf)
-    assert torch.equal(b.plan.chunk_count, cc)
+    assert b.plan.row_ptr.dtype == torch.int64 and b.plan.num_rows == e
     real = int(np.sum(dst < v))
     order = b.plan.src_order
     assert order.num_real == real == b.graph.orig_num_edges
@@ -131,7 +123,6 @@ def test_producer_batch_matches_reference_producer(step):
     # the plan carries the bucket entry's static fields
     entry = prod.entry_for(b.bucket)
     assert b.entry is entry
-    assert b.plan.max_chunks == entry.max_chunks
     assert b.plan.config == entry.config
     assert b.plan.stats == entry.template.stats
 
@@ -260,9 +251,9 @@ def test_kernel_library_loads_once_from_many_threads(monkeypatch):
             setattr(self, name, fn)
             return fn
 
-    def fake_build(names):
-        calls.append(tuple(names))
-        return {n: f"/nonexistent/{n}.so" for n in names}
+    def fake_build(names=(), only=None):
+        calls.append(tuple(only))
+        return {u: f"/nonexistent/{u[0]}.so" for u in only}
 
     monkeypatch.setattr(_build, "_LIBS", {})
     monkeypatch.setattr(_build, "build", fake_build)
@@ -270,7 +261,7 @@ def test_kernel_library_loads_once_from_many_threads(monkeypatch):
     with ThreadPoolExecutor(max_workers=8) as pool:
         libs = [f.result(timeout=60) for f in
                 [pool.submit(_build.load, "sddmm") for _ in range(32)]]
-    assert calls == [("sddmm",)]
+    assert calls == [(("sddmm", None),)]
     assert all(lib is libs[0] for lib in libs)
 
 

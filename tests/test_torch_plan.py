@@ -1,8 +1,9 @@
 """The port's plans, graphs and bucket templates against the reference.
 
-Everything here is integer or numpy data, so parity is exact: chunk
-metadata, plan fields and statistics, synthetic graphs, padding, batching
-and stamped bucket plans must be bitwise identical to ``repro``'s.
+Everything here is integer or numpy data, so parity is exact: plan fields
+and statistics, synthetic graphs, padding, batching and stamped bucket
+plans must be bitwise identical to ``repro``'s; the plans' row offsets
+(the port's only plan metadata) are the sorted index's segment starts.
 """
 import dataclasses
 
@@ -14,14 +15,12 @@ torch = pytest.importorskip("torch")
 from repro.core import plan as jplan  # noqa: E402
 from repro.core.config_space import KernelConfig as JConfig  # noqa: E402
 from repro.data import graphs as jgraphs  # noqa: E402
-from repro.kernels.segment_reduce import chunk_metadata as j_chunk_metadata  # noqa: E402
 from repro.serve.buckets import ShapeBucket as JBucket  # noqa: E402
 from repro.serve.plan_cache import BucketEntry as JEntry  # noqa: E402
 
 from repro_torch.core import plan as tplan  # noqa: E402
 from repro_torch.core.config_space import KernelConfig as TConfig  # noqa: E402
 from repro_torch.data import graphs as tgraphs  # noqa: E402
-from repro_torch.kernels.segment_reduce import chunk_metadata as t_chunk_metadata  # noqa: E402
 from repro_torch.serve.buckets import ShapeBucket as TBucket  # noqa: E402
 from repro_torch.serve.plan_cache import BucketEntry as TEntry  # noqa: E402
 
@@ -46,38 +45,20 @@ def _index(kind: str):
 KINDS = ["empty", "gapped", "ragged", "skewed"]
 
 
-def _pad(idx, s, m_b):
-    m_pad = max(-(-max(idx.size, 1) // m_b) * m_b, m_b)
-    idxp = np.full(m_pad, s, np.int32)
-    idxp[:idx.size] = idx
-    return idxp, m_pad
-
-
-@pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("tiling", TILINGS)
-def test_chunk_metadata_matches_reference(kind, tiling):
-    s_b, m_b = tiling
-    idx, s = _index(kind)
-    idxp, m_pad = _pad(idx, s, m_b)
-    jf, jc = (np.asarray(a) for a in j_chunk_metadata(idxp, s, s_b, m_b, m_pad))
-    tf, tc = t_chunk_metadata(torch.from_numpy(idxp), s, s_b, m_b, m_pad)
-    assert tf.dtype == tc.dtype == torch.int32
-    np.testing.assert_array_equal(tf.numpy(), jf)
-    np.testing.assert_array_equal(tc.numpy(), jc)
-
-
-def _assert_plans_equal(tp, jp):
-    np.testing.assert_array_equal(tp.chunk_first.numpy(),
-                                  np.asarray(jp.chunk_first))
-    np.testing.assert_array_equal(tp.chunk_count.numpy(),
-                                  np.asarray(jp.chunk_count))
-    assert tp.chunk_first.dtype == torch.int32
-    assert (tp.num_rows, tp.num_segments, tp.max_chunks) == \
-        (jp.num_rows, jp.num_segments, jp.max_chunks)
+def _assert_plans_equal(tp, jp, idx=None):
+    """The port's plan against the reference's: sizes, statistics and
+    config equal; row offsets the segment starts of ``idx`` (the padded
+    index the reference's plan was built from, when given)."""
+    assert (tp.num_rows, tp.num_segments) == (jp.num_rows, jp.num_segments)
     assert dataclasses.astuple(tp.stats) == dataclasses.astuple(jp.stats)
     assert tp.config.astuple() == jp.config.astuple()
-    assert tp.worst_case_chunks == jp.worst_case_chunks
-    assert tp.pin_worst_case().max_chunks == jp.pin_worst_case().max_chunks
+    assert tp.row_ptr.dtype == torch.int64
+    assert tp.row_ptr.shape == (tp.num_segments + 1,)
+    if idx is not None:
+        np.testing.assert_array_equal(
+            tp.row_ptr.numpy(),
+            np.searchsorted(np.asarray(idx), np.arange(tp.num_segments + 1),
+                            side="left"))
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -88,12 +69,12 @@ def test_make_plan_matches_reference(kind, tiling):
     tp = tplan.make_plan(idx, s, config=TConfig("SR", s_b, 128, m_b, 1),
                          device="cpu")
     jp = jplan.make_plan(idx, s, config=JConfig("SR", s_b, 128, m_b, 1))
-    _assert_plans_equal(tp, jp)
+    _assert_plans_equal(tp, jp, idx)
     # a tensor index gives the same plan as a numpy one
     _assert_plans_equal(
         tplan.make_plan(torch.from_numpy(idx), s,
                         config=TConfig("SR", s_b, 128, m_b, 1),
-                        device="cpu"), jp)
+                        device="cpu"), jp, idx)
 
 
 @pytest.mark.parametrize("tiling", TILINGS[:3])
@@ -105,7 +86,7 @@ def test_make_graph_plan_matches_reference(tiling):
                                device="cpu")
     jp = jplan.make_graph_plan(g.edge_index, g.num_nodes,
                                config=JConfig("SR", s_b, 128, m_b, 1))
-    _assert_plans_equal(tp, jp)
+    _assert_plans_equal(tp, jp, g.edge_index[1])
 
 
 def test_plan_validation_and_misuse():
@@ -194,10 +175,10 @@ def test_bucket_entry_stamp_matches_reference(bucket, v, e, tiling):
     dst = jgraphs.pad_graph(g, *bucket).edge_index[1]
     te = TEntry(TBucket(*bucket), 16, TConfig("SR", s_b, 128, m_b, 1))
     je = JEntry(JBucket(*bucket), 16, JConfig("SR", s_b, 128, m_b, 1))
-    assert te.max_chunks == je.max_chunks
-    _assert_plans_equal(te.template, je.template)
-    _assert_plans_equal(te.stamp(dst), je.stamp(dst))
-    _assert_plans_equal(te.stamp(torch.from_numpy(dst)), je.stamp(dst))
+    _assert_plans_equal(te.template, je.template,
+                        np.full(bucket[1], bucket[0], np.int32))
+    _assert_plans_equal(te.stamp(dst), je.stamp(dst), dst)
+    _assert_plans_equal(te.stamp(torch.from_numpy(dst)), je.stamp(dst), dst)
     with pytest.raises(ValueError, match="padded edges"):
         te.stamp(dst[:-1])
 
@@ -215,5 +196,5 @@ def test_config_space_matches_reference():
     assert TConfig("SR", 8, 128, 16, 99).astuple() == \
         JConfig("SR", 8, 128, 16, 99).astuple()
     cfg = tcs.default_config(64)
-    assert (cfg.s_b, cfg.m_b, cfg.n_b) == (32, 64, 64)
+    assert (cfg.s_b, cfg.m_b, cfg.n_b) == (64, 64, 64)
     assert tcs.default_config(1000).n_b == 256
