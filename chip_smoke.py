@@ -176,10 +176,40 @@ Phases (any failure exits non-zero before the result line):
       Before the kernels line, the H100 cost model's ms beside the card's
       at the six configurations of the kernels line; a ``{"selection":
       ..., "cost_model": [...]}`` line lists them.
+   g. Sharded message passing (``torch.distributed``, one process a
+      rank): 4 ranks, NCCL with a card a rank where there are 4 cards,
+      else gloo with every rank on the one card (NCCL refuses two ranks on
+      one card; gloo moves CUDA tensors through the host); the backend is
+      printed. Each rank partitions the ogbn-arxiv-size graph of 3a
+      (169,343 nodes, 1,166,243 edges, seed 0; its cut fraction, halo
+      nodes and host partition and plan times printed) and holds, at the
+      fp32 tolerance above, against the unsharded kernels on the card:
+      ``mp_sharded`` at F = 64 for every reduce, plain and weighted, and
+      its gradients; the (E, 4) ``segment_softmax_sharded``, exactly 0 on
+      padding. Then the main path, the counters zeroed: ``GNNServer(
+      shards=4)`` serves one arxiv request three times (cold, warm,
+      profiled on rank 0) for gcn, gin, sage and gat (4 heads) at the
+      served width, and ``fit(mesh=)`` trains gcn and gat 5 steps on the
+      graph of 3d; every rank must launch the gather, the softmax,
+      segment_reduce and sddmm, never the fused kernel, and no op may take
+      a plain version. Then, outside the counted window: the served logits
+      against the unsharded forward, the losses within rtol 1e-4 of the
+      unsharded ``fit``, and the parameters bitwise equal on every rank.
+      Prints each request's serve_ms with its stages (``stamp``: the host
+      partition and plan), the bytes its merges moved, and, profiled, the
+      ported kernels' device ms beside the host ms in the collectives
+      (gloo runs them on the host, after waiting for the kernels queued
+      before each); each training step's ms (median over steps 2-5), its
+      collective bytes and its profiled split; one (V, 64) all-reduce
+      alone. A rank that fails ends the phase at once (the others are
+      killed); the group's 120 s timeout ends a hung collective. A
+      ``{"sharded": ...}`` line lists it all.
 4. A ``{"kernels": [...]}`` line: per kernel its launches on the main paths
-   (and per path: serving, typed, ops, training, sampled), ``cuda_kernels_per_launch``, the port's CUDA kernels that
-   one launch of its representative configuration runs, counted from the
-   device events of ``torch.profiler`` over two calls after phase 3 (null
+   (and per path: serving, typed, ops, training, sampled, sharded, the
+   last summed over the ranks), ``cuda_kernels_per_launch``, the port's
+   CUDA kernels that one launch of its representative configuration runs,
+   counted from the device events of ``torch.profiler`` over two calls
+   after phase 3 (null
    where the profiler lost events; one launch of
    gather_segment_reduce or segment_reduce is two, the row runs and the
    fix-up pass of the segments they cut; one of segment_softmax three, the
@@ -1459,6 +1489,338 @@ def selection_phase(torch, dev, graphs, am):
             "tuned_engine_max_abs_err": served_err}
 
 
+# phase 3g: sharded message passing, one process a rank of SHARDS; the
+# process group's timeout ends a hung collective, the join's deadline a
+# hung rank
+SHARDS, SHARDED_STEPS = 4, 5
+SHARDED_PG_TIMEOUT_S, SHARDED_DEADLINE_S = 120, 400
+# the kernels the sharded main path must launch on every rank (sddmm: the
+# edge-weight gradients of training), and the one it must never launch
+SHARDED_KERNELS = ("gather_segment_reduce", "segment_softmax",
+                   "segment_reduce", "sddmm")
+
+
+def profiled_split(torch, fn, names):
+    """(wall ms, the port's kernels' device ms, collective host ms) of one
+    call of ``fn`` under ``torch.profiler``; the device ms is None when the
+    profiler recorded no device events. The collective ms is the host time
+    inside the ``gloo:`` / ``nccl:`` ops: gloo runs them on the host, after
+    waiting for the kernels queued before each; NCCL's launch returns at
+    once, so its time shows as device kernels instead."""
+    from torch.autograd import DeviceType
+    pat = re.compile(r"(?<![A-Za-z_])(" + "|".join(sorted(names))
+                     + r")(?=[<(IE])")
+    coll = re.compile(r"^(gloo|nccl):")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = coll_ms = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and pat.search(evt.key):
+            us = getattr(evt, "self_device_time_total", None)
+            kern += (evt.self_cuda_time_total if us is None else us) / 1e3
+        elif evt.device_type == DeviceType.CPU and coll.match(evt.key):
+            coll_ms += evt.cpu_time_total / 1e3
+    return wall_ms, (kern or None), coll_ms
+
+
+def sharded_rank(rank: int, world: int, backend: str, store: str,
+                 out: str) -> None:
+    """Phase 3g on one rank (a spawned process): the sharded ops against
+    the unsharded kernels, then the main path with the launch counters
+    zeroed (``GNNServer(shards=world)`` for every family, ``fit(mesh=)``
+    for gcn and gat), then the unsharded references. An exception ends the
+    process with a non-zero exit code; rank 0 writes the phase's record
+    to ``out``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    torch.set_num_threads(2)
+    dist.init_process_group(
+        backend, store=dist.FileStore(store, world), rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=SHARDED_PG_TIMEOUT_S))
+    try:
+        _sharded_rank(torch, dist, rank, world, backend, dev, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_rank(torch, dist, rank, world, backend, dev, out):
+    import repro_torch as rt
+    from repro_torch import train
+    from repro_torch.core import dist_mp
+    from repro_torch.data.graphs import TABLE_II, dataset
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import gnn
+    from repro_torch.optim import adamw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+
+    def say(msg):
+        if rank == 0:
+            print(f"  [3g] {msg}", flush=True)
+
+    mesh = rt.make_shard_mesh(world, device=dev)
+    rec = {"backend": backend, "world": world, "ranks_on_cards": (
+        "one card a rank" if backend == "nccl" else
+        "all ranks on one card; gloo moves CUDA tensors through the host")}
+    g = dataset("ogbn-arxiv", feat=FEAT, seed=SEED)
+    v, e = g.num_nodes, g.num_edges
+    t0 = time.perf_counter()
+    pg = g.partition(world, device=dev)
+    t1 = time.perf_counter()
+    pplan = pg.make_plan(feat=HIDDEN)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rec["partition"] = {
+        "graph": f"ogbn-arxiv size (V={v}, E={e}, seed {SEED})",
+        "cut_fraction": pg.halo.cut_fraction,
+        "cut_edges": list(pg.halo.cut_edges),
+        "halo_nodes": list(pg.halo.halo_nodes),
+        "node_ptr": list(pg.node_ptr), "edges_per_shard": pg.edges_per_shard,
+        "nodes_per_shard": pg.nodes_per_shard,
+        "partition_ms": (t1 - t0) * 1e3, "plan_ms": (t2 - t1) * 1e3,
+        "config": f"m_b={pplan.config.m_b} s_b={pplan.config.s_b}"}
+    say(f"backend {backend}, {world} ranks ({rec['ranks_on_cards']}); "
+        f"partition {rec['partition']}")
+
+    # -- the sharded ops at F = 64 against the unsharded kernels -----------
+    gen = torch.Generator(device=dev).manual_seed(SEED)   # the same a rank
+    ei = torch.from_numpy(g.edge_index).to(dev)
+    plan1 = g.make_plan(HIDDEN, device=dev)
+    x = torch.randn(v, HIDDEN, generator=gen, device=dev)
+    w = torch.rand(e, generator=gen, device=dev)
+    ct = torch.randn(v, HIDDEN, generator=gen, device=dev)
+    errs = {}
+    for reduce in ("sum", "mean", "max"):
+        for weighted in (False, True):
+            what = f"mp_sharded {reduce}{' weighted' if weighted else ''}"
+            outs = []
+            for sharded in (True, False):
+                xs = x.clone().requires_grad_()
+                ws = w.clone().requires_grad_() if weighted else None
+                y = (rt.mp_sharded(xs, pg, reduce=reduce, edge_weight=ws,
+                                   pplan=pplan, mesh=mesh) if sharded else
+                     rt.mp(xs, ei, v, reduce=reduce, edge_weight=ws,
+                           plan=plan1))
+                grads = torch.autograd.grad(
+                    (y * ct).sum(), [xs] + ([ws] if weighted else []))
+                outs.append((y.detach(),) + grads)
+            errs[what] = max(
+                compare(torch, f"rank {rank} {what}{part}", a, b,
+                        torch.float32)
+                for part, a, b in zip(("", " dx", " dw"), outs[0], outs[1]))
+    logits = torch.randn(e, 4, generator=gen, device=dev)
+    block = rt.segment_softmax_sharded(logits, pg, pplan=pplan, mesh=mesh)
+    want = pg.shard_edges(rt.segment_softmax(logits, ei[1], v, plan=plan1),
+                          rank)
+    errs["segment_softmax_sharded (E, 4)"] = compare(
+        torch, f"rank {rank} softmax (E, 4)", block, want, torch.float32)
+    if bool(block[~pg.edge_valid[rank]].any()):
+        fail(f"rank {rank}: the sharded softmax is not 0 on padding")
+    torch.cuda.synchronize()
+    rec["ops_max_abs_err"] = errs
+    say(f"sharded ops at F={HIDDEN} (every reduce, plain and weighted, "
+        f"values and gradients) and the (E, 4) softmax within the fp32 "
+        f"tolerance of the unsharded kernels: {errs}")
+    del x, w, ct, logits, block, want
+
+    # -- the main path: served and trained across the ranks ----------------
+    names = port_kernel_names()
+    models = {fam: gnn.init(fam, FEAT, HIDDEN, CLASSES,
+                            heads=4 if fam == "gat" else 1, seed=SEED,
+                            device=dev)
+              for fam in gnn.MODELS}
+    name, tv, te = next(row for row in TABLE_II if row[0] == "ogbn-arxiv")
+    data = train.GraphEpochProvider(shapes=((tv, te),), graphs_per_shape=1,
+                                    feat=FEAT, num_classes=CLASSES,
+                                    seed=SEED, name=name)
+    cfg = train.TrainerConfig(steps=SHARDED_STEPS, warmup_steps=2,
+                              opt=adamw.AdamWConfig(lr=1e-2))
+
+    def task(fam, impl=None):
+        return train.NodeClassification(
+            model=fam, impl=impl, d_in=FEAT, hidden=HIDDEN,
+            num_classes=CLASSES, heads=4 if fam == "gat" else 1,
+            device=dev)
+
+    served, served_logits, fits = [], {}, {}
+    torch.cuda.synchronize()
+    dist.barrier()
+    kops.reset_launch_counts()
+    with kops.fusion_scope() as fusion:
+        for fam, model in models.items():
+            srv = rt.GNNServer(model, fam, device=dev, shards=world,
+                               mesh=mesh, max_batch_nodes=1 << 22)
+            for turn in ("cold", "warm", "profiled"):
+                srv.submit(g)
+                b0 = dist_mp.collective_bytes
+                if turn == "profiled" and rank == 0:
+                    box = []
+                    wall, kern, coll = profiled_split(
+                        torch, lambda: box.extend(srv.step(flush=True)),
+                        names)
+                    (res,) = box
+                else:
+                    (res,) = srv.step(flush=True)
+                    wall = kern = coll = None
+                row = {"family": fam, "turn": turn,
+                       "serve_ms": res.serve_s * 1e3,
+                       "stages_ms": {k: s * 1e3
+                                     for k, s in res.stages.items()},
+                       "collective_bytes": dist_mp.collective_bytes - b0,
+                       "collective_bytes_per_layer":
+                           (dist_mp.collective_bytes - b0) / len(model.layers)}
+                if turn == "profiled":
+                    row.update(wall_ms=wall, kernels_device_ms=kern,
+                               collectives_host_ms=coll)
+                served.append(row)
+                say(f"served {fam} ({turn}): {row}")
+            served_logits[fam] = res.logits
+            del srv
+        for fam in ("gcn", "gat"):
+            ends = []
+
+            def mark(step, metrics, verdict):
+                torch.cuda.synchronize()
+                ends.append(time.perf_counter())
+            trainer = train.Trainer(task(fam), data, cfg, mesh=mesh)
+            b0 = dist_mp.collective_bytes
+            run = trainer.fit(metrics_cb=mark)
+            step_bytes = (dist_mp.collective_bytes - b0) / SHARDED_STEPS
+            step_ms = [(ends[k] - ends[k - 1]) * 1e3
+                       for k in range(1, len(ends))]
+            split = ((None,) * 3 if rank else profiled_split(
+                torch, lambda: trainer.step(run.state, SHARDED_STEPS),
+                names))
+            if rank:
+                trainer.step(run.state, SHARDED_STEPS)
+            flat = torch.cat([p.detach().reshape(-1)
+                              for p in run.state.params.values()])
+            every = [torch.empty_like(flat) for _ in range(world)]
+            dist.all_gather(every, flat)
+            if any(not torch.equal(f, flat) for f in every):
+                fail(f"rank {rank}: {fam} parameters differ across ranks "
+                     "after sharded training")
+            fits[fam] = {"family": fam, "steps": SHARDED_STEPS,
+                         "losses": run.losses,
+                         "warm_step_ms": statistics.median(step_ms[1:]),
+                         "step_ms": step_ms,
+                         "collective_bytes_per_step": step_bytes,
+                         "profiled_step_wall_ms": split[0],
+                         "profiled_kernels_device_ms": split[1],
+                         "profiled_collectives_host_ms": split[2]}
+            say(f"fit(mesh=) {fam}: {fits[fam]}; parameters bitwise equal "
+                f"on all {world} ranks")
+    torch.cuda.synchronize()
+    launched = kops.launch_counts()
+    ops_seen = dict(fusion)
+    for k in SHARDED_KERNELS:
+        if launched[k] == 0:
+            fail(f"rank {rank}: kernel {k} of the sharded path never "
+                 f"launched: {launched}")
+    if launched["fused_transform_reduce"]:
+        fail(f"rank {rank}: the sharded path launched the fused kernel")
+    plain = sorted(k for k in ops_seen if k.startswith("unfused:"))
+    if plain:
+        fail(f"rank {rank}: an op of the sharded path took a plain "
+             f"version: {plain}")
+
+    # -- the unsharded references (outside the counted window) -------------
+    x0 = torch.from_numpy(g.x).to(dev)
+    dis = torch.from_numpy(g.deg_inv_sqrt).to(dev)
+    logit_err = {}
+    for fam, model in models.items():
+        with torch.inference_mode():
+            want = model(x0, ei, v, dis, plan=plan1).float().cpu()
+        logit_err[fam] = compare(
+            torch, f"rank {rank} GNNServer(shards={world}) {fam}",
+            torch.from_numpy(served_logits[fam]), want, torch.float32)
+    say(f"GNNServer(shards={world}) logits within the fp32 tolerance of the "
+        f"unsharded forward on the card: {logit_err}")
+    for fam in ("gcn", "gat"):
+        ref = train.Trainer(task(fam), data, cfg).fit()
+        got = fits[fam]["losses"]
+        for i, (a, b) in enumerate(zip(got, ref.losses)):
+            if not abs(a - b) <= 1e-4 * abs(b):
+                fail(f"rank {rank}: sharded {fam} step {i} loss {a!r} vs "
+                     f"unsharded {b!r} (rtol 1e-4)")
+        fits[fam]["unsharded_losses"] = ref.losses
+        say(f"fit(mesh=) {fam} losses within rtol 1e-4 of the unsharded "
+            f"fit: {got} vs {ref.losses}")
+
+    # one merge's all-reduce alone: (V, HIDDEN) fp32, median of 5
+    buf = torch.randn(v, HIDDEN, device=dev)
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        dist.all_reduce(buf)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    rec.update(
+        all_reduce_ms={"shape": [v, HIDDEN], "bytes": buf.numel() * 4,
+                       "median_ms": statistics.median(times[1:])},
+        served=served, fits=list(fits.values()), logits_max_abs_err=logit_err,
+        launches=launched, ops=ops_seen)
+    everyone = [None] * world
+    dist.all_gather_object(everyone, {"launches": launched})
+    if rank == 0:
+        rec["launches_by_rank"] = [r["launches"] for r in everyone]
+        Path(out).write_text(json.dumps(rec))
+
+
+def sharded_phase(torch) -> dict:
+    """Phase 3g: spawn SHARDS ranks (NCCL with a card a rank, else gloo
+    with all ranks on the one card), wait for them, fail unless every
+    rank exits 0; returns rank 0's record."""
+    import multiprocessing
+    world = SHARDS
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    out = os.path.join(tmp, "rank0.json")
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=sharded_rank,
+                         args=(r, world, backend, os.path.join(tmp, "store"),
+                               out)) for r in range(world)]
+    try:
+        for p in procs:
+            p.start()
+        # a rank that fails ends the phase at once: the others would wait
+        # in their next collective until the group's timeout
+        deadline = time.monotonic() + SHARDED_DEADLINE_S
+        codes = [None] * world
+        while time.monotonic() < deadline:
+            codes = [p.exitcode for p in procs]
+            if all(c == 0 for c in codes) or any(c not in (None, 0)
+                                                 for c in codes):
+                break
+            time.sleep(0.5)
+        if any(c != 0 for c in codes):
+            fail(f"sharded phase: rank exit codes {codes} (None: killed "
+                 f"at the {SHARDED_DEADLINE_S} s deadline)")
+        return json.loads(Path(out).read_text())
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2337,6 +2699,17 @@ def main() -> None:
     print(f"config selection passed ({time.perf_counter() - t_phase:.1f} s)",
           flush=True)
 
+    # -- 3g. sharded message passing: served and trained across ranks ------
+    t_phase = time.perf_counter()
+    sharded = sharded_phase(torch)
+    launches_sharded = {k: sum(r[k] for r in sharded["launches_by_rank"])
+                        for k in kops.launch_counts()}
+    sharded.update(phase_s=time.perf_counter() - t_phase, card=card)
+    print(f"sharded path passed ({sharded['phase_s']:.1f} s, backend "
+          f"{sharded['backend']}, {card}); launches on the sharded path, "
+          f"summed over the {SHARDS} ranks: {launches_sharded}", flush=True)
+    print(json.dumps({"sharded": sharded}))
+
     # -- 4. the kernels line ----------------------------------------------------
     print(f"bounds over {e_real} real edges, {h_rows} distinct source rows, "
           f"{v} output rows (gather, softmax, fused):", flush=True)
@@ -2402,7 +2775,7 @@ def main() -> None:
 
     paths = {"serving": launches_serving, "typed": launches_typed,
              "ops": launches_ops, "training": launches_training,
-             "sampled": launches_sampled}
+             "sampled": launches_sampled, "sharded": launches_sharded}
 
     # the CUDA kernels one launch of each wrapper runs, read from the
     # profiler's device events: two calls of the kernels line's

@@ -5,7 +5,9 @@ This package serves 3-layer GCN / GIN / GraphSAGE / multi-head GAT node
 classification, runs relation-typed RGCN / RGAT inference, trains every
 family (``fit``: AdamW, checkpoints, resume; every op's backward runs on
 the same kernels) on full graphs or on sampled mini-batches (a neighbour
-sampler and a prefetch pipeline feeding the card), reports through a
+sampler and a prefetch pipeline feeding the card), serves and trains the
+homogeneous families sharded across ranks of ``torch.distributed`` (one
+process a shard: ``GNNServer(shards=S)``, ``fit(mesh=...)``), reports through a
 metrics registry, spans and build attribution (``obs``), and offers the
 library's public segment ops. Each plan's kernel config (the run length
 and tile the kernels read) is selected from the graph's O(1) features by
@@ -41,11 +43,19 @@ unless the caller passes ``device="cpu"``.
         result = rt.fit(task, data, rt.TrainerConfig(steps=50))
     print(rt.obs.report())         # counters, histograms, build causes
 
+    # sharded, one process a rank (after init_process_group on each)
+    mesh = rt.make_shard_mesh(4)
+    server = rt.GNNServer(model, "gcn", shards=4, mesh=mesh)
+    result = rt.fit(task, data, rt.TrainerConfig(steps=50), mesh=mesh)
+
 The JAX package ``repro`` is the reference this port is tested against;
 this package imports neither it nor JAX.
 """
 from repro_torch import obs
 from repro_torch.core.config_space import KernelConfig, default_config
+from repro_torch.core.dist_mp import (ShardMesh, make_shard_mesh, mp_sharded,
+                                      mp_transform_sharded,
+                                      segment_softmax_sharded)
 from repro_torch.core.heuristics import select_config, select_plan_config
 from repro_torch.core.mp import choose_order, mp, mp_transform, mp_typed
 from repro_torch.core.ops import (
@@ -60,9 +70,11 @@ from repro_torch.core.ops import (
     segment_softmax,
 )
 from repro_torch.core.plan import (
+    PartitionedPlan,
     RelationPlan,
     SegmentPlan,
     make_graph_plan,
+    make_partitioned_plan,
     make_plan,
     make_relation_plan,
 )
@@ -75,6 +87,8 @@ from repro_torch.data.graphs import (
     synth_graph,
     synth_typed_graph,
 )
+from repro_torch.data.partition import (PartitionedGraph, partition_graph,
+                                        unpartition_edges, unpartition_nodes)
 from repro_torch.data.pipeline import PrefetchPipeline, SampledBatchProducer
 from repro_torch.data.sampling import (InMemoryStore, NeighborSampler,
                                        ShardedGraphStore, save_graph_shards)
@@ -113,6 +127,11 @@ __all__ = [
     "NeighborSampler", "InMemoryStore", "ShardedGraphStore",
     "save_graph_shards", "SampledBatchProducer", "PrefetchPipeline",
     "SampledNodeProvider",
+    # sharded message passing
+    "PartitionedGraph", "partition_graph", "unpartition_nodes",
+    "unpartition_edges", "PartitionedPlan", "make_partitioned_plan",
+    "ShardMesh", "make_shard_mesh", "mp_sharded", "mp_transform_sharded",
+    "segment_softmax_sharded",
     # telemetry
     "obs",
 ]

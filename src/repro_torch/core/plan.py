@@ -19,8 +19,11 @@ kernels otherwise derive on every call:
     passes scatter a gradient into the source rows as one run of the
     gather kernel (the transposed walk), in place of an atomic scatter.
 
-A :class:`RelationPlan` does the same for the grouped ``segment_matmul`` of
-a relation-typed graph: which relation groups each row block overlaps.
+A :class:`PartitionedPlan` holds one such graph plan a shard of a
+:class:`~repro_torch.data.partition.PartitionedGraph`, with one shared
+config. A :class:`RelationPlan` does the same for the grouped
+``segment_matmul`` of a relation-typed graph: which relation groups each
+row block overlaps.
 
 Plans are built on the host and moved once to ``device``: the card unless
 the caller passes ``device="cpu"`` (there is no fallback without a card).
@@ -30,7 +33,7 @@ the data raises.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,9 +43,9 @@ from repro_torch.core.device import resolve_device
 from repro_torch.kernels.gather_segment_reduce import row_offsets
 from repro_torch.kernels.segment_matmul import group_metadata
 
-__all__ = ["SegmentStats", "SegmentPlan", "SourceOrder", "RelationPlan",
-           "segment_stats", "source_order", "make_plan", "make_graph_plan",
-           "make_relation_plan"]
+__all__ = ["SegmentStats", "SegmentPlan", "SourceOrder", "PartitionedPlan",
+           "RelationPlan", "segment_stats", "source_order", "make_plan",
+           "make_graph_plan", "make_partitioned_plan", "make_relation_plan"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,6 +236,73 @@ def make_graph_plan(edge_index, num_nodes: int, feat: int = 128,
     order = source_order(src, dst, num_nodes, num_nodes,
                          num_real=int(np.sum(edge_index[1] < num_nodes)))
     return dataclasses.replace(plan, src_order=order)
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionedPlan:
+    """One :class:`SegmentPlan` a shard of a
+    :class:`~repro_torch.data.partition.PartitionedGraph`, sharing one
+    config: each reduces the shard's ``num_rows = edges_per_shard`` padded
+    rows into the *global* segment space (``num_segments = |V|``), its
+    ``row_ptr`` built over the shard's padded dst and its
+    :class:`SourceOrder` over ``src_local`` (``num_sources =
+    nodes_per_shard``), so a backward walks the shard's rows without a
+    sort. ``stats`` describe the *global* index and feed the same
+    cost-model decisions (transform/aggregate order) as a single-device
+    plan. A rank reads its own with :meth:`local_plan`."""
+    plans: Tuple[SegmentPlan, ...]
+    num_shards: int
+    num_rows: int            # E_pad: padded rows a shard
+    num_segments: int        # V: the global output space every shard targets
+    config: KernelConfig
+    stats: SegmentStats      # of the global (unpartitioned) index
+
+    @property
+    def device(self) -> torch.device:
+        return self.plans[0].device
+
+    def local_plan(self, rank: int) -> SegmentPlan:
+        """The plan of shard ``rank``."""
+        if not 0 <= rank < self.num_shards:
+            raise ValueError(f"rank {rank} outside the plan's "
+                             f"{self.num_shards} shards")
+        return self.plans[rank]
+
+
+def make_partitioned_plan(pg, feat: int = 128,
+                          config: Optional[KernelConfig] = None,
+                          tune: Optional[bool] = None) -> PartitionedPlan:
+    """Build one :class:`PartitionedPlan` for a
+    :class:`~repro_torch.data.partition.PartitionedGraph`, on its device.
+
+    The config is selected once from the per-shard workload (each launch
+    reduces ``edges_per_shard`` rows into the global segment space);
+    padding slots carry ``dst = num_nodes`` and sort past
+    ``row_ptr[num_nodes]``, the convention :func:`make_plan` uses for
+    padded rows."""
+    dst = pg.dst_global.cpu().numpy()             # (S, E_pad), pad = V
+    v = int(pg.num_nodes)
+    kept = dst < v          # neither a padding slot nor a dropped edge
+    stats = segment_stats(np.sort(dst[kept]).astype(np.int32), v)
+    if config is None:
+        from repro_torch.core.heuristics import select_config
+        live_per_shard = max(
+            max((int(np.unique(dst[s][kept[s]]).size)
+                 for s in range(pg.num_shards)), default=0), 1)
+        config = select_config(max(int(pg.edges_per_shard), 1),
+                               live_per_shard, feat, tune=tune)
+    plans = []
+    for s in range(pg.num_shards):
+        seg = pg.dst_global[s]
+        order = source_order(pg.src_local[s], seg, v, pg.nodes_per_shard,
+                             num_real=int(kept[s].sum()))
+        plans.append(SegmentPlan(row_ptr=row_offsets(seg, v),
+                                 num_rows=int(pg.edges_per_shard),
+                                 num_segments=v, config=config, stats=stats,
+                                 src_order=order))
+    return PartitionedPlan(plans=tuple(plans), num_shards=int(pg.num_shards),
+                           num_rows=int(pg.edges_per_shard), num_segments=v,
+                           config=config, stats=stats)
 
 
 @dataclasses.dataclass(frozen=True)

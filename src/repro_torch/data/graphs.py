@@ -77,6 +77,13 @@ class Graph:
                 device=device, tune=tune)
         return plan
 
+    def partition(self, num_shards: int, device=None):
+        """Split into ``num_shards`` source-owned edge shards for sharded
+        message passing (:mod:`repro_torch.data.partition`,
+        :mod:`repro_torch.core.dist_mp`), on ``device``."""
+        from repro_torch.data.partition import partition_graph
+        return partition_graph(self, num_shards, device=device)
+
 
 def synth_graph(name: str, num_nodes: int, num_edges: int, feat: int = 32,
                 num_classes: int = 16, alpha: float = 1.3,

@@ -5,9 +5,17 @@ RGCN and relational GAT), as ``nn.Module``s.
 Graphs are tensors: ``edge_index`` (2, E) with ``edge_index[1]``
 (destinations) sorted non-decreasing. Every layer takes
 
-    layer(x, edge_index, num_nodes, deg_inv_sqrt=None, *, impl=None, plan=None)
+    layer(x, edge_index, num_nodes, deg_inv_sqrt=None, *, impl=None,
+          plan=None, mesh=None, partition=None)
 
-and routes its aggregation through ``mp`` / ``mp_transform``. Parameters
+and routes its aggregation through ``mp`` / ``mp_transform``. Passing
+``partition=`` (a :class:`~repro_torch.data.partition.PartitionedGraph`,
+with ``plan`` its :class:`~repro_torch.core.plan.PartitionedPlan` and
+``mesh`` this rank's :class:`~repro_torch.core.dist_mp.ShardMesh`)
+routes every aggregation through :mod:`repro_torch.core.dist_mp`: the same
+kernels run on the rank's shard and the partials merge by collectives;
+the logits stay the replicated global (V, C). The typed families refuse
+a partition. Parameters
 keep the reference's ``(d_in, d_out)`` layout (``y = x @ w``), so weights
 carry across from the JAX package unchanged
 (:func:`repro_torch.models.params.from_jax_params`).
@@ -53,6 +61,29 @@ def _zeros(shape, dtype):
     return nn.Parameter(torch.zeros(shape, dtype=dtype))
 
 
+def _mp(x, edge_index, num_nodes, *, reduce, edge_weight=None, plan=None,
+        impl=None, mesh=None, partition=None):
+    """Plain or sharded message passing: one switch for every layer
+    (``plan`` is a SegmentPlan or, sharded, a PartitionedPlan)."""
+    if partition is None:
+        return mp(x, edge_index, num_nodes, reduce=reduce,
+                  edge_weight=edge_weight, plan=plan, impl=impl)
+    from repro_torch.core.dist_mp import mp_sharded
+    return mp_sharded(x, partition, reduce=reduce, edge_weight=edge_weight,
+                      pplan=plan, mesh=mesh, impl=impl)
+
+
+def _mp_transform(x, w, edge_index, num_nodes, *, reduce, edge_weight=None,
+                  plan=None, impl=None, mesh=None, partition=None):
+    if partition is None:
+        return mp_transform(x, w, edge_index, num_nodes, reduce=reduce,
+                            edge_weight=edge_weight, plan=plan, impl=impl)
+    from repro_torch.core.dist_mp import mp_transform_sharded
+    return mp_transform_sharded(x, w, partition, reduce=reduce,
+                                edge_weight=edge_weight, pplan=plan,
+                                mesh=mesh, impl=impl)
+
+
 def _node_ids(dst, num_nodes: int):
     """Destinations as per-node lookup ids: drop-id edges clamp to a real
     node (their values never reach an output)."""
@@ -70,14 +101,15 @@ class GCNLayer(nn.Module):
         self.b = _zeros((d_out,), dtype)
 
     def forward(self, x, edge_index, num_nodes: int, deg_inv_sqrt=None, *,
-                impl=None, plan=None):
+                impl=None, plan=None, mesh=None, partition=None):
         if deg_inv_sqrt is None:
             raise ValueError("GCNLayer needs deg_inv_sqrt")
         src, dst = edge_index[0], edge_index[1]
         w_e = (deg_inv_sqrt[src.long()]
                * deg_inv_sqrt[_node_ids(dst, num_nodes)])
-        out = mp_transform(x, self.w, edge_index, num_nodes, reduce="sum",
-                           edge_weight=w_e, plan=plan, impl=impl)
+        out = _mp_transform(x, self.w, edge_index, num_nodes, reduce="sum",
+                            edge_weight=w_e, plan=plan, impl=impl, mesh=mesh,
+                            partition=partition)
         return out + self.b
 
 
@@ -95,8 +127,9 @@ class GINLayer(nn.Module):
         self.eps = _zeros((), torch.float32)
 
     def forward(self, x, edge_index, num_nodes: int, deg_inv_sqrt=None, *,
-                impl=None, plan=None):
-        agg = mp(x, edge_index, num_nodes, reduce="sum", plan=plan, impl=impl)
+                impl=None, plan=None, mesh=None, partition=None):
+        agg = _mp(x, edge_index, num_nodes, reduce="sum", plan=plan,
+                  impl=impl, mesh=mesh, partition=partition)
         h = (1.0 + self.eps) * x + agg
         h = torch.relu(h @ self.mlp1 + self.b1)
         return h @ self.mlp2 + self.b2
@@ -114,9 +147,10 @@ class SAGELayer(nn.Module):
         self.b = _zeros((d_out,), dtype)
 
     def forward(self, x, edge_index, num_nodes: int, deg_inv_sqrt=None, *,
-                impl=None, plan=None):
-        neigh = mp_transform(x, self.w_neigh, edge_index, num_nodes,
-                             reduce="mean", plan=plan, impl=impl)
+                impl=None, plan=None, mesh=None, partition=None):
+        neigh = _mp_transform(x, self.w_neigh, edge_index, num_nodes,
+                              reduce="mean", plan=plan, impl=impl, mesh=mesh,
+                              partition=partition)
         return x @ self.w_self + neigh + self.b
 
 
@@ -137,7 +171,7 @@ class GATLayer(nn.Module):
             heads, d_out, generator=generator, dtype=dtype) * scale)
 
     def forward(self, x, edge_index, num_nodes: int, deg_inv_sqrt=None, *,
-                impl=None, plan=None):
+                impl=None, plan=None, mesh=None, partition=None):
         src, dst = edge_index[0], edge_index[1]
         h = x @ self.w                                       # (V, heads*d)
         hh = h.reshape(h.shape[0], self.heads, self.d_out)
@@ -149,20 +183,30 @@ class GATLayer(nn.Module):
             geot.gather(logit_src, src)
             + geot.gather(logit_dst, _node_ids(dst, num_nodes)),
             0.2)                                             # (E, heads)
-        alpha = geot.segment_softmax(e.contiguous(), dst, num_nodes, impl,
-                                     None, plan)
+        if partition is None:
+            alpha = geot.segment_softmax(e.contiguous(), dst, num_nodes, impl,
+                                         None, plan)
+        else:
+            # the rank's (E_pad, heads) block, fed to the weighted sums as
+            # it is, never gathered back to global edge order
+            from repro_torch.core.dist_mp import segment_softmax_sharded
+            alpha = segment_softmax_sharded(e.contiguous(), partition,
+                                            pplan=plan, mesh=mesh, impl=impl)
         out = 0.0
         for i in range(self.heads):
-            out = out + mp(hh[:, i, :].contiguous(), edge_index, num_nodes,
-                           reduce="sum", edge_weight=alpha[:, i].contiguous(),
-                           plan=plan, impl=impl)
+            out = out + _mp(hh[:, i, :].contiguous(), edge_index, num_nodes,
+                            reduce="sum", edge_weight=alpha[:, i].contiguous(),
+                            plan=plan, impl=impl, mesh=mesh,
+                            partition=partition)
         return out / self.heads
 
 
-def _require_typed(name: str, edge_type) -> None:
+def _require_typed(name: str, edge_type, partition=None) -> None:
     if edge_type is None:
         raise ValueError(f"{name} needs edge_type (a relation-typed graph; "
                          "see repro_torch.data.graphs.TypedGraph)")
+    if partition is not None:
+        raise NotImplementedError("typed layers are single-shard for now")
 
 
 class RGCNLayer(nn.Module):
@@ -181,9 +225,10 @@ class RGCNLayer(nn.Module):
         self.b = _zeros((d_out,), dtype)
 
     def forward(self, x, edge_index, num_nodes: int, deg_inv_sqrt=None, *,
-                impl=None, plan=None, edge_type=None, type_perm=None,
-                inv_type_perm=None, type_counts=None, rplan=None):
-        _require_typed("RGCNLayer", edge_type)
+                impl=None, plan=None, mesh=None, partition=None,
+                edge_type=None, type_perm=None, inv_type_perm=None,
+                type_counts=None, rplan=None):
+        _require_typed("RGCNLayer", edge_type, partition)
         agg = mp_typed(x, self.w_rel, edge_index, edge_type, num_nodes,
                        type_perm=type_perm, inv_type_perm=inv_type_perm,
                        type_counts=type_counts, reduce="mean", plan=plan,
@@ -218,9 +263,10 @@ class RGATLayer(nn.Module):
             / math.sqrt(d_in))
 
     def forward(self, x, edge_index, num_nodes: int, deg_inv_sqrt=None, *,
-                impl=None, plan=None, edge_type=None, type_perm=None,
-                inv_type_perm=None, type_counts=None, rplan=None):
-        _require_typed("RGATLayer", edge_type)
+                impl=None, plan=None, mesh=None, partition=None,
+                edge_type=None, type_perm=None, inv_type_perm=None,
+                type_counts=None, rplan=None):
+        _require_typed("RGATLayer", edge_type, partition)
         src, dst = edge_index[0], edge_index[1]
         type_perm, inv_type_perm, type_counts = type_permutation(
             edge_type, int(self.w_rel.shape[0]), type_perm, inv_type_perm,
@@ -281,18 +327,21 @@ class GNN(nn.Module):
             for i in range(len(self.dims) - 1))
 
     def forward(self, x, edge_index, num_nodes: int, deg_inv_sqrt=None, *,
-                impl: Optional[str] = None, plan=None, edge_type=None,
-                type_perm=None, inv_type_perm=None, type_counts=None,
-                rplan=None):
+                impl: Optional[str] = None, plan=None, mesh=None,
+                partition=None, edge_type=None, type_perm=None,
+                inv_type_perm=None, type_counts=None, rplan=None):
         typed = {}
         if self.family in TYPED_MODELS:
             typed = dict(edge_type=edge_type, type_perm=type_perm,
                          inv_type_perm=inv_type_perm,
                          type_counts=type_counts, rplan=rplan)
+        if partition is not None and plan is None \
+                and self.family not in TYPED_MODELS:
+            plan = partition.make_plan(feat=max(self.dims))
         h = x
         for i, layer in enumerate(self.layers):
             h = layer(h, edge_index, num_nodes, deg_inv_sqrt, impl=impl,
-                      plan=plan, **typed)
+                      plan=plan, mesh=mesh, partition=partition, **typed)
             if i < len(self.layers) - 1:
                 h = torch.relu(h)
         return h
@@ -316,13 +365,18 @@ def init(family: str, d_in: int, hidden: int, num_classes: int,
 
 
 def forward(model: GNN, x, edge_index, num_nodes: int, deg_inv_sqrt=None,
-            impl: Optional[str] = None, plan=None, *, edge_type=None,
-            type_perm=None, inv_type_perm=None, type_counts=None, rplan=None):
+            impl: Optional[str] = None, plan=None, *, mesh=None,
+            partition=None, edge_type=None, type_perm=None,
+            inv_type_perm=None, type_counts=None, rplan=None):
     """Logits (V, C) of ``model`` on one graph; ``plan`` is one
     :class:`~repro_torch.core.plan.SegmentPlan` over the destinations,
-    reused by every layer. Typed families also take ``edge_type`` (plus the
-    optional permutation triple and ``rplan``)."""
+    reused by every layer. ``partition`` / ``mesh``: run every aggregation
+    sharded across the ranks (``plan`` then the partition's
+    :class:`~repro_torch.core.plan.PartitionedPlan`, built when omitted);
+    the logits stay the replicated global (V, C). Typed families also take
+    ``edge_type`` (plus the optional permutation triple and ``rplan``)."""
     return model(x, edge_index, num_nodes, deg_inv_sqrt, impl=impl, plan=plan,
+                 mesh=mesh, partition=partition,
                  edge_type=edge_type, type_perm=type_perm,
                  inv_type_perm=inv_type_perm, type_counts=type_counts,
                  rplan=rplan)
@@ -330,13 +384,14 @@ def forward(model: GNN, x, edge_index, num_nodes: int, deg_inv_sqrt=None,
 
 def loss_fn(model: GNN, x, edge_index, labels, num_nodes: int,
             deg_inv_sqrt=None, impl: Optional[str] = None, plan=None, *,
-            edge_type=None, type_perm=None, inv_type_perm=None,
-            type_counts=None, rplan=None):
+            mesh=None, partition=None, edge_type=None, type_perm=None,
+            inv_type_perm=None, type_counts=None, rplan=None):
     """Node-classification cross entropy, mean over the nodes of
     ``logsumexp(logits) - logits[label]`` (the reference's ``loss_fn``),
     with the keyword surface of :func:`forward`."""
     logits = forward(model, x, edge_index, num_nodes, deg_inv_sqrt, impl,
-                     plan, edge_type=edge_type, type_perm=type_perm,
+                     plan, mesh=mesh, partition=partition,
+                     edge_type=edge_type, type_perm=type_perm,
                      inv_type_perm=inv_type_perm, type_counts=type_counts,
                      rplan=rplan)
     return cross_entropy(logits, labels)

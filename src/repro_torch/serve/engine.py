@@ -26,6 +26,16 @@ works with observability disabled), and each step opens the span tree
 bucket's *build* is its entry's first run (PyTorch compiles nothing):
 ``serve.builds`` counts it, :func:`repro_torch.obs.record_build` names its
 cause, and its ``serve.execute`` span carries ``new_bucket=True``.
+
+``shards > 1`` serves through the partitioned path
+(:mod:`repro_torch.core.dist_mp`), SPMD: one server a rank of a
+``shards``-rank process group, each on its own device. Every rank must
+submit the same requests in the same order and step the same number of
+times, or the ranks' collectives pair up wrongly and hang. The padded
+batch is partitioned and planned per request inside the ``serve.stamp``
+span (the partition depends on the degree distribution, not only on the
+bucket), and every rank returns the same replicated logits. Sampled
+serving is single-device.
 """
 from __future__ import annotations
 
@@ -102,7 +112,11 @@ class GNNServer:
     (the :class:`~repro_torch.core.autotune.PerfDB` the buckets' configs
     are looked up in and swept into; the default one otherwise). On the
     card every aggregation runs its CUDA kernel; on the CPU its plain
-    version.
+    version. ``shards`` > 1 (with ``mesh``, this rank's
+    :class:`~repro_torch.core.dist_mp.ShardMesh`, or the default group's
+    when omitted) serves every request sharded across the ranks: each
+    rank must submit and step exactly as the others do (see the module
+    docstring).
     """
 
     def __init__(self, model: GNN, family: Optional[str] = None, *,
@@ -114,6 +128,8 @@ class GNNServer:
                  max_batch_graphs: int = 16,
                  max_wait_s: float = 0.0,
                  tune: bool = False,
+                 shards: int = 0,
+                 mesh=None,
                  perfdb=None):
         family = model.family if family is None else family
         if family not in MODELS or family != model.family:
@@ -130,6 +146,18 @@ class GNNServer:
             from repro_torch.core.autotune import PerfDB
             perfdb = PerfDB(perfdb)
         self._perfdb = perfdb
+        self.shards = int(shards)
+        self.mesh = None
+        if self.shards > 1:
+            from repro_torch.core.dist_mp import check_mesh, make_shard_mesh
+            self.mesh = (make_shard_mesh(self.shards, device=self.device)
+                         if mesh is None else check_mesh(mesh))
+            if self.mesh.size != self.shards or \
+                    self.mesh.device != self.device:
+                raise ValueError(
+                    f"the mesh has {self.mesh.size} ranks on "
+                    f"{self.mesh.device}; the server {self.shards} shards "
+                    f"on {self.device}")
         self.cache = PlanCache(capacity=cache_capacity)
         self.batcher = GraphBatcher(max_batch_nodes=max_batch_nodes,
                                     max_batch_edges=max_batch_edges,
@@ -181,7 +209,7 @@ class GNNServer:
 
     # -- cache entries -------------------------------------------------------
     def _entry_key(self, bucket: ShapeBucket):
-        return (bucket, self.feat, self.family, str(self.device))
+        return (bucket, self.feat, self.family, str(self.device), self.shards)
 
     def _build_entry(self, bucket: ShapeBucket) -> BucketEntry:
         """The bucket's cache line, its config resolved once
@@ -273,18 +301,28 @@ class GNNServer:
             x = torch.from_numpy(padded.x).to(dev, dtype)
             ei = torch.from_numpy(padded.edge_index).to(dev)
             dis = torch.from_numpy(padded.deg_inv_sqrt).to(dev, dtype)
-        with _stage(stages, "stamp", "serve.stamp"):
-            plan = entry.stamp(ei[1])   # on the device, from the copied dst
+        part = None
+        if self.shards > 1:
+            from repro_torch.core.plan import make_partitioned_plan
+            from repro_torch.data.partition import partition_graph
+            with _stage(stages, "stamp", "serve.stamp", sharded=True):
+                part = partition_graph(padded, self.shards, device=dev)
+                plan = make_partitioned_plan(part, feat=self.feat,
+                                             config=entry.config)
+        else:
+            with _stage(stages, "stamp", "serve.stamp"):
+                plan = entry.stamp(ei[1])   # on the device, from the dst
         t0 = time.perf_counter()
         out = self._execute(entry, cause, lambda: self._forward(
-            x, ei, padded.num_nodes, dis, plan))
+            x, ei, padded.num_nodes, dis, plan, part))
         if stages is not None:
             stages["forward"] = time.perf_counter() - t0
         return out
 
-    def _forward(self, x, ei, num_nodes: int, dis, plan):
+    def _forward(self, x, ei, num_nodes: int, dis, plan, partition=None):
         with torch.inference_mode():
-            return self.model(x, ei, num_nodes, dis, plan=plan)
+            return self.model(x, ei, num_nodes, dis, plan=plan,
+                              mesh=self.mesh, partition=partition)
 
     def run_until_drained(self, max_steps: int = 100_000
                           ) -> Dict[int, ServedResult]:
@@ -305,6 +343,7 @@ class GNNServer:
         bucket across the producer threads and the serving loop."""
         from repro_torch.data.pipeline import (PrefetchPipeline,
                                                SampledBatchProducer)
+        self._single_device("sampled serving")
         producer = SampledBatchProducer(
             sampler, feat=self.feat, policy=self.policy, cache=self.cache,
             entry_key=self._entry_key, entry_builder=self._build_entry,
@@ -319,6 +358,7 @@ class GNNServer:
         batch stamped against another cache's entry is re-stamped under
         this engine's (the ``serve.stamp`` span carries ``restamp=True``),
         not rebuilt."""
+        self._single_device("sampled serving")
         if batch.arrays["x"].device != self.device:
             raise ValueError(f"the batch lies on {batch.arrays['x'].device}, "
                              f"the server on {self.device}")
@@ -343,6 +383,12 @@ class GNNServer:
             self._m_batches.inc(**self._labels)
             self._m_serve_s.inc(time.perf_counter() - t0, **self._labels)
             return logits
+
+    def _single_device(self, what: str) -> None:
+        if self.shards > 1:
+            raise NotImplementedError(
+                f"{what} is single-device (the sharded path partitions "
+                "each request)")
 
     # -- warmup ---------------------------------------------------------------
     def warmup(self, buckets: Sequence[ShapeBucket]) -> int:

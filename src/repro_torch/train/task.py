@@ -10,14 +10,18 @@ task has three methods:
   * ``loss(params, arrays, static, rng) -> (loss, metrics)``.
 
 :class:`NodeClassification` trains a :mod:`repro_torch.models.gnn` family
-on full graphs on one device: the parameters are a dict named as the
-model's ``named_parameters()``, and the loss runs the model with them
-through ``torch.func.functional_call``. It also trains on sampled
-mini-batches (:class:`~repro_torch.data.pipeline.SampledBatch`, from a
+on full graphs: the parameters are a dict named as the model's
+``named_parameters()``, and the loss runs the model with them through
+``torch.func.functional_call``. It also trains on sampled mini-batches
+(:class:`~repro_torch.data.pipeline.SampledBatch`, from a
 :class:`~repro_torch.train.providers.SampledNodeProvider`): they arrive on
 the device with their plan stamped, and the loss reads only their seed
-rows. Not ported yet: sharded training (ROADMAP Queue A item 6) and the
-LM task (item 7).
+rows. With ``mesh=`` (a :class:`~repro_torch.core.dist_mp.ShardMesh`, one
+process a shard) every aggregation runs sharded: each graph is
+partitioned once and its partition and
+:class:`~repro_torch.core.plan.PartitionedPlan` cached, and every rank
+computes the same loss and the same gradients. Not ported yet: the LM
+task (ROADMAP Queue A item 7).
 """
 from __future__ import annotations
 
@@ -50,15 +54,16 @@ class Task(Protocol):
 
 
 class GraphStatic(NamedTuple):
-    """Hashable shape bucket of a batch on one device. ``sampled`` marks
-    mini-batches from the out-of-core pipeline: their arrays carry a
-    ``label_mask`` the loss must honour, so they are another bucket than a
-    full graph of the same shape."""
+    """Hashable shape bucket of a batch. ``sampled`` marks mini-batches
+    from the out-of-core pipeline: their arrays carry a ``label_mask`` the
+    loss must honour, so they are another bucket than a full graph of the
+    same shape. ``shards`` is 0 on one device, else the mesh's size."""
     model: str
     num_nodes: int
     num_edges: int
     typed: bool
     sampled: bool = False
+    shards: int = 0
 
 
 @dataclasses.dataclass
@@ -87,6 +92,8 @@ class NodeClassification:
     def __post_init__(self):
         self.device = resolve_device(self.device, "NodeClassification")
         self._dev: dict = {}       # id(g) -> (g, device arrays)
+        self._parts: dict = {}     # (id(g), shards, config, tune) -> (g,
+        #                            partition, PartitionedPlan)
         self._module = None        # the model's structure (no weights)
 
     @classmethod
@@ -128,9 +135,12 @@ class NodeClassification:
     def prepare(self, batch, *, plan=None, config=None, tune=None,
                 mesh=None):
         if mesh is not None:
-            raise NotImplementedError(
-                "sharded training is not ported yet (ROADMAP Queue A item 6)")
+            from repro_torch.core.dist_mp import check_mesh
+            check_mesh(mesh)
         if isinstance(batch, SampledBatch):
+            if mesh is not None:
+                raise NotImplementedError(
+                    "sampled mini-batches are single-device for now")
             return self._prepare_sampled(batch, plan=plan)
         if not isinstance(batch, Graph):
             raise TypeError(f"batches of type {type(batch).__name__}: a "
@@ -142,8 +152,20 @@ class NodeClassification:
                 f"model {self.model!r} and batch graph type disagree: "
                 f"typed={typed} (use a GraphEpochProvider(typed=...) that "
                 "matches the model family)")
-        static = GraphStatic(self.model, g.num_nodes, g.num_edges, typed)
+        shards = 0 if mesh is None else mesh.size
+        if typed and shards:
+            raise NotImplementedError("typed layers are single-shard for now")
+        static = GraphStatic(self.model, g.num_nodes, g.num_edges, typed,
+                             shards=shards)
         arrays = dict(self._device_arrays(g))
+        if shards:
+            if mesh.device != self.device:
+                raise ValueError(f"the mesh is on {mesh.device}, the task "
+                                 f"on {self.device}")
+            part, pplan = self._partitioned(g, shards, config, tune)
+            arrays.update(mesh=mesh, partition=part,
+                          plan=plan if plan is not None else pplan)
+            return arrays, static
         # plans are memoized on the graph: each graph of a bucket is planned
         # once, at its first step
         arrays["plan"] = (plan if plan is not None else
@@ -160,6 +182,7 @@ class NodeClassification:
             (arrays["x"], arrays["edge_index"], static.num_nodes,
              arrays["deg_inv_sqrt"]),
             dict(impl=self.impl, plan=arrays["plan"],
+                 mesh=arrays.get("mesh"), partition=arrays.get("partition"),
                  edge_type=arrays.get("edge_type"),
                  type_perm=arrays.get("type_perm"),
                  inv_type_perm=arrays.get("inv_type_perm"),
@@ -197,6 +220,19 @@ class NodeClassification:
         return arrays, static
 
     # -- memoized per-graph state -------------------------------------------
+
+    def _partitioned(self, g, shards: int, config, tune):
+        """The graph's partition and PartitionedPlan, built at its first
+        step on this mesh size and kept (the reference's ``_partitioned``)."""
+        key = (id(g), shards, config, tune)
+        hit = self._parts.get(key)
+        if hit is not None and hit[0] is g:
+            return hit[1], hit[2]
+        part = g.partition(shards, device=self.device)
+        pplan = part.make_plan(feat=self.plan_feat, config=config, tune=tune)
+        # pin g in the memo: id() is only unique among live objects
+        self._parts[key] = (g, part, pplan)
+        return part, pplan
 
     def _device_arrays(self, g) -> dict:
         hit = self._dev.get(id(g))

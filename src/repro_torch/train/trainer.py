@@ -25,6 +25,7 @@ order, so the resumed trajectory is bitwise the uninterrupted one.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
@@ -94,16 +95,27 @@ class Trainer:
     library-wide precedence: an explicit ``plan=`` is used for every batch
     (single-shape data), else ``config=`` pins the kernel config each
     graph's plan is built with, else ``tune=True`` selects it from a sweep
-    measured on the card, else the generated rules decide."""
+    measured on the card, else the generated rules decide.
+
+    ``mesh`` (a :class:`~repro_torch.core.dist_mp.ShardMesh`) trains
+    sharded, SPMD: every rank of the mesh runs this trainer on the same
+    data, the task partitions each graph, and the merges give every rank
+    the same gradients, so the replicated parameters stay bitwise equal
+    with no gradient all-reduce. With a checkpoint directory each rank of
+    a mesh of several keeps its own, ``<ckpt_dir>/rank<r>``."""
 
     def __init__(self, task, data, cfg: Optional[TrainerConfig] = None, *,
                  plan=None, config=None, tune=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded training is not ported yet (ROADMAP Queue A item 6)")
         self.task = task
         self.data = data
         self.cfg = cfg if cfg is not None else TrainerConfig()
+        if mesh is not None:
+            from repro_torch.core.dist_mp import check_mesh
+            check_mesh(mesh)
+        if mesh is not None and mesh.size > 1 and self.cfg.ckpt_dir:
+            self.cfg = dataclasses.replace(self.cfg, ckpt_dir=os.path.join(
+                self.cfg.ckpt_dir, f"rank{mesh.rank}"))
+        self.mesh = mesh
         self.plan = plan
         self.config = config
         self.tune = tune
@@ -145,7 +157,8 @@ class Trainer:
             with span("train.prepare"):
                 arrays, static = self.task.prepare(batch, plan=self.plan,
                                                    config=self.config,
-                                                   tune=self.tune)
+                                                   tune=self.tune,
+                                                   mesh=self.mesh)
             root.set(static=repr(static))
             new = static not in self._buckets
             if new:
@@ -215,13 +228,14 @@ class Trainer:
 
 
 def fit(task, data, trainer: Optional[TrainerConfig] = None, *, plan=None,
-        config=None, tune=None, resume: bool = False,
+        config=None, tune=None, mesh=None, resume: bool = False,
         state: Optional[TrainState] = None,
         metrics_cb: Optional[Callable] = None) -> FitResult:
     """One-call training: ``repro_torch.fit(task, data, trainer_cfg)``
     builds a :class:`Trainer` and runs :meth:`Trainer.fit`;
     ``(plan=, config=, tune=)`` carry the precedence plan > config > tune >
-    rules into every batch's planning."""
+    rules into every batch's planning; ``mesh=`` trains sharded (every
+    rank of the mesh calls ``fit`` alike)."""
     return Trainer(task, data, trainer, plan=plan, config=config,
-                   tune=tune).fit(resume=resume, state=state,
-                                  metrics_cb=metrics_cb)
+                   tune=tune, mesh=mesh).fit(resume=resume, state=state,
+                                             metrics_cb=metrics_cb)
