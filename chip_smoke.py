@@ -43,7 +43,9 @@ Phases (any failure exits non-zero before the result line):
       64->128, 64->16 and 64->32, plus, in fp32 and bf16, empty groups, a
       single group, rows past the groups, 3,000 groups of 1-3 rows, and
       N = 16 and 32, and K = 512, 1001 and 1024 (deeper than one pass of
-      shared memory holds); the gather kernel with H = the (E, 64) typed messages
+      shared memory holds), and the MoE expert products of 3h (K = 2048 ->
+      N = 768 and 768 -> 2048) over 128 groups of 0-3 rows with rows past
+      the groups; the gather kernel with H = the (E, 64) typed messages
       and the inverse type permutation as its gather index, as ``mp_typed``
       runs it, with its bound; the fp32 (E, 2) softmax over the AM typed
       rows, as RGAT runs it, with its bound;
@@ -204,9 +206,44 @@ Phases (any failure exits non-zero before the result line):
       alone. A rank that fails ends the phase at once (the others are
       killed); the group's 120 s timeout ends a hung collective. A
       ``{"sharded": ...}`` line lists it all.
+   h. LM serving: qwen3-moe-30b-a3b at full width (d_model 2048, 32 heads
+      / 4 KV heads, 128 experts of d_ff 768, top-8, vocab 151,936) in
+      bf16 with seeded weights drawn on the card, its depth cut from 48 to
+      8 layers (about 11.2 GB; the cut is printed). (a) One MoE layer
+      alone at 8 tokens (decode) and 4096 (prefill, 32,768 assignments):
+      ``moe_impl="cuda"`` (the three expert products on segment_matmul,
+      the combine on the gather kernel: exactly 3 and 1 launches) within
+      the bf16 tolerance of the fp32 plain version of the same upcast
+      inputs, bitwise over two calls; each product timed (kernel, plain,
+      ``torch._grouped_mm``) beside its bound, max(bytes / 3.35 TB/s,
+      2·rows·K·N / 989 TFLOP/s), the bytes counting X, the W of each
+      expert with rows and the output once; the combine timed beside its
+      bound and ``torch.sparse.mm`` of the (T, T·k) CSR of the router
+      weights. (b) As ``launch/serve.py`` serves: the forward on 2 x 2048
+      SyntheticTokens tokens on the kernels, for the weights and tokens of
+      two seeds. The two paths sum in other orders, so from the second
+      layer on a token may take another top-8 set: the check holds routing
+      fixed, running the plain forward (``moe_impl="ragged"``) with each
+      MoE layer also run on the kernels from the same input, at the bf16
+      tolerance; the end-to-end logits' distance and argmax differences
+      are printed as readings. Then, the counters zeroed, 8 prompts of 128
+      tokens prefilled token by token into the caches
+      (``prefill_into_cache``) and 32 greedy decode steps on the kernels,
+      each step's MoE layers then held the same way on the plain path fed
+      the same tokens; prefill and decode tok/s, ms a decode step, one
+      profiled decode step's device time split into the MoE layers (and
+      their segment_matmul and gather kernels), attention and the rest
+      (failing if a range has no device time), its idle share, and peak
+      memory. (c) ``ContinuousBatcher`` on the same weights, on the
+      capacity path (its combine on the gather kernel, one launch a MoE
+      layer a tick): 12 requests with prompts of 16-96 tokens, 16 new
+      tokens each, into 4 slots; every request must finish with exactly
+      16 tokens, and the first tick's MoE layers on the capacity path
+      match the plain ones on the same inputs. A ``{"lm_serving": ...}``
+      line lists it all.
 4. A ``{"kernels": [...]}`` line: per kernel its launches on the main paths
    (and per path: serving, typed, ops, training, sampled, sharded, the
-   last summed over the ranks), ``cuda_kernels_per_launch``, the port's
+   last summed over the ranks, and lm), ``cuda_kernels_per_launch``, the port's
    CUDA kernels that one launch of its representative configuration runs,
    counted from the device events of ``torch.profiler`` over two calls
    after phase 3 (null
@@ -227,12 +264,15 @@ Phases (any failure exits non-zero before the result line):
    gather index and weight of each real row and the plan's int64 row
    offsets, which it reads whole, and no chunk ranges. Its entry adds ``two_call_ms`` (the SpMM + GEMM
    yardstick), and its hub and reddit2 times beside their bounds; sddmm's
-   adds ``shuffled_ms``.
+   adds ``shuffled_ms``; the gather's adds ``moe_combine`` and
+   segment_matmul's ``moe_products``, the MoE shapes of 3h, each with its
+   ms, plain ms, bound and library ms.
 5. The last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -1821,7 +1861,518 @@ def sharded_phase(torch) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# phase 3h: LM serving. qwen3-moe-30b-a3b at full width (d_model 2048, 128
+# experts of d_ff 768, top-8, vocab 151,936) in bf16, depth cut from 48 to
+# LM_LAYERS layers (about 11.2 GB of seeded weights on the card)
+LM_ARCH, LM_LAYERS = "qwen3-moe-30b-a3b", 8
+LM_MOE_TOKENS = (8, 4096)              # one MoE layer alone: decode, prefill
+LM_FWD_BATCH, LM_FWD_SEQ = 2, 2048
+LM_PROMPTS, LM_PROMPT_LEN, LM_GEN = 8, 128, 32
+LM_REQUESTS, LM_SLOTS, LM_NEW, LM_MIN_PROMPT, LM_MAX_PROMPT = 12, 4, 16, 16, 96
+LM_SEEDS = (SEED, SEED + 1)            # the forward's weights and tokens
+# the port's kernels a MoE layer launches on moe_impl="cuda", and the names
+# of their CUDA kernels in a profile
+LM_MOE_KERNELS = {"segment_matmul": 3, "gather_segment_reduce": 1}
+LM_KERNEL_NAMES = ("smm_kernel", "gsr_runs", "gsr_fix")
+
+
+@contextlib.contextmanager
+def moe_held(torch, moe_mod, impl, what, rows):
+    """While open, every MoE layer the model runs also runs on ``impl``
+    from the same input, so both see the same routing, and is held to it
+    at the bf16 tolerance; the model goes on with its own output. Each
+    layer appends (max abs err, max abs of the model's output) to
+    ``rows``."""
+    plain = moe_mod.moe
+
+    def held(prm, x, cfg, **kw):
+        want = plain(prm, x, cfg, **kw)
+        got, _ = plain(prm, x, cfg, impl=impl)
+        err = compare(torch, f"{what}: MoE layer call {len(rows)}, {impl} "
+                      "on the same input", got, want[0], torch.bfloat16)
+        rows.append((err, float(want[0].float().abs().max())))
+        return want
+    moe_mod.moe = held
+    try:
+        yield
+    finally:
+        moe_mod.moe = plain
+
+
+def held_reading(what, rows, expected):
+    """Fails unless ``expected`` MoE layers were held; the worst error as
+    a share of the layer's largest output."""
+    if len(rows) != expected:
+        fail(f"{what}: {len(rows)} MoE layers held, expected {expected}")
+    return max(err / max(scale, 1e-30) for err, scale in rows)
+
+
+def margin(rel: float) -> str:
+    """How far a held error share lies inside the bf16 tolerance."""
+    return f"{2e-2 / rel:.1f}x margin" if rel else "bitwise equal"
+
+
+def e2e_reading(torch, what, got, want):
+    """End to end, where the two paths may route a token to other experts:
+    shape and finiteness are checked; the max abs error, the number of
+    rows whose argmax differs and the number of rows are readings."""
+    if got.shape != want.shape:
+        fail(f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{what}: non-finite logits")
+    err = float((got - want).abs().max())
+    flips = int((got.argmax(-1) != want.argmax(-1)).sum())
+    return err, flips, got.numel() // got.shape[-1]
+
+
+@contextlib.contextmanager
+def lm_spans(torch, layers_mod, moe_mod):
+    """Name each decode attention and MoE layer as a profiler range
+    (``record_function``) while the block is open."""
+    saved = layers_mod.attention_decode, moe_mod.moe
+
+    def named(fn, name):
+        def run(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return run
+    layers_mod.attention_decode = named(saved[0], "lm.attention")
+    moe_mod.moe = named(saved[1], "lm.moe")
+    try:
+        yield
+    finally:
+        layers_mod.attention_decode, moe_mod.moe = saved
+
+
+def profiled_lm_step(torch, fn, layers_mod, moe_mod) -> dict:
+    """One call of ``fn`` (a decode step) under ``torch.profiler``: wall
+    ms, device-busy ms, idle share, and the device ms of the MoE kernels
+    (segment_matmul's and the gather's), of the MoE layers as a whole and
+    of the attention layers (the kernels launched inside their ranges), the
+    rest of the busy time apart; fails where a range has no device time."""
+    from torch.autograd import DeviceType
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with lm_spans(torch, layers_mod, moe_mod), \
+            torch.profiler.profile(activities=act) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+
+    def dev_ms(evt, attr):
+        us = getattr(evt, attr, None)
+        return (us if us is not None
+                else getattr(evt, attr.replace("device", "cuda"))) / 1e3
+    busy = moe_k = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA or evt.key.startswith("lm."):
+            continue
+        ms = dev_ms(evt, "self_device_time_total")
+        busy += ms
+        if any(n in evt.key for n in LM_KERNEL_NAMES):
+            moe_k += ms
+    spans = collections.Counter()
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CPU and evt.name in ("lm.attention",
+                                                             "lm.moe"):
+            spans[evt.name] += dev_ms(evt, "device_time_total")
+    if not busy or not spans["lm.moe"] or not spans["lm.attention"]:
+        fail(f"profiled decode step: device busy {busy} ms, ranges "
+             f"{dict(spans)} (the profiler lost the device time, or the "
+             "model no longer calls layers.attention_decode and moe.moe "
+             "through their modules)")
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall, "moe_kernels_ms": moe_k,
+            "moe_layers_ms": spans["lm.moe"],
+            "attention_ms": spans["lm.attention"],
+            "rest_ms": busy - spans["lm.moe"] - spans["lm.attention"]}
+
+
+def lm_phase(torch, dev, card) -> dict:
+    """Phase 3h: serve qwen3-moe-30b-a3b at full width (LM_LAYERS of its
+    48 layers, bf16, seeded weights on the card). (a) One MoE layer alone
+    at decode and prefill token counts: moe_impl="cuda" against the fp32
+    plain version, bitwise over two calls, 3 segment_matmul and 1 gather
+    launches, each product and the combine timed beside its bound and its
+    library call. (b) As launch/serve.py serves: the forward on
+    LM_FWD_BATCH x LM_FWD_SEQ tokens on the kernels, for each of LM_SEEDS,
+    each MoE layer held to the plain one on the plain path's input; then
+    LM_PROMPTS SyntheticTokens prompts of LM_PROMPT_LEN prefilled into the
+    caches and LM_GEN greedy decode steps on the kernels, each step's MoE
+    layers held the same way on the plain path fed the same tokens;
+    timings, a profiled step's split, peak memory. (c) ContinuousBatcher,
+    capacity path (its combine on the gather kernel), LM_REQUESTS requests
+    into LM_SLOTS slots, the first tick held the same way. Returns the
+    phase's record."""
+    import numpy as np
+    from repro_torch import configs as lm_configs
+    from repro_torch.data.tokens import SyntheticTokens, TokenDatasetConfig
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.serve import prefill_into_cache
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.params import Params
+    from repro_torch.serve.lm import ContinuousBatcher, Request
+
+    full = lm_configs.get_config(LM_ARCH)
+    cfg = dataclasses.replace(full, num_layers=LM_LAYERS)
+    print(f"  {LM_ARCH}: depth cut from {full.num_layers} to "
+          f"{cfg.num_layers} layers, every width as published (d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} KV "
+          f"heads of {cfg.head_dim}, {cfg.num_experts} experts of d_ff "
+          f"{cfg.moe_d_ff}, top-{cfg.top_k}, vocab {cfg.vocab_size}), "
+          f"{cfg.dtype}", flush=True)
+    record = {"arch": LM_ARCH, "layers": cfg.num_layers,
+              "published_layers": full.num_layers, "card": card}
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = lm.LM(cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    record.update(init_s=time.perf_counter() - t0, weight_gb=n_bytes / 1e9)
+    print(f"  weights: {n_bytes / 1e9:.2f} GB drawn on the card in "
+          f"{record['init_s']:.1f} s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bf16 = torch.bfloat16
+
+    # -- (a) one MoE layer alone ---------------------------------------------
+    prm = model.layers[0].ffn
+    prm32 = Params(router=prm.router, w_up=prm.w_up.float(),
+                   w_gate=prm.w_gate.float(), w_down=prm.w_down.float())
+    act = layers_mod._ACTS[cfg.act]
+    smm_shapes, gather_shapes = [], []
+    for t in LM_MOE_TOKENS:
+        x = torch.randn(1, t, cfg.d_model, generator=gen, device=dev,
+                        dtype=bf16)
+        with torch.no_grad():
+            kops.reset_launch_counts()
+            got, _ = moe_mod.moe(prm, x, cfg, impl="cuda")
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in kops.launch_counts().items() if v}
+            if launched != LM_MOE_KERNELS:
+                fail(f"MoE layer T={t}: launched {launched}, expected "
+                     f"{LM_MOE_KERNELS}")
+            want, _ = moe_mod.moe(prm32, x.float(), cfg, impl="ragged")
+            plain16, _ = moe_mod.moe(prm, x, cfg, impl="ragged")
+        err = compare(torch, f"MoE layer T={t} cuda vs fp32 plain", got,
+                      want, bf16)
+        err16 = compare(torch, f"MoE layer T={t} bf16 plain vs fp32 plain",
+                        plain16, want, bf16)
+        deterministic(torch, f"MoE layer T={t} moe_impl=cuda",
+                      lambda: moe_mod.moe(prm, x, cfg, impl="cuda")[0])
+        layer_ms = time_ms(torch, lambda: moe_mod.moe(prm, x, cfg,
+                                                      impl="cuda"))
+        plain_layer_ms = time_ms(torch, lambda: moe_mod.moe(
+            prm, x, cfg, impl="ragged"), reps=5, warmup=1)
+        print(f"  MoE layer T={t} ({t * cfg.top_k} assignments): "
+              f"max_abs_err={err:.3g} (bf16 plain {err16:.3g}) layer_ms="
+              f"{layer_ms:.4f} plain_ms={plain_layer_ms:.4f}", flush=True)
+        # the dispatch as moe_ragged runs it, then each product alone
+        x2d = x.reshape(t, cfg.d_model)
+        top_e, top_p, _ = moe_mod._route(prm, x2d, cfg)
+        e_flat, w_flat, tok_flat = moe_mod._assignments(top_e, top_p, t,
+                                                        cfg.top_k)
+        order = torch.argsort(e_flat, stable=True)
+        sizes = torch.bincount(e_flat, minlength=cfg.num_experts).to(
+            torch.int32)
+        offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+        active = int((sizes > 0).sum())
+        a = t * cfg.top_k
+        xs = x2d[tok_flat[order].long()]
+        with torch.no_grad():
+            hu = kops.segment_matmul(xs, sizes, prm.w_up, impl="cuda")
+            hg = kops.segment_matmul(xs, sizes, prm.w_gate, impl="cuda")
+            hd = (act(hg) * hu).contiguous()
+            ys = kops.segment_matmul(hd, sizes, prm.w_down, impl="cuda")
+        for name, xin, w in (("up", xs, prm.w_up), ("gate", xs, prm.w_gate),
+                             ("down", hd, prm.w_down)):
+            k_dim, n_dim = int(w.shape[1]), int(w.shape[2])
+            kern = (lambda xin=xin, w=w: kops.segment_matmul(
+                xin, sizes, w, impl="cuda"))
+            plain = (lambda xin=xin, w=w: kops.segment_matmul(
+                xin, sizes, w, impl="ref"))
+            err_p = compare(torch, f"segment_matmul MoE {name} T={t}",
+                            kern(), kops.segment_matmul(
+                                xin.float(), sizes, w.float(), impl="ref"),
+                            bf16)
+            k_ms = time_ms(torch, kern)
+            p_ms = time_ms(torch, plain, reps=5, warmup=1)
+            print(f"  segment_matmul MoE {name} {k_dim}->{n_dim} T={t}: {a} "
+                  f"rows in {active} of {cfg.num_experts} experts, bf16:",
+                  flush=True)
+            bnd = bound(a * (k_dim + n_dim) * 2 + active * k_dim * n_dim * 2
+                        + (cfg.num_experts + 1) * 4, 2 * a * k_dim * n_dim,
+                        BF16_FLOPS, "bf16 tensor cores")
+            lib, reason = library(
+                f"torch._grouped_mm MoE {name} T={t}",
+                lambda xin=xin, w=w: torch._grouped_mm(xin, w, offs=offs))
+            lib_ms = None
+            if lib is not None:
+                compare(torch, f"torch._grouped_mm yardstick MoE {name} "
+                        f"T={t}", lib, kops.segment_matmul(
+                            xin.float(), sizes, w.float(), impl="ref"), bf16)
+                lib_ms = time_ms(torch, lambda xin=xin, w=w:
+                                 torch._grouped_mm(xin, w, offs=offs))
+            print(f"    max_abs_err={err_p:.3g} kernel_ms={k_ms:.4f} "
+                  f"plain_ms={p_ms:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]}) "
+                  f"library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)}"
+                  f" ({k_ms / bnd[0]:.1f}x its bound)", flush=True)
+            smm_shapes.append({
+                "product": name, "tokens": t, "rows": a, "k": k_dim,
+                "n": n_dim, "experts_with_rows": active, "dtype": "bf16",
+                "max_abs_err": err_p, "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms,
+                "library_note": "torch._grouped_mm with the group offsets"
+                if lib_ms is not None else reason})
+        # the combine: Y[token] = sum of its k rows of ys, router-weighted
+        inv = moe_mod._inverse(order)
+        comb = (lambda: kops.gather_segment_reduce(
+            ys, inv, tok_flat, t, w_flat, "sum", impl="cuda"))
+        err_c = compare(torch, f"gather combine T={t}", comb(),
+                        kops.gather_segment_reduce(
+                            ys.float(), inv, tok_flat, t, w_flat.float(),
+                            "sum", impl="ref"), bf16)
+        c_ms = time_ms(torch, comb)
+        cp_ms = time_ms(torch, lambda: kops.gather_segment_reduce(
+            ys, inv, tok_flat, t, w_flat, "sum", impl="ref"))
+        print(f"  gather combine T={t}: {a} rows of F={cfg.d_model} into "
+              f"{t} tokens, bf16:", flush=True)
+        cb = bound(a * cfg.d_model * 2 + a * (4 + 4 + 2) + (t + 1) * 8
+                   + t * cfg.d_model * 2, 2 * a * cfg.d_model)
+        # yardstick: torch.sparse.mm of the (T, T·k) CSR of the weights
+        row_ptr = torch.arange(0, a + 1, cfg.top_k, device=dev)
+        csr, reason = library(
+            f"torch.sparse.mm combine T={t}",
+            lambda: torch.sparse_csr_tensor(row_ptr, inv.long(), w_flat,
+                                            size=(t, a)))
+        lib_c = None
+        if csr is not None:
+            out, reason = library(f"torch.sparse.mm combine T={t}",
+                                  lambda: torch.sparse.mm(csr, ys))
+            if out is not None:
+                lib_c = time_ms(torch, lambda: torch.sparse.mm(csr, ys))
+        print(f"    max_abs_err={err_c:.3g} kernel_ms={c_ms:.4f} plain_ms="
+              f"{cp_ms:.4f} bound_ms={cb[0]:.4f} ({cb[1]}) library_ms="
+              f"{lib_c if lib_c is None else round(lib_c, 4)}", flush=True)
+        gather_shapes.append({
+            "tokens": t, "rows": a, "feat": cfg.d_model, "dtype": "bf16",
+            "max_abs_err": err_c, "ms": c_ms, "plain_ms": cp_ms,
+            "bound_ms": cb[0], "bound_by": cb[1], "library_ms": lib_c,
+            "library_note": "torch.sparse.mm of the (T, T*k) CSR of the "
+            "router weights" if lib_c is not None else reason})
+        record.setdefault("moe_layer", []).append({
+            "tokens": t, "max_abs_err": err, "plain_bf16_max_abs_err": err16,
+            "ms": layer_ms, "plain_ms": plain_layer_ms,
+            "experts_with_rows": active})
+        del x, got, want, plain16, xs, hu, hg, hd, ys
+    del prm32
+    torch.cuda.empty_cache()
+
+    # -- (b) batched serving, as launch/serve.py does it ---------------------
+    # The forward on each seed's weights and tokens, on the kernels end to
+    # end: the two paths sum in other orders, so from the second layer on a
+    # token may take another top-k set, and the logits' distance is a
+    # reading. The check: the plain forward with each MoE layer also run on
+    # the kernels from the same input, where the routing is the same.
+    n_moe = sum(kind[1] == "moe" for kind in model.kinds)
+    record["forward"] = []
+    for seed in LM_SEEDS:
+        m = model if seed == SEED else lm.LM(cfg, device=dev, seed=seed)
+        toks = torch.from_numpy(SyntheticTokens(TokenDatasetConfig(
+            vocab_size=cfg.vocab_size, seq_len=LM_FWD_SEQ,
+            global_batch=LM_FWD_BATCH, seed=seed)).batch(0)["tokens"]).to(dev)
+        what = f"lm forward {LM_FWD_BATCH}x{LM_FWD_SEQ} seed {seed}"
+        rows = []
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits_k, _ = m(toks, moe_impl="cuda")
+            torch.cuda.synchronize()
+            fwd_ms = (time.perf_counter() - t0) * 1e3
+            with moe_held(torch, moe_mod, "cuda", what, rows):
+                logits_p, _ = m(toks, moe_impl="ragged")
+        if logits_k.shape != (LM_FWD_BATCH, LM_FWD_SEQ, cfg.padded_vocab):
+            fail(f"{what}: logits {tuple(logits_k.shape)}")
+        held = held_reading(what, rows, n_moe)
+        e2e, flips, n_rows = e2e_reading(torch, what, logits_k, logits_p)
+        print(f"  forward {LM_FWD_BATCH}x{LM_FWD_SEQ} tokens, seed {seed}: "
+              f"each MoE layer on the kernels within {held:.3g} of its "
+              f"largest output of the plain one on the same input (the "
+              f"tolerance 2e-2: {margin(held)}); end to end, "
+              f"routing free to differ: logits max_abs_err={e2e:.3g} (up "
+              f"to {float(logits_p.abs().max()):.3g}), argmax differs at "
+              f"{flips} of {n_rows} positions; forward_ms={fwd_ms:.1f} "
+              f"(host clock, first call)", flush=True)
+        record["forward"].append({
+            "seed": seed, "batch": LM_FWD_BATCH, "seq": LM_FWD_SEQ,
+            "held_max_rel_err": held,
+            "e2e_max_abs_err": e2e, "e2e_argmax_differs": flips,
+            "positions": n_rows, "ms": fwd_ms})
+        del m, logits_k, logits_p, toks
+        torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    prompts = torch.from_numpy(SyntheticTokens(TokenDatasetConfig(
+        vocab_size=cfg.vocab_size, seq_len=LM_PROMPT_LEN,
+        global_batch=LM_PROMPTS, seed=SEED)).batch(0)["tokens"]).to(dev)
+    max_len = LM_PROMPT_LEN + LM_GEN + 1
+    state = lm.init_decode_state(cfg, LM_PROMPTS, max_len, bf16, device=dev)
+    fed, step_logits, step_ms = [], [], []
+    kops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = prefill_into_cache(model, prompts, state, "cuda")
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    step_logits.append(logits)
+    tok = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
+    for _ in range(LM_GEN):
+        fed.append(tok)
+        t1 = time.perf_counter()
+        logits, state = lm.decode_step(model, tok, state, moe_impl="cuda")
+        tok = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        step_logits.append(logits)
+    launches_b = kops.launch_counts()
+    expect = {k: n * cfg.num_layers * (LM_PROMPT_LEN + LM_GEN)
+              for k, n in LM_MOE_KERNELS.items()}
+    if {k: v for k, v in launches_b.items() if v} != expect:
+        fail(f"lm serving launched {launches_b}, expected {expect}")
+    decode_s = sum(step_ms) / 1e3
+    # teacher-forced: the plain path fed the same tokens, each decode
+    # step's MoE layers also run on the kernels from the same input
+    state_p = lm.init_decode_state(cfg, LM_PROMPTS, max_len, bf16,
+                                   device=dev)
+    logits_p, state_p = prefill_into_cache(model, prompts, state_p,
+                                           "ragged")
+    e2e = [e2e_reading(torch, "lm prefill logits", step_logits[0],
+                       logits_p)]
+    rows = []
+    with moe_held(torch, moe_mod, "cuda", "lm decode", rows):
+        for i, tok_i in enumerate(fed):
+            logits_p, state_p = lm.decode_step(model, tok_i, state_p,
+                                               moe_impl="ragged")
+            e2e.append(e2e_reading(torch, f"lm decode step {i}",
+                                   step_logits[i + 1], logits_p))
+    held_dec = held_reading("lm decode", rows, LM_GEN * n_moe)
+    gen_tokens = torch.cat(fed, 1).cpu().numpy()
+    split = profiled_lm_step(torch, lambda: lm.decode_step(
+        model, tok, state, moe_impl="cuda"), layers_mod, moe_mod)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    serving = {
+        "prompts": LM_PROMPTS, "prompt_len": LM_PROMPT_LEN, "gen": LM_GEN,
+        "prefill_s": prefill_s,
+        "prefill_tok_s": LM_PROMPTS * LM_PROMPT_LEN / prefill_s,
+        "decode_tok_s": LM_PROMPTS * LM_GEN / decode_s,
+        "decode_step_ms": statistics.median(step_ms),
+        "held_max_rel_err": held_dec,
+        "e2e_max_abs_err": max(r[0] for r in e2e),
+        "e2e_argmax_differs": sum(r[1] for r in e2e),
+        "positions": sum(r[2] for r in e2e), "peak_alloc_gib": peak_gb,
+        "launches": {k: v for k, v in launches_b.items() if v},
+        "profiled_step": split, "sample": gen_tokens[0, :12].tolist()}
+    record["serving"] = serving
+    print(f"  prefill {LM_PROMPTS}x{LM_PROMPT_LEN} tokens (token by token "
+          f"through decode_step) in {prefill_s:.2f} s = "
+          f"{serving['prefill_tok_s']:.1f} tok/s; {LM_GEN} greedy decode "
+          f"steps: {serving['decode_tok_s']:.1f} tok/s, "
+          f"{serving['decode_step_ms']:.2f} ms a step (median, host clock "
+          f"after a synchronise); against the plain path fed the same "
+          f"tokens, each decode step's MoE layers on the kernels within "
+          f"{held_dec:.3g} of their largest output on the same input "
+          f"({margin(held_dec)}), end to end logits max_abs_err="
+          f"{serving['e2e_max_abs_err']:.3g}, argmax differs at "
+          f"{serving['e2e_argmax_differs']} of {serving['positions']}; "
+          f"peak_alloc_gib={peak_gb:.2f}; launches {serving['launches']}",
+          flush=True)
+    print("  profiled decode step: wall_ms={wall_ms:.2f} device_busy_ms="
+          "{device_busy_ms:.2f} idle_share={idle_share:.3f}; MoE layers "
+          "{moe_layers_ms:.2f} ms (of which segment_matmul + gather "
+          "kernels {moe_kernels_ms:.2f}), attention {attention_ms:.2f}, "
+          "rest {rest_ms:.2f}".format(**split), flush=True)
+    del state, state_p, step_logits, logits, logits_p
+    torch.cuda.empty_cache()
+
+    # -- (c) continuous batching on the capacity path ------------------------
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(LM_MIN_PROMPT, LM_MAX_PROMPT + 1, LM_REQUESTS)
+    pool = SyntheticTokens(TokenDatasetConfig(
+        vocab_size=cfg.vocab_size, seq_len=LM_MAX_PROMPT,
+        global_batch=LM_REQUESTS, seed=SEED)).batch(1)["tokens"]
+    batcher = ContinuousBatcher(model, LM_SLOTS,
+                                LM_MAX_PROMPT + LM_NEW + 1, dtype=bf16)
+    for uid, n in enumerate(lens):
+        batcher.submit(Request(uid, pool[uid, :n], LM_NEW))
+    kops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batcher.tick()
+    first = batcher.last_logits
+    ticks = 1
+    while batcher.queue or any(not s.free for s in batcher.slots):
+        batcher.tick()
+        ticks += 1
+    torch.cuda.synchronize()
+    cb_s = time.perf_counter() - t0
+    launches_c = kops.launch_counts()
+    if launches_c["gather_segment_reduce"] != ticks * cfg.num_layers:
+        fail(f"batcher: {launches_c['gather_segment_reduce']} gather "
+             f"launches over {ticks} ticks of {cfg.num_layers} MoE layers")
+    done = batcher.finished
+    if sorted(done) != list(range(LM_REQUESTS)) or \
+            any(len(v) != LM_NEW for v in done.values()):
+        fail(f"batcher: finished {{uid: tokens}} = "
+             f"{ {k: len(v) for k, v in done.items()} }")
+    # the first tick against the plain versions (the first LM_SLOTS
+    # prompts' first tokens at position 0), each MoE layer also run on the
+    # batcher's capacity path from the same input
+    state_p = lm.init_decode_state(cfg, LM_SLOTS, batcher.max_len, bf16,
+                                   device=dev)
+    rows = []
+    with moe_held(torch, moe_mod, "capacity", "batcher first tick", rows):
+        first_p, _ = lm.decode_step(
+            model, torch.from_numpy(pool[:LM_SLOTS, :1]).to(dev), state_p,
+            moe_impl="ragged",
+            lengths=torch.zeros(LM_SLOTS, dtype=torch.int32, device=dev))
+    first_held = held_reading("batcher first tick", rows, n_moe)
+    first_err, first_flips, _ = e2e_reading(torch, "batcher first tick",
+                                            first, first_p)
+    fed_tokens = int(lens.sum()) + LM_REQUESTS * (LM_NEW - 1)
+    record["batcher"] = {
+        "requests": LM_REQUESTS, "slots": LM_SLOTS, "new_tokens": LM_NEW,
+        "prompt_lens": lens.tolist(), "ticks": ticks, "seconds": cb_s,
+        "generated_tok_s": LM_REQUESTS * LM_NEW / cb_s,
+        "fed_tok_s": fed_tokens / cb_s, "first_tick_held_max_rel_err":
+        first_held, "first_tick_e2e_max_abs_err": first_err,
+        "first_tick_e2e_argmax_differs": first_flips,
+        "launches": {k: v for k, v in launches_c.items() if v}}
+    print(f"  ContinuousBatcher: {LM_REQUESTS} requests (prompts "
+          f"{int(lens.min())}-{int(lens.max())} tokens) x {LM_NEW} new "
+          f"tokens in {LM_SLOTS} slots: {ticks} ticks in {cb_s:.2f} s, "
+          f"{record['batcher']['generated_tok_s']:.1f} generated tok/s "
+          f"({record['batcher']['fed_tok_s']:.1f} tokens fed a second); "
+          f"first tick: each MoE layer on the capacity path within "
+          f"{first_held:.3g} of its largest output of the plain one on the "
+          f"same input ({margin(first_held)}), end to end "
+          f"max_abs_err={first_err:.3g}, argmax differs at {first_flips} of "
+          f"{LM_SLOTS}; launches "
+          f"{record['batcher']['launches']}", flush=True)
+    record["launches"] = {k: launches_b[k] + launches_c[k]
+                          for k in launches_b}
+    record["segment_matmul_moe"] = smm_shapes
+    record["gather_moe"] = gather_shapes
+    del model, batcher
+    torch.cuda.empty_cache()
+    return record
+
+
 def main() -> None:
+    t_script = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device; this script runs the port on the card")
@@ -2335,8 +2886,13 @@ def main() -> None:
 
     # edge cases: empty groups, a single group, rows past the groups, groups
     # of 1-3 rows (every 128-row tile overlaps some 60 groups), N = 16 and
-    # 32, and K deeper than one pass of shared memory holds
+    # 32, K deeper than one pass of shared memory holds, and the MoE expert
+    # products of phase 3h (K = 2048 -> N = 768 and 768 -> 2048: chunked K
+    # with several column tiles) over 128 groups of 0-3 rows with rows past
+    # the groups
     tiny = torch.randint(1, 4, (3000,), generator=gen, device=dev).tolist()
+    moe_groups = torch.randint(0, 4, (128,), generator=gen,
+                               device=dev).tolist()
     for label, gs, pad, k_e, n_e in (
             ("empty groups", [0, 300, 0, 0, 77, 0, 1000, 0], 0, HIDDEN,
              2 * HIDDEN),
@@ -2351,7 +2907,11 @@ def main() -> None:
              2 * CLASSES),
             ("K=512, N=128", [0, 3000, 700, 0, 5000], 33, 512, 2 * HIDDEN),
             ("K=1001, N=40", [1200, 0, 900, 1], 5, 1001, 40),
-            ("K=1024, N=16", [2000, 77, 0, 4000], 0, 1024, CLASSES)):
+            ("K=1024, N=16", [2000, 77, 0, 4000], 0, 1024, CLASSES),
+            ("MoE K=2048, N=768, 128 groups of 0-3 rows", moe_groups, 45,
+             2048, 768),
+            ("MoE K=768, N=2048, 128 groups of 0-3 rows", moe_groups, 45,
+             768, 2048)):
         gs_t = torch.tensor(gs, dtype=torch.int32, device=dev)
         m_e = sum(gs) + pad
         xe32 = torch.randn(m_e, k_e, generator=gen, device=dev)
@@ -2710,6 +3270,15 @@ def main() -> None:
           f"summed over the {SHARDS} ranks: {launches_sharded}", flush=True)
     print(json.dumps({"sharded": sharded}))
 
+    # -- 3h. LM serving: qwen3-moe-30b-a3b at full width, cut in depth -------
+    t_phase = time.perf_counter()
+    lm_record = lm_phase(torch, dev, card)
+    lm_record["phase_s"] = time.perf_counter() - t_phase
+    launches_lm = lm_record["launches"]
+    print(f"LM serving passed ({lm_record['phase_s']:.1f} s, {card}); "
+          f"launches on the LM path: {launches_lm}", flush=True)
+    print(json.dumps({"lm_serving": lm_record}))
+
     # -- 4. the kernels line ----------------------------------------------------
     print(f"bounds over {e_real} real edges, {h_rows} distinct source rows, "
           f"{v} output rows (gather, softmax, fused):", flush=True)
@@ -2775,7 +3344,8 @@ def main() -> None:
 
     paths = {"serving": launches_serving, "typed": launches_typed,
              "ops": launches_ops, "training": launches_training,
-             "sampled": launches_sampled, "sharded": launches_sharded}
+             "sampled": launches_sampled, "sharded": launches_sharded,
+             "lm": launches_lm}
 
     # the CUDA kernels one launch of each wrapper runs, read from the
     # profiler's device events: two calls of the kernels line's
@@ -2882,12 +3452,17 @@ def main() -> None:
                                               torch.float32)][2]
     kernels[2]["reddit2_bound_ms"] = results["fused reddit2 bound"][0]
     kernels[2]["reddit2_row_read_tb_s"] = results["fused reddit2 rows"][1]
+    # the MoE shapes of phase 3h: the combine, and the three expert products
+    kernels[0]["moe_combine"] = lm_record["gather_moe"]
+    kernels[3]["moe_products"] = lm_record["segment_matmul_moe"]
     kernels[5]["shuffled_ms"] = results[("sddmm", HIDDEN, torch.float32,
                                          "shuffled")][1]
     kernels[5]["b_row_read_tb_s"] = sd_b_bytes / kernels[5]["ms"] / 1e9
     for r in roles:           # the sddmm role is 2b's call, and its bound
         if r["kernel"] == "sddmm":
             r["bound_ms"] = d_bound[0]
+    print(f"chip_smoke.py ran {time.perf_counter() - t_script:.1f} s after "
+          f"its imports of the standard library", flush=True)
     print(json.dumps({"serving": serving}))
     print(json.dumps({"backward_roles": roles}))
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,11 @@ family (``fit``: AdamW, checkpoints, resume; every op's backward runs on
 the same kernels) on full graphs or on sampled mini-batches (a neighbour
 sampler and a prefetch pipeline feeding the card), serves and trains the
 homogeneous families sharded across ranks of ``torch.distributed`` (one
-process a shard: ``GNNServer(shards=S)``, ``fit(mesh=...)``), reports through a
+process a shard: ``GNNServer(shards=S)``, ``fit(mesh=...)``), serves the
+ten LM architectures of ``repro_torch.configs`` (``models.lm``: prefill and
+decode against KV / recurrent caches, MoE experts on segment_matmul and
+their combine on the gather kernel; ``serve.lm.ContinuousBatcher``,
+``python -m repro_torch.launch.serve``), reports through a
 metrics registry, spans and build attribution (``obs``), and offers the
 library's public segment ops. Each plan's kernel config (the run length
 and tile the kernels read) is selected from the graph's O(1) features by

@@ -1,18 +1,94 @@
-"""Carrying parameters across from the reference package.
+"""Parameters: the LM's seeded initialisers and containers, and carrying
+parameters across from the reference package.
 
 The JAX models keep each layer as a dict of ``(d_in, d_out)`` arrays
 (``y = x @ w``); the port keeps the same layout in its ``nn.Module``s, so
-loading is a copy, not a transpose.
+loading is a copy, not a transpose. The LM's parameter dicts become
+:class:`Params` modules with the same keys (``from_jax_lm_params``).
 """
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+import math
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models.gnn import GNN
+
+
+# ---------------------------------------------------------------------------
+# the LM's parameter dicts and initialisers
+# ---------------------------------------------------------------------------
+
+class Params(nn.Module):
+    """One parameter dict of the reference's LM tree as a module: each key
+    an attribute, a tensor (registered as a frozen ``nn.Parameter``: the
+    port serves the LM and trains none of it yet) or a sub-dict (a module).
+    ``"key" in params`` and :meth:`keys` read it as the dict it mirrors."""
+
+    def __init__(self, **items):
+        super().__init__()
+        for name, value in items.items():
+            if isinstance(value, nn.Module):
+                self.add_module(name, value)
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(value, requires_grad=False))
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+    def keys(self):
+        return list(self._parameters) + list(self._modules)
+
+
+def normal(gen: Optional[torch.Generator], shape, dtype, device,
+           std: float = 1.0) -> torch.Tensor:
+    """``std``·N(0, 1) drawn in ``dtype`` from ``gen`` on ``device``; with
+    no generator an uninitialised tensor, for a carrier to fill."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    return torch.randn(shape, generator=gen, dtype=dtype,
+                       device=device).mul_(std)
+
+
+def uniform(gen: Optional[torch.Generator], shape, dtype, device):
+    """U[0, 1) in ``dtype`` (uninitialised with no generator)."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    return torch.rand(shape, generator=gen, dtype=dtype, device=device)
+
+
+def dense_init(gen, in_dim: int, out_dim: int, dtype, device,
+               scale: float = 1.0) -> torch.Tensor:
+    """(in_dim, out_dim) weight, N(0, (scale/√in_dim)²), as the
+    reference's ``dense_init``."""
+    return normal(gen, (in_dim, out_dim), dtype, device,
+                  scale / math.sqrt(in_dim))
+
+
+def embed_init(gen, vocab: int, dim: int, dtype, device) -> torch.Tensor:
+    """(vocab, dim) table, N(0, 0.02²)."""
+    return normal(gen, (vocab, dim), dtype, device, 0.02)
+
+
+def zeros_init(shape, dtype, device) -> torch.Tensor:
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def ones_init(shape, dtype, device) -> torch.Tensor:
+    return torch.ones(shape, dtype=dtype, device=device)
+
+
+def generator(seed: Optional[int], device) -> Optional[torch.Generator]:
+    """A generator on ``device`` seeded with ``seed`` (None: none, so the
+    initialisers leave their tensors uninitialised)."""
+    if seed is None:
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
 
 # the parameter names of each family, in the order of its layer dicts
 LAYER_PARAMS = {
@@ -136,3 +212,80 @@ def from_jax_state(family: str, state, device=None):
     return TrainState(params, opt_state, int(np.asarray(state.step)),
                       torch.Generator().manual_seed(seed % 2 ** 62)
                       .get_state())
+
+
+# ---------------------------------------------------------------------------
+# the LM
+# ---------------------------------------------------------------------------
+
+def carry(module, tree, path: str, layer: Optional[tuple] = None) -> None:
+    """Copy a reference parameter (sub)tree into ``module``: a dict into a
+    :class:`Params` with the same keys, a leaf into its ``nn.Parameter``
+    (``layer = (p, n)``: slice p of a leading stacked-layers axis that must
+    hold n). Raises on a missing or extra key and on a shape mismatch."""
+    if isinstance(tree, Mapping):
+        if not isinstance(module, Params) or set(tree) != set(module.keys()):
+            have = sorted(module.keys()) if isinstance(module, Params) else \
+                type(module).__name__
+            raise ValueError(f"{path}: reference keys {sorted(tree)} != "
+                             f"port {have}")
+        for key, sub in tree.items():
+            carry(getattr(module, key), sub, f"{path}.{key}", layer)
+        return
+    arr = _value(tree)
+    if layer is not None:
+        if arr.shape[:1] != (layer[1],):
+            raise ValueError(f"{path}: {arr.shape[:1]} stacked layers, the "
+                             f"config has {layer[1]}")
+        arr = arr[layer[0]]
+    if not isinstance(module, torch.Tensor) or \
+            tuple(arr.shape) != tuple(module.shape):
+        want = tuple(module.shape) if isinstance(module, torch.Tensor) \
+            else type(module).__name__
+        raise ValueError(f"{path}: shape {tuple(arr.shape)} != {want}")
+    with torch.no_grad():
+        module.copy_(_tensor(arr, "cpu").to(module.dtype))
+
+
+def from_jax_lm_params(cfg, tree, device=None):
+    """The port's :class:`~repro_torch.models.lm.LM` holding the weights of
+    ``repro.models.lm.init(key, cfg)``: ``tree`` is that pytree with each
+    leaf as a numpy array (``P.value``) or a ``P``. Each ``"period"`` slot's
+    leading layers axis is unstacked into per-layer modules in the
+    reference's layer order (layer ``lead + p·period + s`` is slot ``s`` of
+    period ``p``); ``lead``, ``embed``, ``lm_head``, ``pos_embed``,
+    ``final_norm``, ``enc_blocks``, ``enc_norm`` and ``enc_pos`` carry
+    over by name. Every shape is checked; a mismatch or a missing key
+    raises. Tensors go to ``device`` (None: the card, raising without one;
+    ``"cpu"`` for the plain versions)."""
+    from repro_torch.models.lm import LM, stack_plan
+    device = resolve_device(device, "from_jax_lm_params")
+    lead_kinds, period_kinds, n_periods = stack_plan(cfg)
+    dtype = _tensor(_value(tree["embed"]["table"])[:0], "cpu").dtype
+    model = LM(cfg, dtype=dtype, device=device, seed=None)
+    stacks = {"lead", "period"} | ({"enc_blocks"} if cfg.encoder_layers
+                                   else set())
+    flat = set(model.keys()) - {"layers", "enc_blocks"}
+    if set(tree) != flat | stacks:
+        raise ValueError(f"reference keys {sorted(tree)} != the port's LM "
+                         f"{sorted(flat | stacks)}")
+    for key in sorted(flat):
+        carry(getattr(model, key), tree[key], key)
+    if len(tree["lead"]) != len(lead_kinds) or \
+            len(tree["period"]) != len(period_kinds):
+        raise ValueError(f"reference stack ({len(tree['lead'])} lead, "
+                         f"{len(tree['period'])} period slots) != the "
+                         f"config's ({len(lead_kinds)}, {len(period_kinds)})")
+    for i, sub in enumerate(tree["lead"]):
+        carry(model.layers[i], sub, f"lead[{i}]")
+    width = len(period_kinds)
+    for s, sub in enumerate(tree["period"]):
+        for p in range(n_periods):
+            carry(model.layers[len(lead_kinds) + p * width + s], sub,
+                   f"period[{s}][{p}]", layer=(p, n_periods))
+    if len(tree.get("enc_blocks", ())) != cfg.encoder_layers:
+        raise ValueError(f"{len(tree['enc_blocks'])} encoder blocks, the "
+                         f"config has {cfg.encoder_layers}")
+    for i, sub in enumerate(tree.get("enc_blocks", ())):
+        carry(model.enc_blocks[i], sub, f"enc_blocks[{i}]")
+    return model

@@ -629,7 +629,12 @@ def test_import_without_jax():
             "repro_torch.kernels.ops, repro_torch.hetero_inference, "
             "repro_torch.obs, repro_torch.obs.export, "
             "repro_torch.data.sampling, repro_torch.data.pipeline, "
-            "repro_torch.train.providers; "
+            "repro_torch.train.providers, repro_torch.models.lm, "
+            "repro_torch.models.moe, repro_torch.configs, "
+            "repro_torch.configs.shapes, repro_torch.serve.lm, "
+            "repro_torch.launch.serve, repro_torch.data.tokens; "
+            "from repro_torch import configs; "
+            "[configs.get_config(a) for a in configs.ARCH_NAMES]; "
             "assert not any(m == 'repro' or m.startswith(('repro.', 'jax')) "
             "for m in sys.modules if sys.modules[m] is not None); print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
