@@ -11,7 +11,10 @@ process a shard: ``GNNServer(shards=S)``, ``fit(mesh=...)``), serves the
 ten LM architectures of ``repro_torch.configs`` (``models.lm``: prefill and
 decode against KV / recurrent caches, MoE experts on segment_matmul and
 their combine on the gather kernel; ``serve.lm.ContinuousBatcher``,
-``python -m repro_torch.launch.serve``), reports through a
+``python -m repro_torch.launch.serve``), trains them on one device
+(``train.LMTask`` behind ``fit``: the expert products and their dX on
+segment_matmul, the embedding's backward on segment_reduce; ``python -m
+repro_torch.launch.train``), reports through a
 metrics registry, spans and build attribution (``obs``), and offers the
 library's public segment ops. Each plan's kernel config (the run length
 and tile the kernels read) is selected from the graph's O(1) features by

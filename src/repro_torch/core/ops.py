@@ -181,11 +181,12 @@ def segment_reduce(x, idx, num_segments: int, reduce: str = "sum",
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, idx):
+    def forward(ctx, h, idx, impl):
         ctx.scopes = kops.fusion_scopes()
         if idx.dtype not in (torch.int32, torch.int64):
             idx = idx.long()
         ctx.num_rows = int(h.shape[0])
+        ctx.impl = impl
         ctx.save_for_backward(idx)
         return h.index_select(0, idx)
 
@@ -193,18 +194,19 @@ class _Gather(torch.autograd.Function):
     @_in_forward_scopes
     def backward(ctx, g):
         if not ctx.needs_input_grad[0]:
-            return None, None
+            return None, None, None
         (idx,) = ctx.saved_tensors
         order = source_order(idx, None, 0, ctx.num_rows)
-        return _scatter_dh(order, g, None, True, None), None
+        return _scatter_dh(order, g, None, True, ctx.impl), None, None
 
 
-def gather(h, idx):
+def gather(h, idx, impl: Optional[str] = None):
     """Row gather (the message step of Listing 2): ``h[idx]``. A plain
     ``index_select`` forward, as the reference leaves it to XLA; its
     backward is the reference's sort-then-segment-reduce, on the gather
-    kernel for CUDA tensors (deterministic, unlike an atomic scatter)."""
-    return _Gather.apply(h, idx)
+    kernel for CUDA tensors (deterministic, unlike an atomic scatter;
+    ``impl="ref"`` forces its plain version)."""
+    return _Gather.apply(h, idx, impl)
 
 
 class _IndexSegmentReduce(torch.autograd.Function):
@@ -472,6 +474,22 @@ def _group_offsets(group_sizes, plan) -> tuple:
     return tuple(out)
 
 
+def _grouped_dw(x, y_bar, group_sizes, plan, w_shape, w_dtype):
+    """dW[g] = X[rows g]ᵀ Ȳ[rows g] (rows past the groups give none): a
+    loop of fp32 ``torch.matmul`` over the groups on host row offsets (one
+    device-to-host read of the sizes without a RelationPlan), into an fp32
+    buffer of W's shape, cast to W's dtype. The reference computes dW
+    outside any Pallas kernel too (a sorted segment_sum of outer
+    products)."""
+    off = _group_offsets(group_sizes, plan)
+    dw = torch.zeros(w_shape, dtype=torch.float32, device=x.device)
+    for grp in range(int(w_shape[0])):
+        lo, hi = off[grp], off[grp + 1]
+        if hi > lo:
+            dw[grp] = x[lo:hi].float().T @ y_bar[lo:hi].float()
+    return dw.to(w_dtype)
+
+
 class _GroupedSegmentMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, group_sizes, impl, config, plan):
@@ -496,14 +514,7 @@ class _GroupedSegmentMatmul(torch.autograd.Function):
                                      w.transpose(1, 2).contiguous(),
                                      plan=plan, impl=impl)
         if need_w:
-            # dW[g] = X[rows g]ᵀ Ȳ[rows g]; rows past the groups give none
-            off = _group_offsets(group_sizes, plan)
-            dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
-            for grp in range(int(w.shape[0])):
-                lo, hi = off[grp], off[grp + 1]
-                if hi > lo:
-                    dw[grp] = x[lo:hi].float().T @ y_bar[lo:hi].float()
-            dw = dw.to(w.dtype)
+            dw = _grouped_dw(x, y_bar, group_sizes, plan, w.shape, w.dtype)
         return dx, dw, None, None, None, None
 
 

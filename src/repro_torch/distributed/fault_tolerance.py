@@ -114,12 +114,19 @@ class ResilientLoop:
 
     step_fn(state, step:int) -> (state, metrics); state is any tree the
     checkpoint module takes (params, optimizer state, ...). Data must be
-    derivable from the step index, so replay after restore is exact."""
+    derivable from the step index, so replay after restore is exact.
 
-    def __init__(self, cfg: ResilientLoopConfig, step_fn, init_state):
+    ``entry``: a zero-argument callable that rebuilds the state a run
+    entered with, for a step_fn that updates its state in place (the
+    port's trainer); None keeps that state itself, as the reference
+    does."""
+
+    def __init__(self, cfg: ResilientLoopConfig, step_fn, init_state,
+                 entry: Optional[Callable[[], Any]] = None):
         self.cfg = cfg
         self.step_fn = step_fn
         self.state = init_state
+        self.entry = entry
         self.monitor = StragglerMonitor(cfg.straggler_factor)
         self.restarts = 0
         self.events: list[tuple] = []
@@ -134,7 +141,7 @@ class ResilientLoop:
                                    at_or_before=failed_step)
                   if self.cfg.ckpt_dir else None)
         if latest is None or latest < entry_step:
-            self.state = entry_state
+            self.state = entry_state()
             self.events.append(("restored_entry", entry_step))
             return entry_step
         self.state = ckpt.restore(self.state, self.cfg.ckpt_dir, step=latest)
@@ -144,7 +151,8 @@ class ResilientLoop:
     def run(self, num_steps: int, start_step: int = 0,
             metrics_cb: Optional[Callable] = None):
         step = start_step
-        entry_state = self.state        # _restore's no-checkpoint fallback
+        # _restore's no-checkpoint fallback
+        entry_state = self.entry or (lambda state=self.state: state)
         watchdog = (StepWatchdog(self.cfg.step_timeout_s)
                     if self.cfg.step_timeout_s else None)
         while step < num_steps:

@@ -12,7 +12,6 @@ temperature above 0 samples from the softmax with its own generator.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 
 import numpy as np
@@ -20,21 +19,8 @@ import torch
 
 from repro_torch import configs as cfglib
 from repro_torch.core.device import resolve_device
+from repro_torch.launch.train import reduced_100m
 from repro_torch.models import lm
-
-
-def reduced_100m(cfg):
-    """~100M-param config of the same family (the example driver scale; a
-    copy of ``repro.launch.train.reduced_100m``)."""
-    over = dict(num_layers=max(4, min(cfg.num_layers, 8)), d_model=512,
-                num_heads=8, num_kv_heads=min(cfg.num_kv_heads, 4) or 4,
-                head_dim=64, d_ff=2048, vocab_size=32768, max_seq=2048,
-                dtype="float32")
-    if cfg.num_experts:
-        over.update(num_experts=8, top_k=2, moe_d_ff=512)
-    if cfg.family == "hybrid":
-        over.update(num_layers=8)
-    return dataclasses.replace(cfg, **over)
 
 
 def prefill_into_cache(model, tokens, state, moe_impl: str = "capacity"):

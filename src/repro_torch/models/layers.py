@@ -10,8 +10,12 @@ softmax in fp32. Attention has no Pallas kernel in the reference (plain
 ``jnp``), so it is plain PyTorch here, mirroring the reference's blocked
 online softmax rather than calling a fused library kernel. The GSPMD
 sharding annotations of the reference are the identity on one device and
-are dropped; its tensor-parallel projection and the embedding's custom
-backward belong to the sharding and training slices.
+are dropped; its tensor-parallel projection belongs to the sharding slice.
+
+The embedding's backward is the paper's sorted segment reduction, as the
+reference's custom VJP: the cotangent rows sorted by token id and summed in
+fp32 with :func:`repro_torch.core.ops.segment_reduce` (the segment_reduce
+kernel on CUDA tensors).
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import ops as geot
+from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import (Params, dense_init, embed_init,
                                        ones_init, zeros_init)
@@ -93,8 +99,40 @@ def embedding_init(gen, cfg: ModelConfig, dtype, device) -> Params:
                                    dtype, device))
 
 
+class _EmbedLookup(torch.autograd.Function):
+    """``table[ids]`` whose backward is a sorted segment reduction (the
+    reference's ``_embed_lookup``): the flat ids argsorted (stable), the
+    cotangent rows gathered in that order, summed in fp32 into one segment
+    a vocabulary row, cast to the table's dtype. The reference's sharded
+    branch (a plain scatter-add when ``sharding_active()``) comes with the
+    LM-sharding slice."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.scopes = kops.fusion_scopes()
+        ctx.vocab = int(table.shape[0])
+        ctx.save_for_backward(ids)
+        return F.embedding(ids.long(), table)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        (ids,) = ctx.saved_tensors
+        flat_ids = ids.reshape(-1)
+        flat_g = g.reshape(-1, g.shape[-1])
+        order = torch.argsort(flat_ids, stable=True)
+        # recorded where the forward ran (the card's backward thread holds
+        # no fusion scope of its own)
+        with kops.in_fusion_scopes(ctx.scopes):
+            dtab = geot.segment_reduce(
+                flat_g.index_select(0, order).float(),
+                flat_ids.index_select(0, order).to(torch.int32), ctx.vocab)
+        return dtab.to(g.dtype), None
+
+
 def embed(prm, ids):
-    return F.embedding(ids.long(), prm.table)
+    return _EmbedLookup.apply(prm.table, ids)
 
 
 def unembed(prm, x, cfg: ModelConfig):

@@ -14,15 +14,29 @@ variants reuse the same blocks.
     logits, aux = model(tokens, moe_impl="cuda")      # (B, S, V) fp32
     state = init_decode_state(cfg, batch, max_len, torch.bfloat16)
     logits, state = decode_step(model, tokens[:, :1], state)
+    loss, metrics = loss_fn(model, cfg, batch)        # or a {name: tensor}
 
-The LM's next-token loss comes with the LM training slice.
+Training: :func:`loss_fn` is the next-token cross entropy plus the MoE
+aux loss, on an :class:`LM` or on a flat ``{name: tensor}`` dict of its
+parameters (run through ``torch.func.functional_call`` on a meta-device
+skeleton: the trainer's form). ``remat_policy`` checkpoints each block of
+the stack: ``"none"``, ``"full"`` (recompute the whole block in the
+backward) or ``"dots"`` (keep the outputs of matmuls without batch dims,
+recompute the rest: the reference's ``checkpoint_dots_with_no_batch_dims``).
+The three give the same gradients. A recomputed block launches its kernels
+again, and the kernels' launch counters count those launches too: under
+``"full"`` or ``"dots"`` a step's counts include the recomputed forwards.
+Serving builds no graph: :func:`decode_step` runs under ``no_grad`` and
+the parameters of an :class:`LM` are frozen.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt_lib
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import layers
@@ -84,8 +98,16 @@ def _ffn_init(gen, cfg, kind, dtype, device):
     return layers.mlp_init(gen, cfg, dtype, device)
 
 
+class Block(Params):
+    """One block's parameters; calling it runs :func:`block_forward` (so
+    that ``functional_call`` can rebind them in a recomputed block)."""
+
+    def forward(self, x, cfg: ModelConfig, kind, **kw):
+        return block_forward(self, x, cfg, kind, **kw)
+
+
 def block_init(gen, cfg: ModelConfig, kind, dtype, device,
-               cross: bool = False) -> Params:
+               cross: bool = False) -> Block:
     prm = {
         "norm1": layers.norm_init(cfg, device),
         "mixer": _mixer_init(gen, cfg, kind[0], dtype, device),
@@ -95,7 +117,7 @@ def block_init(gen, cfg: ModelConfig, kind, dtype, device,
     if cross:
         prm["norm_x"] = layers.norm_init(cfg, device)
         prm["cross"] = layers.attention_init(gen, cfg, dtype, device)
-    return Params(**prm)
+    return Block(**prm)
 
 
 def _slice(cache, i: int):
@@ -145,6 +167,42 @@ def block_forward(prm, x, cfg: ModelConfig, kind, positions=None,
     else:
         f = layers.mlp(prm.ffn, h2, cfg)
     return x + f, aux
+
+
+REMAT_POLICIES = ("none", "dots", "full")
+
+
+def _remat(policy: str):
+    """The checkpoint context of ``policy`` (None for ``"none"``). "dots"
+    keeps the outputs of ``aten.mm`` (the projections, the router, the MLP
+    and the head: matmuls without batch dims) and recomputes the rest,
+    batched matmuls (attention scores, the capacity path's experts)
+    included, as ``checkpoint_dots_with_no_batch_dims`` does."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {policy!r}; one of "
+                         f"{REMAT_POLICIES}")
+    if policy == "none":
+        return None
+    if policy == "dots":
+        return functools.partial(ckpt_lib.create_selective_checkpoint_contexts,
+                                 [torch.ops.aten.mm.default])
+    return ckpt_lib.noop_context_fn
+
+
+def _run_block(bp: Block, x, cfg: ModelConfig, kind, context_fn, **kw):
+    """``block_forward`` under the checkpoint context ``context_fn`` of
+    :func:`_remat` (None: none). The recomputed block rebinds the
+    parameters it read in the forward: under an outer ``functional_call``
+    the module holds them only for the forward."""
+    if context_fn is None:
+        return block_forward(bp, x, cfg, kind, **kw)
+    params = dict(bp.named_parameters())
+
+    def run(x):
+        return torch.func.functional_call(bp, params, (x, cfg, kind), kw,
+                                          strict=True)
+    return ckpt_lib.checkpoint(run, x, use_reentrant=False,
+                               context_fn=context_fn)
 
 
 def _cross_kv(bp, enc_out, cfg):
@@ -229,12 +287,15 @@ class LM(Params):
         return (x @ self.lm_head).float() * cfg.logit_scale
 
     def forward(self, tokens, prefix_embeds=None, enc_embeds=None,
-                moe_impl: str = "capacity"):
+                moe_impl: str = "capacity", remat_policy: str = "none"):
         """tokens: (B, S) → (logits (B, P + S, padded vocab) fp32, the
         summed MoE aux loss). ``prefix_embeds``: (B, P, D) stubbed modality
         frontend output (VLM), prepended to the token embeddings;
-        ``enc_embeds``: (B, S_enc, D) encoder-side stub (Whisper)."""
+        ``enc_embeds``: (B, S_enc, D) encoder-side stub (Whisper);
+        ``remat_policy``: each block's checkpointing (see the module
+        docstring)."""
         cfg = self.cfg
+        context_fn = _remat(remat_policy)
         x = layers.embed(self.embed, tokens)
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
@@ -248,11 +309,44 @@ class LM(Params):
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for bp, kind in zip(self.layers, self.kinds):
             kv = _cross_kv(bp, enc_out, cfg) if enc_out is not None else None
-            x, aux = block_forward(bp, x, cfg, kind, positions=positions,
-                                   causal=True, enc_kv=kv,
-                                   moe_impl=moe_impl)
+            x, aux = _run_block(bp, x, cfg, kind, context_fn,
+                                positions=positions, causal=True, enc_kv=kv,
+                                moe_impl=moe_impl)
             aux_total = aux_total + aux
         return self.head(x), aux_total
+
+
+def loss_fn(model_or_params, cfg: ModelConfig, batch,
+            remat_policy: str = "full", moe_impl: str = "capacity",
+            aux_weight: float = 0.01):
+    """Next-token cross entropy (+ ``aux_weight`` × the summed MoE
+    load-balance aux), as the reference's: fp32 logits, prefix positions
+    dropped, ``batch["mask"]`` (default all ones) weighting each position.
+    ``model_or_params``: an :class:`LM` of ``cfg``, or a flat
+    ``{name: tensor}`` dict named as its ``named_parameters()`` (run on a
+    meta-device skeleton through ``torch.func.functional_call``). ``batch``
+    holds ``tokens`` and ``labels`` (B, S) and optionally ``mask``,
+    ``prefix_embeds`` and ``enc_embeds``. Returns ``(loss, {"ce",
+    "moe_aux"})``."""
+    tokens = batch["tokens"]
+    kw = dict(prefix_embeds=batch.get("prefix_embeds"),
+              enc_embeds=batch.get("enc_embeds"), moe_impl=moe_impl,
+              remat_policy=remat_policy)
+    if isinstance(model_or_params, LM):
+        logits, aux = model_or_params(tokens, **kw)
+    else:
+        logits, aux = torch.func.functional_call(
+            LM(cfg, device="meta", seed=None), dict(model_or_params),
+            (tokens,), kw, strict=True)
+    # align: prefix positions (if any) produce no loss
+    logits = logits[:, logits.shape[1] - tokens.shape[1]:]
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+    mask = batch.get("mask")
+    mask = torch.ones_like(logz) if mask is None else mask.float()
+    ce = torch.sum((logz - gold) * mask) / torch.clamp_min(mask.sum(), 1.0)
+    return ce + aux_weight * aux, {"ce": ce, "moe_aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,9 @@ Routing tokens to experts is a sorted segment-reduction problem:
 
   dispatch — assignments sorted by expert id (the sortedness contract of
              paper §II-B), positions within an expert from the segment
-             offsets;
+             offsets; the token rows gathered with ``gather``, whose
+             backward is a sorted segment reduction (the gather kernel on
+             CUDA tensors, bitwise repeatable);
   experts  — a grouped GEMM over the expert segments (``segment_matmul``:
              the Hopper kernel under ``impl="cuda"``) on the dropless path,
              or a dense (E, C, D) batched matmul on the capacity path;
@@ -125,7 +127,7 @@ def moe_capacity(prm, x, cfg: ModelConfig, capacity: Optional[int] = None):
     # the reference's scatter drops slot e·capacity: here it lands in one
     # extra row that is sliced off
     xd = torch.zeros((e * capacity + 1, d), dtype=x.dtype, device=x.device)
-    xd[slot] = x2d[tok_flat.long()]
+    xd[slot] = geot.gather(x2d, tok_flat)
     yd = _experts_dense(prm, xd[:-1].reshape(e, capacity, d), cfg)
     yd = yd.reshape(e * capacity, d)
 
@@ -158,7 +160,7 @@ def moe_ragged(prm, x, cfg: ModelConfig, impl: str = "ref"):
     group_sizes = torch.bincount(e_flat, minlength=cfg.num_experts).to(
         torch.int32)
 
-    xs = x2d[tok_sorted.long()]
+    xs = geot.gather(x2d, tok_sorted, impl=impl)
     act = layers._ACTS[cfg.act]
     hu = geot.segment_matmul(xs, group_sizes, prm.w_up, impl=impl)
     hg = geot.segment_matmul(xs, group_sizes, prm.w_gate, impl=impl)

@@ -25,9 +25,12 @@ from repro_torch.models.gnn import GNN
 
 class Params(nn.Module):
     """One parameter dict of the reference's LM tree as a module: each key
-    an attribute, a tensor (registered as a frozen ``nn.Parameter``: the
-    port serves the LM and trains none of it yet) or a sub-dict (a module).
-    ``"key" in params`` and :meth:`keys` read it as the dict it mirrors."""
+    an attribute, a tensor (registered as a frozen ``nn.Parameter``, so
+    that serving builds no autograd graph) or a sub-dict (a module).
+    ``"key" in params`` and :meth:`keys` read it as the dict it mirrors.
+    Training does not unfreeze them: :class:`~repro_torch.train.task.LMTask`
+    trains a flat ``{name: tensor}`` dict of leaves that require grad,
+    bound to a meta-device skeleton by ``torch.func.functional_call``."""
 
     def __init__(self, **items):
         super().__init__()

@@ -12,6 +12,12 @@ update reads nothing back from the card.
 int8 states use per-tensor absmax scaling; the quantization error is
 re-absorbed every step, since moments are reconstructed, updated in fp32
 and re-quantized.
+
+:func:`update_` writes the update into the parameters' and moments' own
+tensors (the trainer's step: no second copy of either lives on the card,
+which an LM at full width could not hold); :func:`update` runs the same
+arithmetic on copies and leaves its arguments as they were. Both give the
+same bits.
 """
 from __future__ import annotations
 
@@ -77,11 +83,44 @@ def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
                           for x in tree.values()))
 
 
+def _copy_moment(m):
+    if isinstance(m, QTensor):
+        return QTensor(m.q.clone(), m.scale.clone())
+    return m.clone()
+
+
+def _store(slot, value, dtype: str) -> None:
+    """Write an updated fp32 moment into its state tensor (already there
+    for an fp32 state, which is updated in place)."""
+    if dtype == "int8":
+        enc = _encode(value, dtype)
+        slot.q.copy_(enc.q)
+        slot.scale.copy_(enc.scale)
+    elif value is not slot:
+        slot.copy_(value)
+
+
 def update(grads: Dict[str, torch.Tensor], state: AdamWState,
            params: Dict[str, torch.Tensor], cfg: AdamWConfig,
            lr_scale=1.0):
     """Returns (new_params, new_state, metrics). New parameters are fresh
-    leaf tensors with the old ones' ``requires_grad``."""
+    leaf tensors with the old ones' ``requires_grad``; ``params`` and
+    ``state`` are left as they were."""
+    params = {k: p.detach().clone().requires_grad_(p.requires_grad)
+              for k, p in params.items()}
+    state = AdamWState(state.step,
+                       {k: _copy_moment(m) for k, m in state.mu.items()},
+                       {k: _copy_moment(m) for k, m in state.nu.items()})
+    return update_(grads, state, params, cfg, lr_scale)
+
+
+def update_(grads: Dict[str, torch.Tensor], state: AdamWState,
+            params: Dict[str, torch.Tensor], cfg: AdamWConfig,
+            lr_scale=1.0):
+    """:func:`update` written into ``params``' and ``state``'s own
+    tensors, one parameter at a time (its fp32 temporaries are the only
+    extra memory). Returns ``(params, new_state, metrics)``: the same
+    dicts and tensors, the state's step advanced."""
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                        max=1.0)
@@ -91,17 +130,27 @@ def update(grads: Dict[str, torch.Tensor], state: AdamWState,
     bc2 = float(np.float32(1.0) - np.float32(cfg.b2) ** t)
     lr = float(np.float32(cfg.lr) * np.float32(lr_scale))
     sd = cfg.state_dtype
-    new_p, new_mu, new_nu = {}, {}, {}
     with torch.no_grad():
         for k, p in params.items():
             g = grads[k].float() * clip
-            mu = cfg.b1 * _decode(state.mu[k], sd) + (1.0 - cfg.b1) * g
-            nu = (cfg.b2 * _decode(state.nu[k], sd)
-                  + (1.0 - cfg.b2) * torch.square(g))
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)
-            u = u + cfg.weight_decay * p.float()
-            new_p[k] = (p.float() - lr * u).to(p.dtype).requires_grad_(
-                p.requires_grad)
-            new_mu[k], new_nu[k] = _encode(mu, sd), _encode(nu, sd)
-    return new_p, AdamWState(step, new_mu, new_nu), {
+            # the reference's b·m + (1 - b)·g, each product rounded alike
+            mu = _decode(state.mu[k], sd).mul_(cfg.b1).add_(
+                (1.0 - cfg.b1) * g)
+            nu = _decode(state.nu[k], sd).mul_(cfg.b2).add_(
+                torch.square(g).mul_(1.0 - cfg.b2))
+            del g
+            _store(state.mu[k], mu, sd)
+            _store(state.nu[k], nu, sd)
+            # (mu / bc1) / (sqrt(nu / bc2) + eps) + wd·p, then p - lr·u
+            den = (nu / bc2).sqrt_().add_(cfg.eps)
+            del nu
+            u = (mu / bc1).div_(den)
+            del mu, den
+            u.add_(p.float() * cfg.weight_decay).mul_(lr)
+            if p.dtype == torch.float32:
+                p.sub_(u)
+            else:
+                p.copy_(p.float().sub_(u))
+            del u
+    return params, AdamWState(step, state.mu, state.nu), {
         "grad_norm": gnorm.detach(), "lr": lr}

@@ -13,8 +13,8 @@ per-graph plan memo (:meth:`repro_torch.data.graphs.Graph.make_plan`)
 survives across steps: a shape's plan is built once.
 
 :class:`SampledNodeProvider` is the out-of-core provider: a neighbour
-sampler behind the prefetch pipeline. Not ported yet: the token provider
-of the LM task (ROADMAP Queue A item 7).
+sampler behind the prefetch pipeline. :class:`TokenProvider` feeds the LM
+task: numpy token batches, bitwise the reference's for the same config.
 """
 from __future__ import annotations
 
@@ -24,8 +24,10 @@ from repro_torch.data.graphs import (Graph, batch_graphs, synth_graph,
                                      synth_typed_graph)
 from repro_torch.data.pipeline import PrefetchPipeline, SampledBatchProducer
 from repro_torch.data.sampling import InMemoryStore, NeighborSampler
+from repro_torch.data.tokens import SyntheticTokens, TokenDatasetConfig
 
-__all__ = ["DatasetProvider", "GraphEpochProvider", "SampledNodeProvider"]
+__all__ = ["DatasetProvider", "GraphEpochProvider", "SampledNodeProvider",
+           "TokenProvider"]
 
 
 @runtime_checkable
@@ -150,3 +152,20 @@ class SampledNodeProvider:
 
     def __exit__(self, *exc):
         self.close()
+
+
+class TokenProvider:
+    """LM token batches: a provider-protocol wrapper over the deterministic
+    :class:`~repro_torch.data.tokens.SyntheticTokens` pipeline (a fixed
+    Markov language; each batch is a pure function of ``(seed, step,
+    host)``, so checkpoint replay is exact). Batches are numpy
+    ``{"tokens", "labels"}`` (int32, this host's rows);
+    :class:`~repro_torch.train.task.LMTask` moves them to its device."""
+
+    def __init__(self, cfg: TokenDatasetConfig, host_id: int = 0,
+                 num_hosts: int = 1):
+        self.cfg = cfg
+        self._ds = SyntheticTokens(cfg, host_id=host_id, num_hosts=num_hosts)
+
+    def batch(self, step: int):
+        return self._ds.batch(step)

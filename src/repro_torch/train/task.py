@@ -20,8 +20,14 @@ rows. With ``mesh=`` (a :class:`~repro_torch.core.dist_mp.ShardMesh`, one
 process a shard) every aggregation runs sharded: each graph is
 partitioned once and its partition and
 :class:`~repro_torch.core.plan.PartitionedPlan` cached, and every rank
-computes the same loss and the same gradients. Not ported yet: the LM
-task (ROADMAP Queue A item 7).
+computes the same loss and the same gradients.
+
+:class:`LMTask` trains an LM of :mod:`repro_torch.configs` on token
+batches (:class:`~repro_torch.train.providers.TokenProvider`): next-token
+cross entropy plus the MoE aux loss (:func:`repro_torch.models.lm.loss_fn`)
+on a flat ``{name: tensor}`` dict of the LM's parameters, run through
+``torch.func.functional_call`` on a meta-device skeleton. On one device
+only: ``prepare`` and ``build_step`` raise with a mesh.
 """
 from __future__ import annotations
 
@@ -35,7 +41,8 @@ from repro_torch.data.graphs import Graph, TypedGraph
 from repro_torch.data.pipeline import SampledBatch
 from repro_torch.models import gnn
 
-__all__ = ["Task", "GraphStatic", "NodeClassification"]
+__all__ = ["Task", "GraphStatic", "NodeClassification", "LMStatic",
+           "LMTask"]
 
 
 @runtime_checkable
@@ -252,3 +259,77 @@ class NodeClassification:
         # pin g in the memo: id() is only unique among live objects
         self._dev[id(g)] = (g, arrays)
         return arrays
+
+
+# ---------------------------------------------------------------------------
+# the LM task
+# ---------------------------------------------------------------------------
+
+_NO_MESH = ("LMTask trains on one device; training an LM across a mesh "
+            "comes with the LM-sharding slice of the port")
+
+
+class LMStatic(NamedTuple):
+    """Shape bucket of a token batch."""
+    batch: int
+    seq: int
+
+
+@dataclasses.dataclass
+class LMTask:
+    """Next-token LM training (:func:`repro_torch.models.lm.loss_fn`) as a
+    Task, the reference's ``LMTask``.
+
+    ``cfg``: a :class:`~repro_torch.models.config.ModelConfig`;
+    ``remat_policy`` ∈ {"none", "dots", "full"} checkpoints each block;
+    ``moe_impl`` ∈ {"capacity", "ragged", "cuda"}: ``"cuda"`` is the
+    dropless path on the kernels (the expert products and their dX on
+    segment_matmul, the combine and its backward on the gather and sddmm
+    kernels), the counterpart of the reference's ``"pallas"``;
+    ``aux_weight`` scales the MoE aux loss. ``device``: where batches and
+    parameters live (``None``: the card, raising without one; ``"cpu"``
+    for the plain versions). The ``(plan=, config=, tune=)`` trio is
+    accepted for the protocol and has no effect: token batches carry no
+    segment plans."""
+    cfg: Any
+    remat_policy: str = "none"
+    moe_impl: str = "capacity"
+    aux_weight: float = 0.01
+    device: Any = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device, "LMTask")
+
+    def init(self, rng: torch.Generator) -> dict:
+        """Seeded random weights on the task's device (the reference's
+        distributions), as detached leaves that require grad."""
+        from repro_torch.models import lm
+        seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=rng))
+        model = lm.LM(self.cfg, device=self.device, seed=seed)
+        return {k: p.detach().requires_grad_()
+                for k, p in model.named_parameters()}
+
+    def prepare(self, batch, *, plan=None, config=None, tune=None,
+                mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(_NO_MESH)
+        arrays = {k: torch.as_tensor(v).to(self.device)
+                  for k, v in batch.items()}
+        b, s = arrays["tokens"].shape
+        return arrays, LMStatic(int(b), int(s))
+
+    def loss(self, params, arrays, static, rng=None):
+        from repro_torch.models import lm
+        loss, metrics = lm.loss_fn(params, self.cfg, arrays,
+                                   remat_policy=self.remat_policy,
+                                   moe_impl=self.moe_impl,
+                                   aux_weight=self.aux_weight)
+        return loss, {k: v.detach() for k, v in metrics.items()}
+
+    def build_step(self, trainer_cfg, mesh, static: LMStatic):
+        """None (the trainer's generic step) on one device, as the
+        reference's. LM training across a mesh (the reference's pjit step)
+        comes with the LM-sharding slice."""
+        if mesh is None:
+            return None
+        raise NotImplementedError(_NO_MESH)

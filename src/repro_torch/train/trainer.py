@@ -5,7 +5,10 @@ checkpoints with resume, and the fault-tolerant loop
 reference's (``repro/train/trainer.py``).
 
 A step is eager: the task's loss (forward), ``torch.autograd.grad``
-(backward through the ops' kernels), ``adamw.update``. The trainer counts
+(backward through the ops' kernels), ``adamw.update_``, which writes the
+update into the state's own parameters and moments (a step holds no
+second copy of either; the state passed to :meth:`Trainer.step` is
+consumed, as a donated buffer is in JAX). The trainer counts
 steps and the distinct shape buckets it has seen in the
 :mod:`repro_torch.obs` registry (``train.steps``, ``train.buckets``;
 vital), and each step opens the span tree ``train.step`` ⊃
@@ -20,7 +23,12 @@ attributes it (capturing a step as a CUDA graph comes later).
 restores the newest complete checkpoint in ``ckpt_dir`` and continues
 from its step; providers are deterministic in the step index, the
 generator state is part of the state and every kernel sums in a fixed
-order, so the resumed trajectory is bitwise the uninterrupted one.
+order, so the resumed trajectory is bitwise the uninterrupted one. A
+state given to ``fit(state=)`` is left as it was: the loop trains a copy.
+After a failure before the first checkpoint the loop rebuilds the state it
+started from (``init_state`` again, the resumed checkpoint, or a copy of
+the given state) rather than keeping a second copy beside the one it
+trains.
 """
 from __future__ import annotations
 
@@ -74,6 +82,15 @@ class FitResult(NamedTuple):
     steps: int                    # steps this trainer has run in all
     buckets: tuple                # shape buckets seen
     events: tuple                 # ResilientLoop event log
+
+
+def _copy(state: TrainState) -> TrainState:
+    """A state whose tensors are copies (leaves keep ``requires_grad``)."""
+    def leaf(_, t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        return t.detach().clone().requires_grad_(t.requires_grad)
+    return ckpt._map(leaf, state)
 
 
 def _seed(gen: torch.Generator) -> int:
@@ -178,8 +195,8 @@ class Trainer:
                          for (k, p), g in zip(params.items(), grads)}
                 lr_scale = self._lr_scale(state.step, cfg.warmup_steps,
                                           cfg.steps)
-                new_p, new_o, om = adamw.update(grads, state.opt_state,
-                                                params, cfg.opt, lr_scale)
+                new_p, new_o, om = adamw.update_(grads, state.opt_state,
+                                                 params, cfg.opt, lr_scale)
             self._m_steps.inc(**self._labels)
         return (TrainState(new_p, new_o, state.step + 1, state.rng),
                 dict(metrics, loss=loss.detach(), **om))
@@ -195,14 +212,25 @@ class Trainer:
             raise ValueError("pass either resume=True or state=, not both")
         if resume and not cfg.ckpt_dir:
             raise ValueError("resume=True needs TrainerConfig.ckpt_dir")
+        # the state the loop enters with, rebuilt on demand (the loop
+        # trains its tensors in place)
         if state is None:
-            state = self.init_state()
+            state, entry = self.init_state(), self.init_state
+        else:
+            given, state = state, _copy(state)
+
+            def entry():
+                return _copy(given)
         start = 0
         if resume:
             latest = ckpt.latest_step(cfg.ckpt_dir)
             if latest is not None:
                 state = ckpt.restore(state, cfg.ckpt_dir, step=latest)
                 start = latest
+
+                def entry():
+                    return ckpt.restore(self.init_state(), cfg.ckpt_dir,
+                                        step=latest)
 
         history: dict = {}            # step -> loss (replay overwrites)
 
@@ -219,7 +247,7 @@ class Trainer:
                 max_restarts=cfg.max_restarts,
                 step_timeout_s=cfg.step_timeout_s,
                 straggler_factor=cfg.straggler_factor),
-            step_fn, state)
+            step_fn, state, entry=entry)
         final = loop.run(cfg.steps, start_step=start, metrics_cb=metrics_cb)
         losses = [history[s] for s in sorted(history)]
         return FitResult(state=final, losses=losses, start_step=start,

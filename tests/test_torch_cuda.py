@@ -759,3 +759,106 @@ def test_sampled_fit_and_serving_on_the_card(dev):
             _close(torch.from_numpy(got), ref[:b.num_seeds].cpu(),
                    torch.float32)
     assert srv.stats()["builds"] == len(srv.cache)
+
+
+# ---------------------------------------------------------------------------
+# LM training: the embedding's backward, the MoE products' backward and the
+# dispatch gather's backward at MoE widths
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_embedding_backward_kernel_matches_plain(dev, dtype):
+    """The embedding's backward (sort, then segment_reduce into one segment
+    a vocabulary row) on the kernel against the same backward with the
+    plain segment_reduce, fp32 sums either way; repeated and unused ids."""
+    from repro_torch.models import layers
+    rng = np.random.default_rng(31)
+    vocab, d = 5000, 256
+    ids = torch.from_numpy(rng.integers(0, 3000, (4, 512)).astype(
+        np.int32)).to(dev)
+    ids[0, :100] = 17
+    table = torch.randn(vocab, d, device=dev).to(dtype)
+    g = torch.randn(4, 512, d, device=dev).to(dtype)
+
+    class Table:
+        pass
+    grads = {}
+    for impl in ("cuda", "ref"):
+        t = table.clone().requires_grad_()
+        tab = Table()
+        tab.table = t
+        kops.reset_launch_counts()
+        if impl == "ref":
+            orig = kops.segment_reduce
+            kops.segment_reduce = lambda *a, **k: orig(*a, **dict(
+                k, impl="ref"))
+        try:
+            (grads[impl],) = torch.autograd.grad(layers.embed(tab, ids), [t],
+                                                 g)
+        finally:
+            if impl == "ref":
+                kops.segment_reduce = orig
+        torch.cuda.synchronize()
+        launched = kops.launch_counts()["segment_reduce"]
+        assert launched == (1 if impl == "cuda" else 0)
+    assert grads["cuda"].dtype == dtype
+    _close(grads["cuda"], grads["ref"].float(), dtype)
+    assert not bool(grads["cuda"][3000:].any())
+
+
+@pytest.mark.parametrize("k,n", [(2048, 768), (768, 2048)])
+def test_moe_width_segment_matmul_backward_matches_plain(dev, k, n):
+    """_GroupedSegmentMatmul's backward at qwen3-moe widths in bf16: 128
+    groups (some empty), dX on the kernel with Wᵀ, dW by the per-group
+    loop, against plain autograd of the fp32 plain version of the same
+    upcast inputs."""
+    from repro_torch.core import ops as geot
+    rng = np.random.default_rng(32)
+    sizes_np = rng.integers(0, 64, 128)
+    sizes_np[[3, 40, 41, 127]] = 0
+    sizes = torch.from_numpy(sizes_np.astype(np.int32)).to(dev)
+    m = int(sizes_np.sum())
+    x = (torch.randn(m, k, device=dev) / 8).to(torch.bfloat16)
+    w = (torch.randn(128, k, n, device=dev) / k ** 0.5).to(torch.bfloat16)
+    gy = torch.randn(m, n, device=dev).to(torch.bfloat16)
+    out = {}
+    for impl, xs, ws, g in (("cuda", x, w, gy),
+                            ("ref", x.float(), w.float(), gy.float())):
+        xl, wl = xs.clone().requires_grad_(), ws.clone().requires_grad_()
+        kops.reset_launch_counts()
+        y = geot.segment_matmul(xl, sizes, wl, impl=impl)
+        out[impl] = (y,) + torch.autograd.grad(y, [xl, wl], g)
+        torch.cuda.synchronize()
+        assert kops.launch_counts()["segment_matmul"] == (
+            2 if impl == "cuda" else 0)
+    for got, want in zip(out["cuda"], out["ref"]):
+        assert got.dtype == torch.bfloat16
+        _close(got, want, torch.bfloat16)
+    empty = torch.from_numpy(sizes_np == 0).to(dev)
+    assert not bool(out["cuda"][2][empty].any())
+
+
+def test_moe_dispatch_gather_backward_is_bitwise_repeatable(dev):
+    """The MoE dispatch gather's backward (sorted segment reduction on the
+    gather kernel) at the 2048-token training shape: two backwards give
+    the same bits, and the plain version's within the bf16 tolerance."""
+    from repro_torch.core import ops as geot
+    rng = np.random.default_rng(33)
+    t, topk, d = 2048, 8, 2048
+    tok = torch.from_numpy(np.repeat(np.arange(t), topk)[
+        rng.permutation(t * topk)].astype(np.int32)).to(dev)
+    x = torch.randn(t, d, device=dev).to(torch.bfloat16)
+    g = torch.randn(t * topk, d, device=dev).to(torch.bfloat16)
+
+    def backward(impl):
+        xl = x.clone().requires_grad_()
+        return torch.autograd.grad(geot.gather(xl, tok, impl=impl), [xl],
+                                   g)[0]
+    kops.reset_launch_counts()
+    first, again = backward(None), backward(None)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["gather_segment_reduce"] == 2
+    assert torch.equal(first, again)
+    want = torch.zeros(t, d, device=dev).index_add_(0, tok.long(), g.float())
+    _close(first, want, torch.bfloat16)
+    _close(backward("ref"), want, torch.bfloat16)
