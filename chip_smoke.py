@@ -1865,42 +1865,9 @@ def _sharded_rank(torch, dist, rank, world, backend, dev, out):
 
 
 def sharded_phase(torch) -> dict:
-    """Phase 3g: spawn SHARDS ranks (NCCL with a card a rank, else gloo
-    with all ranks on the one card), wait for them, fail unless every
-    rank exits 0; returns rank 0's record."""
-    import multiprocessing
-    world = SHARDS
-    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
-    out = os.path.join(tmp, "rank0.json")
-    torch.cuda.empty_cache()
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=sharded_rank,
-                         args=(r, world, backend, os.path.join(tmp, "store"),
-                               out)) for r in range(world)]
-    try:
-        for p in procs:
-            p.start()
-        # a rank that fails ends the phase at once: the others would wait
-        # in their next collective until the group's timeout
-        deadline = time.monotonic() + SHARDED_DEADLINE_S
-        codes = [None] * world
-        while time.monotonic() < deadline:
-            codes = [p.exitcode for p in procs]
-            if all(c == 0 for c in codes) or any(c not in (None, 0)
-                                                 for c in codes):
-                break
-            time.sleep(0.5)
-        if any(c != 0 for c in codes):
-            fail(f"sharded phase: rank exit codes {codes} (None: killed "
-                 f"at the {SHARDED_DEADLINE_S} s deadline)")
-        return json.loads(Path(out).read_text())
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-        shutil.rmtree(tmp, ignore_errors=True)
+    """Phase 3g: spawn SHARDS ranks (see spawn_ranks); returns rank 0's
+    record."""
+    return spawn_ranks(torch, sharded_rank, SHARDED_DEADLINE_S, "sharded")
 
 
 # phase 3h: LM serving. qwen3-moe-30b-a3b at full width (d_model 2048, 128
@@ -2969,6 +2936,461 @@ def lm_train_phase(torch, dev, card) -> dict:
     return record
 
 
+# phase 3j: the LM/MoE stack sharded across 4 ranks on a 2x2 ("data",
+# "model") mesh (DTensor; moe_shard_map for the experts). qwen3-moe-30b-a3b
+# at full width, depth cut from 48 to LM_SHARD_LAYERS layers; one process a
+# rank, as phase 3g spawns them
+LM_SHARD_LAYERS = 2
+LM_SHARD_BATCH, LM_SHARD_SEQ = 4, 1024     # 2 x 1024 tokens a data shard
+LM_SHARD_DECODE = 8
+LM_SHARD_STEPS = 3
+LM_SHARD_TP = (4, 256)                     # tp_out_project's x: (B, S, q_dim)
+LM_SHARD_PG_TIMEOUT_S, LM_SHARD_DEADLINE_S = 180, 420
+# the kernels the sharded path must launch on every rank: the gather (the
+# per-shard combine, its dH, the dispatch gather's backward) and sddmm (the
+# combine's router-weight gradient)
+LM_SHARD_KERNELS = ("gather_segment_reduce", "sddmm")
+
+
+def spawn_ranks(torch, target, deadline_s: int, what: str) -> dict:
+    """Spawn SHARDS ranks running ``target(rank, world, backend, store,
+    out)`` (NCCL with a card a rank, else gloo with all ranks on the one
+    card), wait for them, fail unless every rank exits 0; returns the
+    record rank 0 wrote to ``out``."""
+    import multiprocessing
+    world = SHARDS
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{what}_")
+    out = os.path.join(tmp, "rank0.json")
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target,
+                         args=(r, world, backend, os.path.join(tmp, "store"),
+                               out)) for r in range(world)]
+    try:
+        for p in procs:
+            p.start()
+        # a rank that fails ends the phase at once: the others would wait
+        # in their next collective until the group's timeout
+        deadline = time.monotonic() + deadline_s
+        codes = [None] * world
+        while time.monotonic() < deadline:
+            codes = [p.exitcode for p in procs]
+            if all(c == 0 for c in codes) or any(c not in (None, 0)
+                                                 for c in codes):
+                break
+            time.sleep(0.5)
+        if any(c != 0 for c in codes):
+            fail(f"{what} phase: rank exit codes {codes} (None: killed "
+                 f"at the {deadline_s} s deadline)")
+        return json.loads(Path(out).read_text())
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def lm_sharded_rank(rank: int, world: int, backend: str, store: str,
+                    out: str) -> None:
+    """Phase 3j on one rank (a spawned process); an exception ends the
+    process with a non-zero exit code; rank 0 writes the record."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    torch.set_num_threads(2)
+    dist.init_process_group(
+        backend, store=dist.FileStore(store, world), rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=LM_SHARD_PG_TIMEOUT_S))
+    try:
+        _lm_sharded_rank(torch, dist, rank, world, backend, dev, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _local_share(torch, t, spec, sizes) -> bool:
+    """Whether a DTensor holds exactly its share: the whole numel over the
+    product of the mesh dims its spec shards it on."""
+    parts = 1
+    for entry in spec:
+        for name in (entry if isinstance(entry, tuple) else (entry,)):
+            if name is not None:
+                parts *= sizes[name]
+    return t.to_local().numel() * parts == t.numel()
+
+
+@contextlib.contextmanager
+def shard_held(torch, shd, moe_mod, kops, plain_of, what, rows,
+               ref_launches):
+    """While open, every moe_shard_map call is also run on this rank's data
+    shard by the single-device moe_capacity with the plain model's weights
+    at the shard's capacity (the same routing, the same drops), and held
+    to it at the bf16 tolerance; the model goes on with the sharded
+    output. The reference's kernel launches go to ``ref_launches``."""
+    sharded = moe_mod.moe_shard_map
+
+    def held(prm, x, cfg):
+        y, aux = sharded(prm, x, cfg)
+        mesh, plan = shd.current_context()
+        rows_pl = shd.placements(shd.spec_for_axes(("batch", None, None),
+                                                   x.shape, plan, mesh), mesh)
+        x_loc = x.redistribute(mesh, rows_pl).to_local()
+        t_loc = x_loc.shape[0] * x_loc.shape[1]
+        cap = max(1, int(t_loc * cfg.top_k * cfg.capacity_factor
+                         / cfg.num_experts))
+        cap = -(-cap // 8) * 8
+        before = kops.launch_counts()
+        want, _ = moe_mod.moe_capacity(plain_of[id(prm)], x_loc, cfg,
+                                       capacity=cap)
+        for k, v in kops.launch_counts().items():
+            ref_launches[k] += v - before[k]
+        got = y.redistribute(mesh, rows_pl).to_local()
+        err = compare(torch, f"{what}: MoE layer call {len(rows)} against "
+                      f"moe_capacity on the data shard (capacity {cap})",
+                      got, want, torch.bfloat16)
+        rows.append((err, float(want.float().abs().max())))
+        return y, aux
+    moe_mod.moe_shard_map = held
+    try:
+        yield
+    finally:
+        moe_mod.moe_shard_map = sharded
+
+
+def _lm_sharded_rank(torch, dist, rank, world, backend, dev, out):
+    import copy
+    import types
+
+    from repro_torch import configs as lm_configs
+    from repro_torch import train
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.data.tokens import TokenDatasetConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import step as steplib
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.optim import adamw
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def say(msg):
+        if rank == 0:
+            print(f"  [3j] {msg}", flush=True)
+
+    def every(value):
+        box = [None] * world
+        dist.all_gather_object(box, value)
+        return box
+
+    mesh = make_host_mesh(2, 2, device_type="cuda")
+    plan = shd.ParallelPlan.for_mesh(mesh)
+    sizes = shd.mesh_sizes(mesh)
+    d_rank = mesh.get_local_rank("data")
+    full = lm_configs.get_config(LM_ARCH)
+    cfg = dataclasses.replace(full, num_layers=LM_SHARD_LAYERS)
+    bf16 = torch.bfloat16
+    rec = {"backend": backend, "world": world, "mesh": "2x2 (data, model)",
+           "arch": LM_ARCH, "layers": cfg.num_layers,
+           "published_layers": full.num_layers,
+           "reduced": f"depth {full.num_layers} -> {cfg.num_layers} layers",
+           "ranks_on_cards": (
+               "one card a rank" if backend == "nccl" else
+               "all ranks on one card; gloo moves CUDA tensors through the "
+               "host, its functional all-gather routed through c10d's")}
+    say(f"backend {backend}, {world} ranks ({rec['ranks_on_cards']}); "
+        f"{LM_ARCH} at full width, depth cut from {full.num_layers} to "
+        f"{cfg.num_layers} layers")
+
+    # -- (a) one MoE layer through moe_shard_map, forward and gradients ----
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)   # the same a rank
+    prm = moe_mod.moe_init(gen, cfg, bf16, dev)
+    x = torch.randn(LM_SHARD_BATCH, LM_SHARD_SEQ, cfg.d_model, generator=gen,
+                    device=dev, dtype=bf16)
+    ct = torch.randn(x.shape, generator=gen, device=dev, dtype=bf16)
+    names = ("router", "w_up", "w_gate", "w_down")
+    sprm = shd.distribute(copy.deepcopy(prm), plan, mesh)
+    leaves = {n: getattr(sprm, n).detach().requires_grad_() for n in names}
+    xpl = shd.placements(shd.spec_for_axes(("batch", "seq", None), x.shape,
+                                           plan, mesh), mesh)
+    xs = shd.place_tensor(x, mesh, xpl).requires_grad_()
+    cts = shd.place_tensor(ct, mesh, xpl)
+    kops.reset_launch_counts()
+    with shd.activation_sharding(mesh, plan):
+        y, _ = moe_mod.moe_shard_map(types.SimpleNamespace(**leaves), xs,
+                                     cfg)
+        grads = torch.autograd.grad((y * cts).sum(),
+                                    [xs] + [leaves[n] for n in names])
+    torch.cuda.synchronize()
+    launched_a = {k: v for k, v in kops.launch_counts().items() if v}
+    # the single-device reference on this rank's data shard, at the shard's
+    # capacity; the weights' gradients summed over the data shards
+    lo = d_rank * (LM_SHARD_BATCH // sizes["data"])
+    hi = lo + LM_SHARD_BATCH // sizes["data"]
+    t_loc = (hi - lo) * LM_SHARD_SEQ
+    cap = -(-max(1, int(t_loc * cfg.top_k * cfg.capacity_factor
+                        / cfg.num_experts)) // 8) * 8
+    rl = {n: getattr(prm, n).detach().clone().requires_grad_()
+          for n in names}
+    xl = x[lo:hi].clone().requires_grad_()
+    want, _ = moe_mod.moe_capacity(types.SimpleNamespace(**rl), xl, cfg,
+                                   capacity=cap)
+    wgrads = torch.autograd.grad((want * ct[lo:hi]).sum(),
+                                 [xl] + [rl[n] for n in names])
+    wgrads = list(wgrads)
+    for g in wgrads[1:]:
+        dist.all_reduce(g, group=mesh.get_group("data"))
+    errs = {"output": compare(torch, f"rank {rank} moe_shard_map output",
+                              y.to_local(), want, bf16),
+            "dx": compare(torch, f"rank {rank} moe_shard_map dx",
+                          grads[0].redistribute(mesh, xpl).to_local(),
+                          wgrads[0], bf16)}
+    for n, g, w in zip(names, grads[1:], wgrads[1:]):
+        errs[f"d{n}"] = compare(torch, f"rank {rank} moe_shard_map d{n}",
+                                g.full_tensor(), w, bf16)
+    for k in LM_SHARD_KERNELS:
+        if not launched_a.get(k):
+            fail(f"rank {rank}: moe_shard_map's forward and backward never "
+                 f"launched {k}: {launched_a}")
+    rec["moe_shard_map"] = {
+        "tokens_a_data_shard": t_loc, "capacity": cap,
+        "max_abs_err": errs, "launches": launched_a,
+        "seconds": time.perf_counter() - t0}
+    say(f"(a) moe_shard_map at {t_loc} tokens a data shard (capacity "
+        f"{cap}), forward and gradients, within the bf16 tolerance of the "
+        f"single-device moe_capacity on each data shard: {errs}; "
+        f"launches {launched_a}")
+    del prm, sprm, leaves, x, ct, xs, cts, y, grads, rl, xl, want, wgrads
+
+    # -- (b) tp_out_project at wo's full width -----------------------------
+    xt = torch.randn(*LM_SHARD_TP, cfg.q_dim, generator=gen, device=dev,
+                     dtype=bf16)
+    wt = torch.randn(cfg.q_dim, cfg.d_model, generator=gen, device=dev,
+                     dtype=bf16) / math.sqrt(cfg.q_dim)
+    axes = ("heads", "embed")
+    wpl = shd.placements(shd.spec_for_axes(axes, wt.shape, plan, mesh), mesh)
+    xtpl = shd.placements(shd.spec_for_axes(("batch", None, "act_heads"),
+                                            xt.shape, plan, mesh), mesh)
+    with shd.activation_sharding(mesh, plan):
+        got = layers_mod.tp_out_project(
+            shd.place_tensor(xt, mesh, xtpl), shd.place_tensor(wt, mesh, wpl),
+            axes)
+    rec["tp_out_project"] = {
+        "x": list(xt.shape), "w": list(wt.shape),
+        "max_abs_err": compare(torch, f"rank {rank} tp_out_project",
+                               got.full_tensor(), xt @ wt, bf16)}
+    say(f"(b) tp_out_project {tuple(xt.shape)} @ {tuple(wt.shape)} within "
+        f"the bf16 tolerance of the plain matmul: {rec['tp_out_project']}")
+    del xt, wt, got
+
+    # -- (c) + (d) the main path, launch counters zeroed --------------------
+    model = lm.LM(cfg, device=dev, seed=SEED)            # the same a rank
+    smodel = shd.distribute(copy.deepcopy(model), plan, mesh)
+    plain_of = {id(sb.ffn): b.ffn for sb, b in zip(smodel.layers,
+                                                   model.layers)}
+    tokens = torch.randint(0, cfg.vocab_size, (LM_SHARD_BATCH, LM_SHARD_SEQ),
+                           generator=gen, device=dev)
+    prefill = steplib.build_prefill_step(cfg, mesh, plan)
+    serve, shardings_for = steplib.build_serve_step(
+        cfg, mesh, plan, LM_SHARD_BATCH, 16)
+    held_rows = []
+    ref_launches = collections.Counter()
+    torch.cuda.synchronize()
+    dist.barrier()
+    kops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with kops.fusion_scope() as fusion:
+        with shard_held(torch, shd, moe_mod, kops, plain_of,
+                        f"rank {rank} serve", held_rows, ref_launches):
+            t0 = time.perf_counter()
+            logits = prefill(smodel, {"tokens": tokens})
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            if not bool(torch.isfinite(logits.to_local()).all()):
+                fail(f"rank {rank}: non-finite prefill logits")
+            state = steplib.shard_decode_state(
+                lm.init_decode_state(cfg, LM_SHARD_BATCH, 16, bf16,
+                                     device=dev),
+                shardings_for(None)[2], mesh)
+            tok = tokens[:, :1]
+            steps_ms, dec_logits = [], []
+            for _ in range(LM_SHARD_DECODE):
+                t0 = time.perf_counter()
+                lg, state = serve(smodel, tok, state)
+                torch.cuda.synchronize()
+                steps_ms.append((time.perf_counter() - t0) * 1e3)
+                whole = lg.full_tensor()
+                if not bool(torch.isfinite(whole).all()):
+                    fail(f"rank {rank}: non-finite decode logits")
+                dec_logits.append(whole)
+                tok = whole[:, -1].argmax(-1, keepdim=True)
+        held = held_reading(f"rank {rank} sharded serving", held_rows,
+                            (1 + LM_SHARD_DECODE) * cfg.num_layers)
+        serve_mem = torch.cuda.max_memory_allocated()
+        del logits, state
+        # the single-device decode of the same tokens, a reading
+        ref_state = lm.init_decode_state(cfg, LM_SHARD_BATCH, 16, bf16,
+                                         device=dev)
+        before = kops.launch_counts()
+        tok, e2e = tokens[:, :1], []
+        for want in dec_logits:
+            lg, ref_state = lm.decode_step(model, tok, ref_state)
+            e2e.append(e2e_reading(torch, f"rank {rank} sharded decode",
+                                   want, lg))
+            tok = want[:, -1].argmax(-1, keepdim=True)
+        for k, v in kops.launch_counts().items():
+            ref_launches[k] += v - before[k]
+        del ref_state, dec_logits, smodel
+        rec["serving"] = {
+            "prefill_tokens": [LM_SHARD_BATCH, LM_SHARD_SEQ],
+            "prefill_ms": prefill_ms, "decode_steps": LM_SHARD_DECODE,
+            "decode_step_ms": steps_ms,
+            "decode_step_ms_median": statistics.median(steps_ms[1:]),
+            "moe_held_worst_share": held, "moe_held_layers": len(held_rows),
+            "e2e_logits_vs_single_device": [
+                {"max_abs_err": a, "argmax_flips": b, "rows": c}
+                for a, b, c in e2e],
+            "peak_mem_gb": serve_mem / 1e9}
+        say(f"(c) prefill {LM_SHARD_BATCH}x{LM_SHARD_SEQ} in {prefill_ms:.1f} "
+            f"ms, {LM_SHARD_DECODE} decode steps (median "
+            f"{rec['serving']['decode_step_ms_median']:.1f} ms); every MoE "
+            f"layer held to moe_capacity on its data shard (worst "
+            f"{held:.3g} of the layer's max, {margin(held)}); logits vs the "
+            f"single-device decode (reading): {e2e}")
+
+        # (d) training: fit(mesh=) on LMTask(moe_impl="capacity")
+        task = train.LMTask(cfg, moe_impl="capacity", device=dev)
+        data = train.TokenProvider(TokenDatasetConfig(
+            vocab_size=cfg.vocab_size, seq_len=LM_SHARD_SEQ,
+            global_batch=LM_SHARD_BATCH))
+        tcfg = train.TrainerConfig(steps=LM_SHARD_STEPS, warmup_steps=1,
+                                   opt=adamw.AdamWConfig(lr=1e-4))
+        trainer = train.Trainer(task, data, tcfg, mesh=mesh)
+        before = kops.launch_counts()
+        st0 = trainer.init_state()
+        whole0 = {k: p.full_tensor() for k, p in st0.params.items()}
+        del st0
+        batch0 = {k: torch.as_tensor(v).to(dev)
+                  for k, v in data.batch(0).items()}
+        with torch.no_grad():
+            ref_loss0 = float(lm.loss_fn(whole0, cfg, batch0,
+                                         remat_policy="none")[0])
+        del whole0, model
+        for k, v in kops.launch_counts().items():
+            ref_launches[k] += v - before[k]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ends = []
+
+        def mark(step, metrics, verdict):
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+        t0 = time.perf_counter()
+        run = trainer.fit(metrics_cb=mark)
+        step_ms = [(b - a) * 1e3 for a, b in zip([t0] + ends[:-1], ends)]
+        names = port_kernel_names()
+        split = ((None,) * 3 if rank else profiled_split(
+            torch, lambda: trainer.step(run.state, LM_SHARD_STEPS), names))
+        if rank:
+            trainer.step(run.state, LM_SHARD_STEPS)
+        train_mem = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    launched = {k: counts[k] - ref_launches[k] for k in counts}
+    losses = run.losses
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"rank {rank}: non-finite sharded losses {losses}")
+    for k in LM_SHARD_KERNELS:
+        if launched[k] == 0:
+            fail(f"rank {rank}: kernel {k} of the sharded LM path never "
+                 f"launched: {launched}")
+    plain = sorted(k for k in dict(fusion) if k.startswith("unfused:"))
+    if plain:
+        fail(f"rank {rank}: an op of the sharded LM path took a plain "
+             f"version: {plain}")
+    # each rank's parameters and moments hold exactly its share
+    skeleton = lm.LM(cfg, device="meta", seed=None)
+    specs = shd.param_specs(skeleton, plan, mesh)
+    st = run.state
+    bad = [k for k, p in st.params.items()
+           if not _local_share(torch, p, specs[k], sizes)
+           or not _local_share(torch, st.opt_state.mu[k], specs[k], sizes)
+           or not _local_share(torch, st.opt_state.nu[k], specs[k], sizes)]
+    if bad:
+        fail(f"rank {rank}: parameters or moments not held as their share "
+             f"of the mesh (silently replicated?): {bad[:5]}")
+    local_bytes = sum(p.to_local().numel() * p.to_local().element_size()
+                      + st.opt_state.mu[k].to_local().numel() * 4
+                      + st.opt_state.nu[k].to_local().numel() * 4
+                      for k, p in st.params.items())
+    n_params = sum(p.numel() for p in st.params.values())
+    rec["training"] = {
+        "steps": LM_SHARD_STEPS, "losses": losses,
+        "batch": [LM_SHARD_BATCH, LM_SHARD_SEQ], "moe_impl": "capacity",
+        "step0_single_device_loss": ref_loss0,
+        "step0_loss_diff": losses[0] - ref_loss0,
+        "step_ms": step_ms, "warm_step_ms": statistics.median(step_ms[1:]),
+        "profiled_step_wall_ms": split[0],
+        "profiled_kernels_device_ms": split[1],
+        "profiled_collectives_host_ms": split[2],
+        "params": n_params, "local_param_and_moment_bytes": local_bytes,
+        "whole_param_and_moment_bytes": n_params * (2 + 8),
+        "peak_mem_gb": train_mem / 1e9}
+    say(f"(d) fit(mesh=) {LM_SHARD_STEPS} steps: losses {losses} (step 0 "
+        f"single-device {ref_loss0:.5f}, a reading: capacity from the local "
+        f"tokens drops otherwise); warm step "
+        f"{rec['training']['warm_step_ms']:.1f} ms; profiled split {split}; "
+        f"every parameter and moment held as its share "
+        f"({local_bytes / 1e9:.3f} GB a rank of "
+        f"{n_params * 10 / 1e9:.3f} GB whole)")
+
+    # -- (e) elastic restore: saved under 2x2, restored under 4x1 ----------
+    t0 = time.perf_counter()
+    part = {k: p for k, p in st.params.items() if k.startswith("layers.0.")}
+    whole = {k: p.detach().full_tensor() for k, p in part.items()}
+    tmp = os.path.join(os.path.dirname(out), "elastic")
+    if rank == 0:
+        ckpt.save(whole, tmp, 0)
+    dist.barrier()
+    mesh_b = make_host_mesh(4, 1, device_type="cuda")
+    plan_b = shd.ParallelPlan.for_mesh(mesh_b)
+    psh_b = shd.param_shardings(skeleton, plan_b, mesh_b)
+    restored = ckpt.restore(whole, tmp, 0, shardings={
+        k: ckpt.Sharding(mesh_b, tuple(psh_b[k])) for k in whole})
+    bitwise = all(torch.equal(restored[k].to_local(), shd.place_tensor(
+        whole[k], mesh_b, psh_b[k]).to_local()) for k in whole)
+    if not bitwise:
+        fail(f"rank {rank}: the elastic restore (2x2 -> 4x1) is not bitwise")
+    rec["elastic"] = {"tensors": len(whole),
+                      "bytes": sum(t.numel() * t.element_size()
+                                   for t in whole.values()),
+                      "what": "layer 0's parameters after training",
+                      "seconds": time.perf_counter() - t0, "bitwise": True}
+    say(f"(e) elastic restore of {len(whole)} tensors "
+        f"({rec['elastic']['bytes'] / 1e9:.2f} GB) saved under 2x2, restored "
+        f"under 4x1: bitwise on every rank")
+    rec["launches"] = launched
+    rec["launches_by_rank"] = every(launched)
+    rec["peak_mem_gb_by_rank"] = every(max(serve_mem, train_mem) / 1e9)
+    if rank == 0:
+        Path(out).write_text(json.dumps(rec))
+
+
+def lm_sharded_phase(torch) -> dict:
+    """Phase 3j: spawn SHARDS ranks of the sharded LM stack; returns rank
+    0's record."""
+    return spawn_ranks(torch, lm_sharded_rank, LM_SHARD_DEADLINE_S,
+                       "lm_sharded")
+
+
+
 def main() -> None:
     t_script = time.perf_counter()
     import torch
@@ -3923,6 +4345,19 @@ def main() -> None:
           flush=True)
     print(json.dumps({"lm_training": lm_train}))
 
+    # -- 3j. the LM/MoE stack sharded across 4 ranks (2x2 data x model) -----
+    t_phase = time.perf_counter()
+    lm_sharded = lm_sharded_phase(torch)
+    launches_lm_sharded = {k: sum(r.get(k, 0)
+                                  for r in lm_sharded["launches_by_rank"])
+                           for k in kops.launch_counts()}
+    lm_sharded.update(phase_s=time.perf_counter() - t_phase, card=card)
+    print(f"LM sharded passed ({lm_sharded['phase_s']:.1f} s, backend "
+          f"{lm_sharded['backend']}, {card}); launches on the sharded LM "
+          f"path, summed over the {SHARDS} ranks: {launches_lm_sharded}",
+          flush=True)
+    print(json.dumps({"lm_sharded": lm_sharded}))
+
     # -- 4. the kernels line ----------------------------------------------------
     print(f"bounds over {e_real} real edges, {h_rows} distinct source rows, "
           f"{v} output rows (gather, softmax, fused):", flush=True)
@@ -3989,7 +4424,8 @@ def main() -> None:
     paths = {"serving": launches_serving, "typed": launches_typed,
              "ops": launches_ops, "training": launches_training,
              "sampled": launches_sampled, "sharded": launches_sharded,
-             "lm": launches_lm, "lm_train": launches_lm_train}
+             "lm": launches_lm, "lm_train": launches_lm_train,
+             "lm_sharded": launches_lm_sharded}
 
     csrc = "src/repro_torch/kernels/csrc"
 

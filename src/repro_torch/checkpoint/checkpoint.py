@@ -12,8 +12,13 @@ tensors, numpy arrays or Python numbers. bf16 tensors go to disk as their
 uint16 bits, with the dtype in the manifest. :func:`restore` reads into
 the structure of a target tree and puts each leaf on the target leaf's
 device and dtype (a tensor that requires grad is restored as one).
-Restoring onto a sharded layout waits for sharded training (ROADMAP
-Queue A item 6).
+
+A DTensor leaf (sharded training, :mod:`repro_torch.distributed.step`) is
+written whole, gathered from its shards, so every rank of its mesh calls
+:func:`save` alike; restored onto a DTensor target it is placed back on the
+target's mesh and placements. ``restore(shardings=)`` places each leaf on a
+given mesh and placements instead (:class:`Sharding`), so that a state
+saved under one mesh restores under another (the elastic restart).
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import json
 import pathlib
 import re
 import shutil
+import dataclasses
 import threading
 from typing import Any, Callable, Optional
 
@@ -69,10 +75,25 @@ def _map(fn: Callable, tree, prefix: str = ""):
     return type(tree)(vals)
 
 
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """Where :func:`restore` puts a leaf: a ``DeviceMesh`` and one DTensor
+    placement a mesh dim."""
+    mesh: Any
+    placements: tuple
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole (a collective: every rank of its mesh
+    calls it); a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def _to_host(leaf):
     """(numpy array, dtype name) of a leaf; bf16 as its uint16 bits."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = _whole(leaf.detach()).cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         return t.numpy(), str(t.dtype).replace("torch.", "")
@@ -83,7 +104,7 @@ def _to_host(leaf):
 def _host_copy(leaf):
     """A snapshot of a leaf that later updates of the leaf cannot change."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True)
+        return _whole(leaf.detach()).to("cpu", copy=True)
     return np.array(leaf, copy=True) if isinstance(leaf, np.ndarray) else leaf
 
 
@@ -150,16 +171,27 @@ def latest_step(directory, at_or_before: Optional[int] = None) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _from_host(arr: np.ndarray, dtype: str, target, key: str):
+def _from_host(arr: np.ndarray, dtype: str, target, key: str,
+               sharding: Optional[Sharding] = None):
     expect = tuple(getattr(target, "shape", arr.shape))
     if tuple(arr.shape) != expect:
         raise ValueError(
             f"leaf {key}: checkpoint shape {arr.shape} != target {expect}")
-    if isinstance(target, torch.Tensor):
+    if sharding is None and hasattr(target, "device_mesh"):
+        sharding = Sharding(target.device_mesh, tuple(target.placements))
+    if isinstance(target, torch.Tensor) or sharding is not None:
         t = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
              if dtype == "bfloat16" else torch.from_numpy(arr))
-        t = t.to(device=target.device, dtype=target.dtype)
-        return t.requires_grad_(target.requires_grad)
+        grad = getattr(target, "requires_grad", False)
+        if isinstance(target, torch.Tensor):
+            t = t.to(dtype=target.dtype)
+        if sharding is not None:
+            from repro_torch.distributed.sharding import place_tensor
+            t = place_tensor(t.to(sharding.mesh.device_type), sharding.mesh,
+                             list(sharding.placements))
+        else:
+            t = t.to(device=target.device)
+        return t.requires_grad_(grad)
     if isinstance(target, np.ndarray):
         return arr.astype(target.dtype)
     if isinstance(target, (bool, int, float)):
@@ -167,9 +199,13 @@ def _from_host(arr: np.ndarray, dtype: str, target, key: str):
     return arr
 
 
-def restore(target_tree: Any, directory, step: Optional[int] = None) -> Any:
+def restore(target_tree: Any, directory, step: Optional[int] = None,
+            shardings: Any = None) -> Any:
     """Restore into the structure of ``target_tree``; each leaf takes the
-    target leaf's type, device and dtype."""
+    target leaf's type, device and dtype (a DTensor target: its mesh and
+    placements). ``shardings``: one :class:`Sharding` for every leaf, or a
+    tree of them keyed as the target (a leaf it lacks is restored as its
+    target says), for an elastic restore onto a new mesh."""
     directory = pathlib.Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -178,13 +214,19 @@ def restore(target_tree: Any, directory, step: Optional[int] = None) -> Any:
     d = directory / f"step_{step}"
     manifest = json.loads((d / "MANIFEST.json").read_text())
     by_key = {leaf["key"]: leaf for leaf in manifest["leaves"]}
+    if shardings is None or isinstance(shardings, Sharding):
+        placed = {}
+    else:
+        placed = dict(_flatten(shardings))
 
     def load(key, target):
         if key not in by_key:
             raise KeyError(f"checkpoint {d} missing leaf {key}")
         entry = by_key[key]
+        sh = shardings if isinstance(shardings, Sharding) \
+            else placed.get(key)
         return _from_host(np.load(d / entry["file"]), entry["dtype"],
-                          target, key)
+                          target, key, sh)
     return _map(load, target_tree)
 
 

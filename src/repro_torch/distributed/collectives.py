@@ -30,7 +30,44 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["ring_allreduce", "ring_psum_matmul", "make_ring_matmul",
-           "hierarchical_psum", "compressed_psum", "pod_data_groups"]
+           "hierarchical_psum", "compressed_psum", "pod_data_groups",
+           "route_all_gather"]
+
+_ROUTED: dict = {}       # dispatch key -> the torch.library that routes it
+
+
+def route_all_gather(dispatch_key: str = "CUDA") -> None:
+    """Run the functional all-gather (``_c10d_functional.
+    all_gather_into_tensor`` and its coalesced form: DTensor's Shard →
+    Replicate, the FSDP gathers) on ``dispatch_key`` tensors as c10d's
+    synchronous ``all_gather_into_tensor`` on the same group.
+
+    On the card the sharded LM steps run four gloo ranks on one H100
+    (NCCL refuses two ranks on one device). gloo moves CUDA tensors for
+    c10d's all-gather, all-reduce and reduce-scatter (through host memory,
+    inside gloo), but its functional all-gather on CUDA tensors ends the
+    process (SIGSEGV on torch 2.11); the functional all-reduce and
+    reduce-scatter work. Installed once a process; the result is the same
+    tensor either way."""
+    if dispatch_key in _ROUTED:
+        return
+    from torch.distributed import distributed_c10d as c10d
+
+    def gather(inp, group_size, group_name):
+        pg = c10d._resolve_process_group(group_name)
+        inp = inp.contiguous()
+        out = inp.new_empty((group_size * inp.shape[0],) + inp.shape[1:])
+        dist.all_gather_into_tensor(out, inp, group=pg)
+        return out
+
+    def gather_coalesced(inputs, group_size, group_name):
+        return [gather(t, group_size, group_name) for t in inputs]
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", gather, dispatch_key)
+    lib.impl("all_gather_into_tensor_coalesced", gather_coalesced,
+             dispatch_key)
+    _ROUTED[dispatch_key] = lib
 
 
 def _global_rank(group, rank: int) -> int:

@@ -9,10 +9,17 @@ wires the provider/task/trainer trio).
   # the same on the CPU (the plain versions):
   python -m repro_torch.launch.train --arch qwen3-8b --reduced --device cpu
 
+  # a 2×2 ("data", "model") mesh of 4 ranks (the sharded step):
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch qwen3-moe-30b-a3b --reduced --mesh host --steps 20
+
 Weights come from the trainer's seed (``torch.Generator``s), token
-batches from :class:`~repro_torch.train.providers.TokenProvider`. Training
-across a mesh (the reference's ``--mesh host``) comes with the LM-sharding
-slice.
+batches from :class:`~repro_torch.train.providers.TokenProvider`. With
+``--mesh host`` the launcher (``torchrun``) must have started the ranks:
+each calls ``init_process_group`` from the launcher's environment (NCCL
+with a card a rank, else gloo) and trains its shard of a
+``make_host_mesh(2, 2)``; each keeps its checkpoints in
+``<ckpt-dir>/rank<r>``.
 """
 from __future__ import annotations
 
@@ -43,6 +50,28 @@ def reduced_100m(cfg):
     return dataclasses.replace(cfg, **over)
 
 
+def host_mesh(device):
+    """The 2×2 ("data", "model") mesh of ``--mesh host`` over the ranks
+    the launcher started; raises when there are none."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    if not dist.is_initialized():
+        if "RANK" not in os.environ:
+            raise RuntimeError(
+                "--mesh host needs its 4 ranks started by a launcher: "
+                "torchrun --nproc-per-node 4 -m repro_torch.launch.train "
+                "--mesh host ...")
+        backend = "nccl" if device.type == "cuda" and \
+            torch.cuda.device_count() >= int(os.environ["WORLD_SIZE"]) \
+            else "gloo"
+        if device.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0))
+                                  % torch.cuda.device_count())
+        dist.init_process_group(backend)
+    return make_host_mesh(2, 2, device_type=device.type)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-8b", choices=cfglib.ARCH_NAMES)
@@ -55,6 +84,9 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
                                                        "repro_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--mesh", choices=["none", "host"], default="none",
+                    help="host: a 2x2 (data, model) mesh over 4 ranks "
+                    "started by torchrun")
     ap.add_argument("--moe-impl", choices=["capacity", "ragged"],
                     default="capacity")
     ap.add_argument("--log-every", type=int, default=10)
@@ -76,6 +108,7 @@ def main(argv=None):
           f"vocab={cfg.padded_vocab} layers={cfg.num_layers}")
 
     task = LMTask(cfg, moe_impl=args.moe_impl, device=device)
+    mesh = host_mesh(device) if args.mesh == "host" else None
     data = TokenProvider(TokenDatasetConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq,
         global_batch=args.batch))
@@ -85,10 +118,15 @@ def main(argv=None):
         warmup_steps=20, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every, log_every=args.log_every)
 
-    start = ckpt.latest_step(args.ckpt_dir) if args.ckpt_dir else None
+    own_dir = args.ckpt_dir
+    if mesh is not None and own_dir:       # the trainer's per-rank directory
+        import torch.distributed as dist
+        own_dir = os.path.join(own_dir, f"rank{dist.get_rank()}")
+    start = ckpt.latest_step(own_dir) if own_dir else None
     if start:
         print(f"resuming from checkpoint step {start}")
-    result = fit(task, data, trainer_cfg, resume=bool(args.ckpt_dir))
+    result = fit(task, data, trainer_cfg, mesh=mesh,
+                 resume=bool(args.ckpt_dir))
     ckpt.wait_pending()
     print(f"final loss {result.losses[-1]:.4f} "
           f"(first {result.losses[0]:.4f})")

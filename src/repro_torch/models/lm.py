@@ -39,12 +39,14 @@ from torch import nn
 from torch.utils import checkpoint as ckpt_lib
 
 from repro_torch.core.device import resolve_device
+from repro_torch.distributed.sharding import ashard
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import Params, dense_init, generator, normal
+from repro_torch.models.params import (P, Params, dense_init, generator,
+                                       normal)
 
 # ---------------------------------------------------------------------------
 # kinds & periodicity
@@ -243,10 +245,10 @@ class LM(Params):
                "final_norm": layers.norm_init(cfg, device)}
         if not cfg.tie_embeddings:
             prm["lm_head"] = dense_init(gen, cfg.d_model, cfg.padded_vocab,
-                                        dtype, device)
+                                        ("embed", "vocab"), dtype, device)
         if cfg.pos == "learned":
-            prm["pos_embed"] = normal(gen, (cfg.max_seq, cfg.d_model), dtype,
-                                      device, 0.02)
+            prm["pos_embed"] = P(normal(gen, (cfg.max_seq, cfg.d_model),
+                                        dtype, device, 0.02), (None, "embed"))
         prm["layers"] = nn.ModuleList(
             block_init(gen, cfg, kind, dtype, device,
                        cross=cfg.cross_attention) for kind in kinds)
@@ -255,8 +257,8 @@ class LM(Params):
                 block_init(gen, cfg, ("attn", "mlp"), dtype, device)
                 for _ in range(cfg.encoder_layers))
             prm["enc_norm"] = layers.norm_init(cfg, device)
-            prm["enc_pos"] = normal(gen, (cfg.max_seq, cfg.d_model), dtype,
-                                    device, 0.02)
+            prm["enc_pos"] = P(normal(gen, (cfg.max_seq, cfg.d_model),
+                                      dtype, device, 0.02), (None, "embed"))
         super().__init__(**prm)
         self.cfg = cfg
         self.kinds = kinds
@@ -299,6 +301,7 @@ class LM(Params):
         x = layers.embed(self.embed, tokens)
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        x = ashard(x, "batch", "seq", None)
         b, s, _ = x.shape
         if cfg.pos == "learned":
             x = x + self.pos_embed[:s]
@@ -309,11 +312,12 @@ class LM(Params):
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for bp, kind in zip(self.layers, self.kinds):
             kv = _cross_kv(bp, enc_out, cfg) if enc_out is not None else None
+            x = ashard(x, "batch", "seq", None)     # re-pinned a layer
             x, aux = _run_block(bp, x, cfg, kind, context_fn,
                                 positions=positions, causal=True, enc_kv=kv,
                                 moe_impl=moe_impl)
             aux_total = aux_total + aux
-        return self.head(x), aux_total
+        return ashard(self.head(x), "batch", "seq", "act_vocab"), aux_total
 
 
 def loss_fn(model_or_params, cfg: ModelConfig, batch,
@@ -340,6 +344,9 @@ def loss_fn(model_or_params, cfg: ModelConfig, batch,
             (tokens,), kw, strict=True)
     # align: prefix positions (if any) produce no loss
     logits = logits[:, logits.shape[1] - tokens.shape[1]:]
+    # sharded: whole vocabulary rows a rank for the normaliser and the
+    # gold logit's gather (the identity outside a sharding context)
+    logits = ashard(logits, "batch", "seq", None)
     labels = batch["labels"].long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
@@ -445,7 +452,7 @@ def decode_step(model: LM, tokens, state: DecodeState, enc_out=None,
     ``state.length``. The caches are updated in place: the returned state
     holds the same tensors, its length advanced by one."""
     cfg = model.cfg
-    x = layers.embed(model.embed, tokens)
+    x = ashard(layers.embed(model.embed, tokens), "batch", None, None)
     if cfg.pos == "learned":
         if lengths is None:
             x = x + model.pos_embed[state.length:state.length + 1]

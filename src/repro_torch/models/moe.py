@@ -20,11 +20,18 @@ default), ``"ragged"`` (dropless, every op on its plain version, as the
 reference's ``"ragged"`` runs ``impl="ref"``) or ``"cuda"`` (dropless, the
 three expert products on the segment_matmul kernel and the combine on the
 gather kernel: the counterpart of the reference's ``"pallas"``; raises on
-CPU tensors). The reference's expert-parallel ``moe_shard_map`` comes with
-the sharding slice.
+CPU tensors).
+
+Under a sharding context (:mod:`repro_torch.distributed.sharding`)
+``"capacity"`` takes :func:`moe_shard_map`, the reference's expert-parallel
+MoE: each rank dispatches its data shard's tokens to its own experts and
+combines them on the gather kernel, and one all-reduce over "model" sums
+the experts' parts. ``"ragged"`` and ``"cuda"`` under a mesh raise
+(ROADMAP Queue A, "LM sharding").
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -32,9 +39,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import ops as geot
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import Params, dense_init, normal
+from repro_torch.models.params import P, Params, dense_init, normal
 
 IMPLS = ("capacity", "ragged", "cuda")
 
@@ -43,10 +51,14 @@ def moe_init(gen, cfg: ModelConfig, dtype, device) -> Params:
     d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
     std = 1.0 / math.sqrt(d)
     prm = {
-        "router": dense_init(gen, d, e, torch.float32, device),
-        "w_up": normal(gen, (e, d, f), dtype, device, std),
-        "w_gate": normal(gen, (e, d, f), dtype, device, std),
-        "w_down": normal(gen, (e, f, d), dtype, device, std / 4),
+        "router": dense_init(gen, d, e, ("embed", "expert"), torch.float32,
+                             device),
+        "w_up": P(normal(gen, (e, d, f), dtype, device, std),
+                  ("expert", "embed", "mlp")),
+        "w_gate": P(normal(gen, (e, d, f), dtype, device, std),
+                    ("expert", "embed", "mlp")),
+        "w_down": P(normal(gen, (e, f, d), dtype, device, std / 4),
+                    ("expert", "mlp", "embed")),
     }
     if cfg.num_shared_experts:
         prm["shared"] = layers.mlp_init(
@@ -97,6 +109,19 @@ def _inverse(order):
     return inv
 
 
+def _positions(e_flat, e: int):
+    """Each assignment's position within its expert, in assignment order:
+    the assignments sorted by expert (the GeoT sortedness contract), less
+    the segment offsets of their experts."""
+    order = torch.argsort(e_flat, stable=True)
+    e_sorted = e_flat[order]
+    starts = torch.searchsorted(
+        e_sorted, torch.arange(e, dtype=torch.int32, device=e_flat.device))
+    pos_sorted = torch.arange(e_flat.shape[0], device=e_flat.device) - \
+        starts[e_sorted.long()]
+    return pos_sorted[_inverse(order)]
+
+
 def moe_capacity(prm, x, cfg: ModelConfig, capacity: Optional[int] = None):
     """Static-shape MoE. x: (B, S, D) → ((B, S, D), aux loss). An expert
     takes at most ``capacity`` assignments (rounded up to 32), in token
@@ -111,25 +136,24 @@ def moe_capacity(prm, x, cfg: ModelConfig, capacity: Optional[int] = None):
         capacity = max(1, int(t * k * cfg.capacity_factor / e))
         capacity = min(capacity, t)
     capacity = -(-capacity // 32) * 32
-    a = t * k
     e_flat, w_flat, tok_flat = _assignments(top_e, top_p, t, k)
 
-    # dispatch: sort the assignments by expert (the GeoT sortedness
-    # contract); an assignment's position within its expert
-    order = torch.argsort(e_flat, stable=True)
-    e_sorted = e_flat[order]
-    starts = torch.searchsorted(
-        e_sorted, torch.arange(e, dtype=torch.int32, device=x.device))
-    pos_sorted = torch.arange(a, device=x.device) - starts[e_sorted.long()]
-    pos = pos_sorted[_inverse(order)]
+    # dispatch: an assignment's position within its expert
+    pos = _positions(e_flat, e)
     keep = pos < capacity
     slot = torch.where(keep, e_flat.long() * capacity + pos, e * capacity)
+    # the (T·k, D) gathered rows are batch-aligned (tok_flat is sorted):
+    # pinned to the data axes, as the reference pins them
+    msg = shd.ashard(geot.gather(x2d, tok_flat), "batch", None)
     # the reference's scatter drops slot e·capacity: here it lands in one
     # extra row that is sliced off
     xd = torch.zeros((e * capacity + 1, d), dtype=x.dtype, device=x.device)
-    xd[slot] = geot.gather(x2d, tok_flat)
-    yd = _experts_dense(prm, xd[:-1].reshape(e, capacity, d), cfg)
-    yd = yd.reshape(e * capacity, d)
+    xd[slot] = msg
+    # EP: experts on "model", capacity slots on the data axes
+    xd3 = shd.ashard(xd[:-1].reshape(e, capacity, d), "expert", "capacity",
+                     None)
+    yd = _experts_dense(prm, xd3, cfg)
+    yd = shd.ashard(yd, "expert", "capacity", None).reshape(e * capacity, d)
 
     # combine: gather rows by slot, weight by router prob, reduce over the
     # (sorted) token ids; a dropped assignment reads a real row with weight 0
@@ -177,9 +201,151 @@ def moe_ragged(prm, x, cfg: ModelConfig, impl: str = "ref"):
     return out2d.reshape(b, s, d).to(x.dtype), aux
 
 
+def _dispatch_local(x_loc, te_loc, tp_loc, wu, wg, wd, *, cfg: ModelConfig,
+                    e_m: int, cap: int, m_rank: int):
+    """One rank's part of :func:`moe_shard_map`: the GeoT dispatch of its
+    data shard's assignments that target its ``e_m`` experts (sorted by
+    expert, ``cap`` slots each), the dense expert products, and the
+    combine on ``index_weight_segment_reduce`` (the gather kernel on CUDA
+    tensors). Returns this rank's partial (T_loc, D) output."""
+    t_loc, d = x_loc.shape
+    e_flat, w_flat, tok_flat = _assignments(te_loc, tp_loc, t_loc, cfg.top_k)
+    pos = _positions(e_flat, cfg.num_experts)
+    mine = torch.div(e_flat, e_m, rounding_mode="floor") == m_rank
+    keep = (pos < cap) & mine
+    slot = torch.where(keep, (e_flat.long() - m_rank * e_m) * cap + pos,
+                       e_m * cap)
+    xd = torch.zeros((e_m * cap + 1, d), dtype=x_loc.dtype,
+                     device=x_loc.device)
+    xd[slot] = geot.gather(x_loc, tok_flat)
+    xd3 = xd[:-1].reshape(e_m, cap, d)
+    act = layers._ACTS[cfg.act]
+    yd = torch.bmm(act(torch.bmm(xd3, wg)) * torch.bmm(xd3, wu), wd)
+    slot_safe = torch.clamp_max(slot, e_m * cap - 1)
+    out = geot.index_weight_segment_reduce(
+        yd.reshape(e_m * cap, d), slot_safe,
+        torch.where(keep, w_flat, torch.zeros_like(w_flat)), tok_flat, t_loc)
+    return out.to(x_loc.dtype)
+
+
+def _route_local(x_loc, router, *, cfg: ModelConfig):
+    """:func:`_route` on one data shard: the top-k ids and weights of its
+    tokens, and the aux loss's per-expert sums over them (the first
+    choices' counts and the router probabilities), to be summed over the
+    data shards."""
+    probs = torch.softmax(x_loc.float() @ router, dim=-1)
+    top_p, top_e = torch.topk(probs, cfg.top_k, dim=-1, sorted=True)
+    if cfg.norm_topk:
+        top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    counts = F.one_hot(top_e[..., 0], cfg.num_experts).float().sum(0)
+    return (top_e.to(torch.int32), top_p.to(x_loc.dtype), counts,
+            probs.sum(0))
+
+
+def _replicated_moe(prm, x, cfg: ModelConfig, mesh):
+    """:func:`moe_capacity` whole on every rank (x and every weight
+    replicated, so each rank computes the same output and gradients)."""
+    import types
+    from torch.distributed.tensor import Replicate
+    rep = [Replicate()] * mesh.ndim
+    names = [k for k, _ in prm.named_parameters()]
+
+    def body(x_l, *ws):
+        tree: dict = {}
+        for name, w in zip(names, ws):
+            *path, leaf = name.split(".")
+            node = tree
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = w
+
+        def ns(node):
+            return types.SimpleNamespace(**{
+                k: ns(v) if isinstance(v, dict) else v
+                for k, v in node.items()})
+        return moe_capacity(ns(tree), x_l, cfg)
+
+    return layers._local_map(body, (rep, rep), (rep,) * (1 + len(names)),
+                             mesh)(x, *(p for _, p in prm.named_parameters()))
+
+
+def moe_shard_map(prm, x, cfg: ModelConfig):
+    """Expert-parallel MoE (the reference's ``moe_shard_map``), on the
+    DTensors of a sharding context. The input is replicated over the model
+    dim (it feeds TP attention), so dispatch is local: each rank routes
+    its data shard's T_loc tokens, keeps the assignments that target its
+    E/|model| experts (at most ``cap`` = T_loc·k·capacity_factor/E,
+    rounded up to 8, each: capacity from the *local* token count), runs
+    them with the experts' hidden dim all-gathered (FSDP), combines on the
+    gather kernel, and one all-reduce over "model", in x's dtype, sums the
+    parts. Where E or the tokens do not divide the mesh it runs the global
+    :func:`moe_capacity` on every rank, replicated (the reference's
+    fallback)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh, plan = shd.current_context()
+    sizes = shd.mesh_sizes(mesh)
+    names = list(mesh.mesh_dim_names)
+    m_ax = plan.model_axes[0]
+    msize = sizes[m_ax]
+    dsize = math.prod(sizes[a] for a in plan.batch_axes)
+    e = cfg.num_experts
+    b, s, d = x.shape
+    t = b * s
+    rep = [Replicate()] * mesh.ndim
+    if e % msize != 0 or (b % dsize != 0 and t % dsize != 0):
+        return _replicated_moe(prm, x, cfg, mesh)   # unshardable: global
+    t_loc = t // dsize
+    k = cfg.top_k
+    cap = max(1, int(t_loc * k * cfg.capacity_factor / e))
+    cap = -(-cap // 8) * 8
+
+    x2d = x.reshape(t, d)
+    dpl = list(rep)                       # (T, ·): tokens on the data axes
+    for a in plan.batch_axes:
+        dpl[names.index(a)] = Shard(0)
+    # routing on each data shard, replicated over "model"; the router's
+    # gradient is a sum over the data shards
+    gpl = [Partial() if p.is_shard() else p for p in dpl]
+    top_e, top_p, counts, psum = layers._local_map(
+        functools.partial(_route_local, cfg=cfg),
+        (dpl, dpl, gpl, gpl), (dpl, rep), mesh,
+        in_grad_pls=(dpl, gpl))(x2d, prm.router)
+    aux = e * torch.sum((counts / t) * (psum / t))
+
+    # the experts: this rank's E/|model| of them, the hidden dim gathered
+    wpl = list(rep)
+    wpl[names.index(m_ax)] = Shard(0)
+    wgpl = [Partial() if p.is_replicate() and names[i] in plan.batch_axes
+            else p for i, p in enumerate(wpl)]
+    # x and the router weights are replicated over "model"; each rank's
+    # experts give them their own partial gradient
+    xgpl = list(dpl)
+    xgpl[names.index(m_ax)] = Partial()
+    opl = list(xgpl)                      # the parts, summed over "model"
+    body = functools.partial(_dispatch_local, cfg=cfg, e_m=e // msize,
+                             cap=cap, m_rank=mesh.get_local_rank(m_ax))
+    part = layers._local_map(
+        body, opl, (dpl, dpl, dpl, wpl, wpl, wpl), mesh,
+        in_grad_pls=(xgpl, dpl, xgpl, wgpl, wgpl, wgpl))(
+            x2d, top_e, top_p, prm.w_up, prm.w_gate, prm.w_down)
+    out2d = part.redistribute(mesh, dpl)
+    if cfg.num_shared_experts:
+        out2d = out2d + layers.mlp(prm.shared, x2d, cfg)
+    if b % dsize != 0:
+        out2d = out2d.redistribute(mesh, rep)
+    return out2d.reshape(b, s, d), aux
+
+
 def moe(prm, x, cfg: ModelConfig, impl: str = "capacity"):
     if impl == "capacity":
+        if shd.sharding_active() and shd.is_dtensor(x):
+            return moe_shard_map(prm, x, cfg)
         return moe_capacity(prm, x, cfg)
+    if shd.sharding_active() and shd.is_dtensor(x):
+        raise NotImplementedError(
+            f"moe impl {impl!r} under a mesh: the dropless path is not "
+            "sharded yet (ROADMAP Queue A, 'LM sharding': ragged/cuda "
+            "MoE under a mesh); use impl='capacity'")
     if impl in ("ragged", "cuda"):
         return moe_ragged(prm, x, cfg, impl="ref" if impl == "ragged"
                           else "cuda")

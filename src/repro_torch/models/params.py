@@ -5,11 +5,19 @@ The JAX models keep each layer as a dict of ``(d_in, d_out)`` arrays
 (``y = x @ w``); the port keeps the same layout in its ``nn.Module``s, so
 loading is a copy, not a transpose. The LM's parameter dicts become
 :class:`Params` modules with the same keys (``from_jax_lm_params``).
+
+Every LM parameter carries the reference's logical axes ("embed", "mlp",
+"heads", "kv", "vocab", "expert", …; one name or None a dim): an
+initialiser returns a :class:`P` (tensor + axes), :class:`Params` keeps
+the axes of its tensors in ``.axes`` and :func:`param_axes` reads a whole
+model's. :mod:`repro_torch.distributed.sharding` maps them onto the mesh.
+The port keeps one module a layer, so its axes are the reference's
+``effective_axes`` (no leading "layers").
 """
 from __future__ import annotations
 
 import math
-from typing import Mapping, Optional, Sequence
+from typing import Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,23 +31,39 @@ from repro_torch.models.gnn import GNN
 # the LM's parameter dicts and initialisers
 # ---------------------------------------------------------------------------
 
+class P(NamedTuple):
+    """A parameter as an initialiser makes it: the tensor and its logical
+    axes (the reference's ``P`` leaf)."""
+    value: torch.Tensor
+    axes: Tuple[Optional[str], ...]
+
+
 class Params(nn.Module):
     """One parameter dict of the reference's LM tree as a module: each key
     an attribute, a tensor (registered as a frozen ``nn.Parameter``, so
     that serving builds no autograd graph) or a sub-dict (a module).
     ``"key" in params`` and :meth:`keys` read it as the dict it mirrors.
+    A :class:`P` item registers its tensor and keeps its axes in
+    ``self.axes[key]`` (a bare tensor gets all-None axes: replicated).
     Training does not unfreeze them: :class:`~repro_torch.train.task.LMTask`
     trains a flat ``{name: tensor}`` dict of leaves that require grad,
     bound to a meta-device skeleton by ``torch.func.functional_call``."""
 
     def __init__(self, **items):
         super().__init__()
+        self.axes = {}
         for name, value in items.items():
             if isinstance(value, nn.Module):
                 self.add_module(name, value)
-            else:
-                self.register_parameter(
-                    name, nn.Parameter(value, requires_grad=False))
+                continue
+            value, axes = value if isinstance(value, P) else (value, None)
+            self.axes[name] = (tuple(axes) if axes is not None
+                               else (None,) * value.dim())
+            if len(self.axes[name]) != value.dim():
+                raise ValueError(f"{name}: axes {self.axes[name]} for a "
+                                 f"{value.dim()}-d tensor")
+            self.register_parameter(
+                name, nn.Parameter(value, requires_grad=False))
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
@@ -65,25 +89,40 @@ def uniform(gen: Optional[torch.Generator], shape, dtype, device):
     return torch.rand(shape, generator=gen, dtype=dtype, device=device)
 
 
-def dense_init(gen, in_dim: int, out_dim: int, dtype, device,
-               scale: float = 1.0) -> torch.Tensor:
-    """(in_dim, out_dim) weight, N(0, (scale/√in_dim)²), as the
-    reference's ``dense_init``."""
-    return normal(gen, (in_dim, out_dim), dtype, device,
-                  scale / math.sqrt(in_dim))
+def dense_init(gen, in_dim: int, out_dim: int, axes, dtype, device,
+               scale: float = 1.0) -> P:
+    """(in_dim, out_dim) weight, N(0, (scale/√in_dim)²), with its logical
+    axes, as the reference's ``dense_init``."""
+    return P(normal(gen, (in_dim, out_dim), dtype, device,
+                    scale / math.sqrt(in_dim)), tuple(axes))
 
 
-def embed_init(gen, vocab: int, dim: int, dtype, device) -> torch.Tensor:
-    """(vocab, dim) table, N(0, 0.02²)."""
-    return normal(gen, (vocab, dim), dtype, device, 0.02)
+def embed_init(gen, vocab: int, dim: int, dtype, device) -> P:
+    """(vocab, dim) table, N(0, 0.02²), on axes ("vocab", "embed")."""
+    return P(normal(gen, (vocab, dim), dtype, device, 0.02),
+             ("vocab", "embed"))
 
 
-def zeros_init(shape, dtype, device) -> torch.Tensor:
-    return torch.zeros(shape, dtype=dtype, device=device)
+def zeros_init(shape, axes, dtype, device) -> P:
+    return P(torch.zeros(shape, dtype=dtype, device=device), tuple(axes))
 
 
-def ones_init(shape, dtype, device) -> torch.Tensor:
-    return torch.ones(shape, dtype=dtype, device=device)
+def ones_init(shape, axes, dtype, device) -> P:
+    return P(torch.ones(shape, dtype=dtype, device=device), tuple(axes))
+
+
+def param_axes(module: nn.Module) -> dict:
+    """``{name: logical axes}`` of every parameter of ``module``, named as
+    its ``named_parameters()``."""
+    out = {}
+    for prefix, sub in module.named_modules():
+        for name in getattr(sub, "_parameters", {}):
+            axes = getattr(sub, "axes", {}).get(name) if isinstance(
+                sub, Params) else None
+            p = sub._parameters[name]
+            out[f"{prefix}.{name}" if prefix else name] = (
+                axes if axes is not None else (None,) * p.dim())
+    return out
 
 
 def generator(seed: Optional[int], device) -> Optional[torch.Generator]:
@@ -221,11 +260,23 @@ def from_jax_state(family: str, state, device=None):
 # the LM
 # ---------------------------------------------------------------------------
 
+def _ref_axes(leaf, layer: Optional[tuple]):
+    """A reference ``P`` leaf's axes as the port keeps them (a stacked
+    period leaf's leading "layers" dropped), or None for a bare array."""
+    axes = getattr(leaf, "axes", None)
+    if axes is None:
+        return None
+    axes = tuple(axes)
+    return axes[1:] if layer is not None and axes[:1] == ("layers",) \
+        else axes
+
+
 def carry(module, tree, path: str, layer: Optional[tuple] = None) -> None:
     """Copy a reference parameter (sub)tree into ``module``: a dict into a
     :class:`Params` with the same keys, a leaf into its ``nn.Parameter``
     (``layer = (p, n)``: slice p of a leading stacked-layers axis that must
-    hold n). Raises on a missing or extra key and on a shape mismatch."""
+    hold n). Raises on a missing or extra key, on a shape mismatch and on
+    a ``P`` leaf whose logical axes differ from the port's."""
     if isinstance(tree, Mapping):
         if not isinstance(module, Params) or set(tree) != set(module.keys()):
             have = sorted(module.keys()) if isinstance(module, Params) else \
@@ -233,6 +284,11 @@ def carry(module, tree, path: str, layer: Optional[tuple] = None) -> None:
             raise ValueError(f"{path}: reference keys {sorted(tree)} != "
                              f"port {have}")
         for key, sub in tree.items():
+            want = _ref_axes(sub, layer)
+            if want is not None and key in module.axes and \
+                    module.axes[key] != want:
+                raise ValueError(f"{path}.{key}: reference axes {want} != "
+                                 f"the port's {module.axes[key]}")
             carry(getattr(module, key), sub, f"{path}.{key}", layer)
         return
     arr = _value(tree)
@@ -273,6 +329,10 @@ def from_jax_lm_params(cfg, tree, device=None):
         raise ValueError(f"reference keys {sorted(tree)} != the port's LM "
                          f"{sorted(flat | stacks)}")
     for key in sorted(flat):
+        want = _ref_axes(tree[key], None)
+        if want is not None and key in model.axes and model.axes[key] != want:
+            raise ValueError(f"{key}: reference axes {want} != the port's "
+                             f"{model.axes[key]}")
         carry(getattr(model, key), tree[key], key)
     if len(tree["lead"]) != len(lead_kinds) or \
             len(tree["period"]) != len(period_kinds):

@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import (Params, dense_init, ones_init,
+from repro_torch.models.params import (P, Params, dense_init, ones_init,
                                        uniform)
 
 _DECAY_LORA = 64
@@ -28,20 +28,25 @@ class RWKVState(NamedTuple):
 
 def rwkv_init(gen, cfg: ModelConfig, dtype, device) -> Params:
     d = cfg.d_model
-    mu = lambda: uniform(gen, (d,), torch.float32, device)  # noqa: E731
+    def mu():
+        return P(uniform(gen, (d,), torch.float32, device), ("embed",))
     return Params(
         mu_r=mu(), mu_k=mu(), mu_v=mu(), mu_w=mu(), mu_g=mu(),
-        wr=dense_init(gen, d, d, dtype, device),
-        wk=dense_init(gen, d, d, dtype, device),
-        wv=dense_init(gen, d, d, dtype, device),
-        wg=dense_init(gen, d, d, dtype, device),
-        wo=dense_init(gen, d, d, dtype, device),
+        wr=dense_init(gen, d, d, ("embed", "heads"), dtype, device),
+        wk=dense_init(gen, d, d, ("embed", "heads"), dtype, device),
+        wv=dense_init(gen, d, d, ("embed", "heads"), dtype, device),
+        wg=dense_init(gen, d, d, ("embed", "heads"), dtype, device),
+        wo=dense_init(gen, d, d, ("heads", "embed"), dtype, device),
         # data-dependent decay LoRA: w_t = exp(-exp(w0 + tanh(x A) B))
-        w0=torch.full((d,), -6.0, dtype=torch.float32, device=device),
-        a_w=dense_init(gen, d, _DECAY_LORA, torch.float32, device),
-        b_w=dense_init(gen, _DECAY_LORA, d, torch.float32, device),
-        u=torch.zeros((d,), dtype=torch.float32, device=device),
-        ln_out=ones_init((d,), torch.float32, device),
+        w0=P(torch.full((d,), -6.0, dtype=torch.float32, device=device),
+             ("embed",)),
+        a_w=dense_init(gen, d, _DECAY_LORA, ("embed", None), torch.float32,
+                       device),
+        b_w=dense_init(gen, _DECAY_LORA, d, (None, "embed"), torch.float32,
+                       device),
+        u=P(torch.zeros((d,), dtype=torch.float32, device=device),
+            ("embed",)),
+        ln_out=ones_init((d,), ("embed",), torch.float32, device),
     )
 
 
@@ -92,10 +97,10 @@ def rwkv_time_mix(prm, x, cfg: ModelConfig, state: RWKVState):
 def channel_mix_init(gen, cfg: ModelConfig, dtype, device) -> Params:
     d, f = cfg.d_model, cfg.d_ff
     return Params(
-        mu_k=uniform(gen, (d,), torch.float32, device),
-        wk=dense_init(gen, d, f, dtype, device),
-        wv=dense_init(gen, f, d, dtype, device),
-        wr=dense_init(gen, d, d, dtype, device),
+        mu_k=P(uniform(gen, (d,), torch.float32, device), ("embed",)),
+        wk=dense_init(gen, d, f, ("embed", "mlp"), dtype, device),
+        wv=dense_init(gen, f, d, ("mlp", "embed"), dtype, device),
+        wr=dense_init(gen, d, d, ("embed", "embed2"), dtype, device),
     )
 
 

@@ -13,8 +13,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import (Params, dense_init, normal, uniform,
-                                       zeros_init)
+from repro_torch.models.params import (P, Params, dense_init, normal,
+                                       uniform, zeros_init)
 
 
 class SSMState(NamedTuple):
@@ -34,16 +34,19 @@ def ssm_init(gen, cfg: ModelConfig, dtype, device) -> Params:
     dt = torch.clamp_min(uniform(gen, (di,), torch.float32, device) * 0.099
                          + 0.001, 1e-4)
     return Params(
-        in_proj=dense_init(gen, d, 2 * di, dtype, device),
-        conv_w=normal(gen, (cfg.d_conv, di), torch.float32, device,
-                      1.0 / math.sqrt(cfg.d_conv)),
-        conv_b=zeros_init((di,), torch.float32, device),
-        x_proj=dense_init(gen, di, dtr + 2 * ds, dtype, device),
-        dt_proj=dense_init(gen, dtr, di, torch.float32, device),
-        dt_bias=torch.log(torch.expm1(dt)),
-        a_log=torch.log(a),
-        d_skip=torch.ones((di,), dtype=torch.float32, device=device),
-        out_proj=dense_init(gen, di, d, dtype, device),
+        in_proj=dense_init(gen, d, 2 * di, ("embed", "mlp"), dtype, device),
+        conv_w=P(normal(gen, (cfg.d_conv, di), torch.float32, device,
+                        1.0 / math.sqrt(cfg.d_conv)), (None, "mlp")),
+        conv_b=zeros_init((di,), ("mlp",), torch.float32, device),
+        x_proj=dense_init(gen, di, dtr + 2 * ds, ("mlp", None), dtype,
+                          device),
+        dt_proj=dense_init(gen, dtr, di, (None, "mlp"), torch.float32,
+                           device),
+        dt_bias=P(torch.log(torch.expm1(dt)), ("mlp",)),
+        a_log=P(torch.log(a), ("mlp", None)),
+        d_skip=P(torch.ones((di,), dtype=torch.float32, device=device),
+                 ("mlp",)),
+        out_proj=dense_init(gen, di, d, ("mlp", "embed"), dtype, device),
     )
 
 

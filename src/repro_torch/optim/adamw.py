@@ -69,9 +69,10 @@ def _decode(x, dtype: str):
 
 def init(params: Dict[str, torch.Tensor], cfg: AdamWConfig) -> AdamWState:
     """Zero moments beside each parameter, in ``cfg.state_dtype``."""
-    def zeros():
-        return {k: _encode(torch.zeros(p.shape, dtype=torch.float32,
-                                       device=p.device), cfg.state_dtype)
+    def zeros():     # zeros_like: a sharded parameter's moments shard alike
+        return {k: _encode(torch.zeros_like(p, dtype=torch.float32,
+                                            requires_grad=False),
+                           cfg.state_dtype)
                 for k, p in params.items()}
     return AdamWState(0, zeros(), zeros())
 

@@ -26,8 +26,11 @@ computes the same loss and the same gradients.
 batches (:class:`~repro_torch.train.providers.TokenProvider`): next-token
 cross entropy plus the MoE aux loss (:func:`repro_torch.models.lm.loss_fn`)
 on a flat ``{name: tensor}`` dict of the LM's parameters, run through
-``torch.func.functional_call`` on a meta-device skeleton. On one device
-only: ``prepare`` and ``build_step`` raise with a mesh.
+``torch.func.functional_call`` on a meta-device skeleton. With ``mesh=``
+(a ``DeviceMesh`` with "data" and "model" dims,
+:func:`repro_torch.launch.mesh.make_host_mesh`) it trains sharded: the
+batch is placed on ``batch_spec`` and :meth:`LMTask.build_step` returns the
+sharded step of :func:`repro_torch.distributed.step.build_train_step`.
 """
 from __future__ import annotations
 
@@ -265,8 +268,15 @@ class NodeClassification:
 # the LM task
 # ---------------------------------------------------------------------------
 
-_NO_MESH = ("LMTask trains on one device; training an LM across a mesh "
-            "comes with the LM-sharding slice of the port")
+def _device_mesh(mesh):
+    """``mesh`` if it is a ``DeviceMesh``; anything else raises."""
+    from torch.distributed.device_mesh import DeviceMesh
+    if not isinstance(mesh, DeviceMesh):
+        raise NotImplementedError(
+            "LMTask trains across a torch DeviceMesh (LM-sharding: "
+            "repro_torch.launch.mesh.make_host_mesh), got "
+            f"{type(mesh).__name__}")
+    return mesh
 
 
 class LMStatic(NamedTuple):
@@ -290,7 +300,14 @@ class LMTask:
     parameters live (``None``: the card, raising without one; ``"cpu"``
     for the plain versions). The ``(plan=, config=, tune=)`` trio is
     accepted for the protocol and has no effect: token batches carry no
-    segment plans."""
+    segment plans.
+
+    Across a ``DeviceMesh`` (``fit(mesh=)``): :meth:`shard` places the
+    initial parameters by their logical axes (the trainer's moments then
+    shard alike), :meth:`prepare` places each batch on the data dims and
+    :meth:`build_step` runs the sharded step (its warmup-cosine schedule
+    over ``TrainerConfig.steps``, as the reference's pjit step). Only
+    ``moe_impl="capacity"`` shards."""
     cfg: Any
     remat_policy: str = "none"
     moe_impl: str = "capacity"
@@ -309,13 +326,31 @@ class LMTask:
         return {k: p.detach().requires_grad_()
                 for k, p in model.named_parameters()}
 
+    def shard(self, params: dict, mesh) -> dict:
+        """Whole parameters (every rank holding them) as this rank's
+        shards on ``mesh``, leaves that require grad."""
+        from repro_torch.distributed import sharding as shd
+        from repro_torch.models import lm
+        mesh = _device_mesh(mesh)
+        plan = shd.ParallelPlan.for_mesh(mesh)
+        psh = shd.param_shardings(lm.LM(self.cfg, device="meta", seed=None),
+                                  plan, mesh)
+        return shd.distribute_dict(params, psh, mesh)
+
     def prepare(self, batch, *, plan=None, config=None, tune=None,
                 mesh=None):
         if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
+            mesh = _device_mesh(mesh)
         arrays = {k: torch.as_tensor(v).to(self.device)
                   for k, v in batch.items()}
         b, s = arrays["tokens"].shape
+        if mesh is not None:
+            from repro_torch.distributed import sharding as shd
+            splan = shd.ParallelPlan.for_mesh(mesh)
+            arrays = {k: shd.place_tensor(v, mesh, shd.placements(
+                shd.spec_for_axes(("batch", "seq") + (None,) * (v.dim() - 2),
+                                  v.shape, splan, mesh), mesh))
+                for k, v in arrays.items()}
         return arrays, LMStatic(int(b), int(s))
 
     def loss(self, params, arrays, static, rng=None):
@@ -328,8 +363,36 @@ class LMTask:
 
     def build_step(self, trainer_cfg, mesh, static: LMStatic):
         """None (the trainer's generic step) on one device, as the
-        reference's. LM training across a mesh (the reference's pjit step)
-        comes with the LM-sharding slice."""
+        reference's. With a mesh: the sharded step of
+        :func:`~repro_torch.distributed.step.build_train_step` behind the
+        trainer's ``(state, arrays) -> (state, metrics)`` surface, its
+        shardings resolved on the first call (a whole state is placed on
+        the mesh then; a sharded one stays as it is)."""
         if mesh is None:
             return None
-        raise NotImplementedError(_NO_MESH)
+        from repro_torch.distributed import sharding as shd
+        from repro_torch.distributed import step as steplib
+        from repro_torch.train.trainer import TrainState
+        mesh = _device_mesh(mesh)
+        plan = shd.ParallelPlan.for_mesh(mesh)
+        ts = steplib.TrainStepConfig(
+            opt=trainer_cfg.opt, warmup_steps=trainer_cfg.warmup_steps,
+            total_steps=trainer_cfg.steps, remat_policy=self.remat_policy,
+            moe_impl=self.moe_impl, aux_weight=self.aux_weight)
+        fn, shardings_for = steplib.build_train_step(self.cfg, mesh, plan, ts)
+        box: dict = {}
+
+        def step(state: TrainState, arrays):
+            if not box:
+                shapes = {k: tuple(v.shape) for k, v in arrays.items()}
+                box["sh"] = shardings_for(state.params, state.opt_state,
+                                          shapes)
+            psh, osh, _, _ = box["sh"]
+            params, opt = state.params, state.opt_state
+            if not all(shd.is_dtensor(p) for p in params.values()):
+                params, opt = steplib.shard_state(params, opt, psh, osh, mesh)
+            params, opt, metrics = fn(params, opt, arrays, state.step)
+            return (TrainState(params, opt, state.step + 1, state.rng),
+                    metrics)
+
+        return step

@@ -114,29 +114,36 @@ class Trainer:
     graph's plan is built with, else ``tune=True`` selects it from a sweep
     measured on the card, else the generated rules decide.
 
-    ``mesh`` (a :class:`~repro_torch.core.dist_mp.ShardMesh`) trains
-    sharded, SPMD: every rank of the mesh runs this trainer on the same
-    data, the task partitions each graph, and the merges give every rank
-    the same gradients, so the replicated parameters stay bitwise equal
-    with no gradient all-reduce. With a checkpoint directory each rank of
-    a mesh of several keeps its own, ``<ckpt_dir>/rank<r>``."""
+    ``mesh`` trains sharded, SPMD: every rank of the mesh runs this
+    trainer on the same data. A :class:`~repro_torch.core.dist_mp.
+    ShardMesh` (the GNNs): the task partitions each graph, and the merges
+    give every rank the same gradients, so the replicated parameters stay
+    bitwise equal with no gradient all-reduce. A ``DeviceMesh`` (the LMs,
+    :class:`~repro_torch.train.task.LMTask`): the task's ``shard`` places
+    the initial parameters on it (the moments shard alike) and its
+    ``build_step`` gives the sharded step the trainer runs instead of its
+    own. With a checkpoint directory each rank of a mesh of several keeps
+    its own, ``<ckpt_dir>/rank<r>``."""
 
     def __init__(self, task, data, cfg: Optional[TrainerConfig] = None, *,
                  plan=None, config=None, tune=None, mesh=None):
         self.task = task
         self.data = data
         self.cfg = cfg if cfg is not None else TrainerConfig()
-        if mesh is not None:
-            from repro_torch.core.dist_mp import check_mesh
-            check_mesh(mesh)
-        if mesh is not None and mesh.size > 1 and self.cfg.ckpt_dir:
+        rank, size = _mesh_rank(mesh)
+        if _is_device_mesh(mesh) and not hasattr(task, "shard"):
+            raise NotImplementedError(
+                f"{type(task).__name__} does not shard over a DeviceMesh "
+                "(the LMs' mesh); the GNN tasks take a ShardMesh")
+        if size > 1 and self.cfg.ckpt_dir:
             self.cfg = dataclasses.replace(self.cfg, ckpt_dir=os.path.join(
-                self.cfg.ckpt_dir, f"rank{mesh.rank}"))
+                self.cfg.ckpt_dir, f"rank{rank}"))
         self.mesh = mesh
         self.plan = plan
         self.config = config
         self.tune = tune
         self._buckets: dict = {}        # shape buckets seen, in order
+        self._steps: dict = {}          # bucket -> the task's own step
         self._lr_scale = schedule.get(self.cfg.lr_schedule)
         reg = obs.get_registry()
         self._labels = {"trainer": obs.next_id("trainer")}
@@ -159,6 +166,8 @@ class Trainer:
         root = torch.Generator().manual_seed(self.cfg.seed)
         s_init, s_state = _seed(root), _seed(root)
         params = self.task.init(torch.Generator().manual_seed(s_init))
+        if _is_device_mesh(self.mesh):
+            params = self.task.shard(params, self.mesh)
         return TrainState(params, adamw.init(params, self.cfg.opt), 0,
                           torch.Generator().manual_seed(s_state).get_state())
 
@@ -184,20 +193,33 @@ class Trainer:
                 obs.record_build("train.step", "new_bucket",
                                  trainer=self._labels["trainer"],
                                  static=repr(static))
+                build = getattr(self.task, "build_step", None)
+                self._steps[static] = build(cfg, self.mesh, static) \
+                    if build is not None else None
+            custom = self._steps[static]
             with span("train.execute", static=repr(static), new_bucket=new):
-                params = state.params
-                loss, metrics = self.task.loss(
-                    params, arrays, static,
-                    _step_generator(state.rng, state.step))
-                grads = torch.autograd.grad(loss, list(params.values()),
-                                            allow_unused=True)
-                grads = {k: torch.zeros_like(p) if g is None else g
-                         for (k, p), g in zip(params.items(), grads)}
-                lr_scale = self._lr_scale(state.step, cfg.warmup_steps,
-                                          cfg.steps)
-                new_p, new_o, om = adamw.update_(grads, state.opt_state,
-                                                 params, cfg.opt, lr_scale)
+                if custom is not None:
+                    new_state, metrics = custom(state, arrays)
+                else:
+                    new_state, metrics = self._generic_step(state, arrays,
+                                                            static)
             self._m_steps.inc(**self._labels)
+        return new_state, metrics
+
+    def _generic_step(self, state: TrainState, arrays, static):
+        """Loss, ``torch.autograd.grad`` and ``adamw.update_`` on the
+        task's device."""
+        cfg = self.cfg
+        params = state.params
+        loss, metrics = self.task.loss(params, arrays, static,
+                                       _step_generator(state.rng, state.step))
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(params.items(), grads)}
+        lr_scale = self._lr_scale(state.step, cfg.warmup_steps, cfg.steps)
+        new_p, new_o, om = adamw.update_(grads, state.opt_state, params,
+                                         cfg.opt, lr_scale)
         return (TrainState(new_p, new_o, state.step + 1, state.rng),
                 dict(metrics, loss=loss.detach(), **om))
 
@@ -253,6 +275,24 @@ class Trainer:
         return FitResult(state=final, losses=losses, start_step=start,
                          steps=self.steps, buckets=self.buckets,
                          events=tuple(loop.events))
+
+
+def _is_device_mesh(mesh) -> bool:
+    from torch.distributed.device_mesh import DeviceMesh
+    return isinstance(mesh, DeviceMesh)
+
+
+def _mesh_rank(mesh):
+    """(this rank, the mesh's size) of a ``DeviceMesh`` or a checked
+    :class:`~repro_torch.core.dist_mp.ShardMesh`; (0, 1) for none."""
+    if mesh is None:
+        return 0, 1
+    if _is_device_mesh(mesh):
+        import torch.distributed as dist
+        return dist.get_rank(), mesh.size()
+    from repro_torch.core.dist_mp import check_mesh
+    mesh = check_mesh(mesh)
+    return mesh.rank, mesh.size
 
 
 def fit(task, data, trainer: Optional[TrainerConfig] = None, *, plan=None,
