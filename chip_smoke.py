@@ -278,6 +278,29 @@ Phases (any failure exits non-zero before the result line):
       ``reduced_100m`` on the card (fp32): 6 steps with a checkpoint
       every 3, killed after step 3 and resumed, bitwise the uninterrupted
       run. A ``{"lm_training": ...}`` line lists it all.
+   k. The dry run (``repro_torch.launch.dryrun``), in a process of its
+      own with a deadline. (a) ``torch.library.opcheck`` (schema and fake
+      tensor) of the six kernel ops on the card at small shapes: the
+      fakes' output shapes, dtypes and strides are the kernels'. (b) The
+      dry run at 3j's own configuration on a fake 2 x 2 ``"cuda"`` mesh
+      (qwen3-moe-30b-a3b at full width, 2 layers, 2 x 1024 tokens a data
+      shard): the train step ``LMTask`` builds under ``fit(mesh=)`` and a
+      decode step at 3j's batch and length, held to 3j's rank 0, which ran
+      one more warm step of each under the dry run's tally (not timed, not
+      profiled): its parameter and moment bytes, FLOPs, and collective
+      counts and bytes by kind exactly equal; the predicted peak a rank
+      beside ``max_memory_allocated`` of that warm training step (after
+      ``reset_peak_memory_stats``, the state in place), its ratio printed
+      and within 0.5-2x. (c) Three production cells on fake 256- and
+      512-rank ``"cuda"`` meshes, each a ``python -m
+      repro_torch.launch.dryrun`` process (all three together):
+      stablelm-1.6b x decode_32k x single, rwkv6-3b x long_500k x multi,
+      qwen3-moe-30b-a3b x train_4k x single, at full depth; each ends ``"ok"`` with FLOPs and collective
+      bytes > 0, its record printed. (d) The ten ``examples/torch_*.py``
+      on the card at small settings, each a subprocess with a deadline:
+      each exits 0 and prints its result line, and those that run a
+      kernel print nonzero ``launch_counts()``. A ``{"dryrun": ...}``
+      line lists it all.
 4. A ``{"kernels": [...]}`` line: per kernel its launches on the main paths
    (and per path: serving, typed, ops, training, sampled, sharded, the
    last summed over the ranks, lm and lm_train), ``cuda_kernels_per_launch``, the port's
@@ -314,6 +337,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -2962,7 +2986,15 @@ def spawn_ranks(torch, target, deadline_s: int, what: str) -> dict:
     backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
     tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{what}_")
     out = os.path.join(tmp, "rank0.json")
+    # the ranks share the card with this process: drop what the earlier
+    # phases left behind (cycles included) before they start
+    gc.collect()
     torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"  [{what}] spawning {world} ranks ({backend}); this process "
+          f"holds {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+          f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved; the card "
+          f"{free / 1e9:.2f} of {total / 1e9:.2f} GB free", flush=True)
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=target,
                          args=(r, world, backend, os.path.join(tmp, "store"),
@@ -3074,6 +3106,7 @@ def _lm_sharded_rank(torch, dist, rank, world, backend, dev, out):
     from repro_torch.distributed import step as steplib
     from repro_torch.kernels import ops as kops
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.tally import StepTally
     from repro_torch.models import layers as layers_mod
     from repro_torch.models import lm
     from repro_torch.models import moe as moe_mod
@@ -3234,7 +3267,16 @@ def _lm_sharded_rank(torch, dist, rank, world, backend, dev, out):
         held = held_reading(f"rank {rank} sharded serving", held_rows,
                             (1 + LM_SHARD_DECODE) * cfg.num_layers)
         serve_mem = torch.cuda.max_memory_allocated()
-        del logits, state
+        # one more decode step on a fresh state, counted as the dry run
+        # counts (phase 3k holds its trace to this): not timed
+        fresh = steplib.shard_decode_state(
+            lm.init_decode_state(cfg, LM_SHARD_BATCH, 16, bf16, device=dev),
+            shardings_for(None)[2], mesh)
+        with StepTally() as tally:
+            serve(smodel, tokens[:, :1], fresh)
+        torch.cuda.synchronize()
+        rec["tally_decode"] = tally_record(tally)
+        del logits, state, fresh
         # the single-device decode of the same tokens, a reading
         ref_state = lm.init_decode_state(cfg, LM_SHARD_BATCH, 16, bf16,
                                          device=dev)
@@ -3247,7 +3289,9 @@ def _lm_sharded_rank(torch, dist, rank, world, backend, dev, out):
             tok = want[:, -1].argmax(-1, keepdim=True)
         for k, v in kops.launch_counts().items():
             ref_launches[k] += v - before[k]
-        del ref_state, dec_logits, smodel
+        # the single-device model (and the layers the held checks read)
+        # is done with: four ranks share the card's memory
+        del ref_state, dec_logits, smodel, model, plain_of
         rec["serving"] = {
             "prefill_tokens": [LM_SHARD_BATCH, LM_SHARD_SEQ],
             "prefill_ms": prefill_ms, "decode_steps": LM_SHARD_DECODE,
@@ -3282,7 +3326,7 @@ def _lm_sharded_rank(torch, dist, rank, world, backend, dev, out):
         with torch.no_grad():
             ref_loss0 = float(lm.loss_fn(whole0, cfg, batch0,
                                          remat_policy="none")[0])
-        del whole0, model
+        del whole0
         for k, v in kops.launch_counts().items():
             ref_launches[k] += v - before[k]
         torch.cuda.empty_cache()
@@ -3301,6 +3345,17 @@ def _lm_sharded_rank(torch, dist, rank, world, backend, dev, out):
         if rank:
             trainer.step(run.state, LM_SHARD_STEPS)
         train_mem = torch.cuda.max_memory_allocated()
+        # one more warm step, counted as the dry run counts (phase 3k holds
+        # its trace to this): not timed, not profiled; the peak over it
+        # with the state in place
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with StepTally() as tally:
+            trainer.step(run.state, LM_SHARD_STEPS + 1)
+        torch.cuda.synchronize()
+        rec["tally_train"] = dict(
+            tally_record(tally),
+            max_memory_allocated=torch.cuda.max_memory_allocated())
     torch.cuda.synchronize()
     counts = kops.launch_counts()
     launched = {k: counts[k] - ref_launches[k] for k in counts}
@@ -3383,12 +3438,299 @@ def _lm_sharded_rank(torch, dist, rank, world, backend, dev, out):
         Path(out).write_text(json.dumps(rec))
 
 
+def tally_record(tally) -> dict:
+    """What the dry run's tally counted over one step."""
+    return {"flops": tally.flops, "collectives": tally.collectives(),
+            "kernels": dict(tally.kernels)}
+
+
 def lm_sharded_phase(torch) -> dict:
     """Phase 3j: spawn SHARDS ranks of the sharded LM stack; returns rank
     0's record."""
     return spawn_ranks(torch, lm_sharded_rank, LM_SHARD_DEADLINE_S,
                        "lm_sharded")
 
+
+
+# -- phase 3k: the dry run on fake ranks, held to 3j; the examples ----------
+# the production cells of the reference's dry-run test, and its MoE cell
+DRYRUN_CELLS = (("stablelm-1.6b", "decode_32k", "single"),
+                ("rwkv6-3b", "long_500k", "multi"),
+                ("qwen3-moe-30b-a3b", "train_4k", "single"))
+DRYRUN_DEADLINE_S = 300            # the 3j comparison; each cell
+# the ten examples at small settings: (script, arguments, its result line,
+# whether it runs a kernel on the card)
+EXAMPLES = (
+    ("torch_quickstart", [], r"^d\(SpMM\)/dH:", True),
+    ("torch_gnn_inference", ["--dataset", "cora", "--hidden", "32",
+                             "--shards", "2"], r"^served 4 models", True),
+    ("torch_gnn_serving", ["--requests", "24", "--max-nodes", "512",
+                           "--max-batch-nodes", "1024"],
+     r"^serving contract holds", True),
+    ("torch_gnn_training", ["--steps", "12", "--ckpt-every", "4"],
+     r"^all training checks passed", True),
+    ("torch_gnn_sampled_training", ["--steps", "30", "--nodes", "1024",
+                                    "--edges", "4096"],
+     r"^all sampled-pipeline checks passed", True),
+    ("torch_hetero_inference", [], r"grouped vs per-type-loop parity", True),
+    ("torch_lm_serving", ["--gen", "4"], r"^decode: ", False),
+    ("torch_continuous_batching", [], r"^served 10 requests", False),
+    ("torch_moe_training", ["--steps", "3"], r"^MoE \(cuda dispatch\) loss",
+     True),
+    ("torch_train_100m", ["--steps", "3"], r"^loss: ", True),
+)
+EXAMPLE_DEADLINE_S = 150
+
+
+def opcheck_ops(torch) -> dict:
+    """``torch.library.opcheck`` (schema, fake tensor) of the six kernel
+    ops on the card at small shapes; returns each output's shape, dtype
+    and strides."""
+    from repro_torch.kernels import segment_matmul as smm
+    from repro_torch.kernels.gather_segment_reduce import row_offsets
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    m, v, s, f = 5000, 1000, 800, 64
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    seg = torch.sort(torch.randint(0, s, (m,), generator=gen, device=dev)
+                     )[0].to(torch.int32)
+    gidx = torch.randint(0, v, (m,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    rp = row_offsets(seg, s)
+    wt = torch.rand(m, generator=gen, device=dev)
+    sizes = torch.tensor([400, 0, 900, 37, 1, 800, 262, 600], device=dev)
+    meta = smm.group_metadata(sizes, 3000, 64)
+    cases = {
+        "gather_segment_reduce": (randn(v, f), gidx, seg, s, wt, "sum", rp,
+                                  64),
+        "segment_reduce": (randn(m, f), seg, s, "sum", rp, 64),
+        "segment_softmax": (randn(m, 4), seg, s, rp),
+        "fused_transform_reduce": (randn(v, 32), randn(32, f), gidx, s, wt,
+                                   "sum", rp, 64),
+        "segment_matmul": (randn(3000, f), randn(8, f, f), *meta, 64),
+        "sddmm": (randn(v, f), randn(v, f), seg, gidx),
+    }
+    out = {}
+    for name, args in cases.items():
+        op = getattr(torch.ops.repro_torch, name).default
+        try:
+            torch.library.opcheck(op, args, test_utils=("test_schema",
+                                                         "test_faketensor"))
+        except Exception as e:  # noqa: BLE001 — reported as the failure
+            fail(f"opcheck of repro_torch::{name}: {e!r}")
+        y = op(*args)
+        out[name] = {"shape": list(y.shape), "dtype": str(y.dtype),
+                     "stride": list(y.stride())}
+    torch.cuda.synchronize()
+    return out
+
+
+def dryrun_vs_3j(torch, j: dict) -> dict:
+    """3j's train and decode steps traced on a fake 2 x 2 "cuda" mesh,
+    held to what 3j's rank 0 counted over the same steps."""
+    import numpy as np
+
+    from repro_torch import configs as lm_configs
+    from repro_torch.data.tokens import TokenDatasetConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import step as steplib
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.train import TokenProvider
+    full = lm_configs.get_config(LM_ARCH)
+    cfg = dataclasses.replace(full, num_layers=LM_SHARD_LAYERS)
+    # 3j's batch fields and dtypes, and its trainer's step configuration
+    batch = TokenProvider(TokenDatasetConfig(
+        vocab_size=cfg.vocab_size, seq_len=LM_SHARD_SEQ,
+        global_batch=LM_SHARD_BATCH)).batch(0)
+    specs = {k: torch.empty(np.shape(a), device="meta",
+                            dtype=torch.as_tensor(a).dtype)
+             for k, a in batch.items()}
+    ts = steplib.TrainStepConfig(
+        opt=adamw.AdamWConfig(lr=1e-4), warmup_steps=1,
+        total_steps=LM_SHARD_STEPS, remat_policy="none",
+        moe_impl="capacity")
+    dev = torch.device("cuda")
+    with dryrun.fake_world(SHARDS):
+        mesh = make_host_mesh(2, 2, device_type="cuda")
+        plan = shd.ParallelPlan.for_mesh(mesh)
+        t0 = time.perf_counter()
+        train, local = dryrun.trace_step("train", cfg, mesh, plan, specs, dev,
+                                         train_config=ts)
+        t1 = time.perf_counter()
+        dec, _ = dryrun.trace_step(
+            "decode", cfg, mesh, plan,
+            {"tokens": torch.empty((LM_SHARD_BATCH, 1), dtype=torch.int64,
+                                   device="meta")},
+            dev, batch=LM_SHARD_BATCH, max_len=16)
+        t2 = time.perf_counter()
+    got_bytes = local["param"] + local["opt"]
+    want_bytes = j["training"]["local_param_and_moment_bytes"]
+    if got_bytes != want_bytes:
+        fail(f"3k: the dry run's parameter and moment bytes a rank "
+             f"{got_bytes} != 3j's {want_bytes}")
+    rows = {}
+    for what, fake, real in (("train", train, j["tally_train"]),
+                             ("decode", dec, j["tally_decode"])):
+        if fake.flops != real["flops"]:
+            fail(f"3k: the dry run's {what} FLOPs {fake.flops} != 3j's "
+                 f"{real['flops']}")
+        if fake.collectives() != real["collectives"]:
+            fail(f"3k: the dry run's {what} collectives "
+                 f"{fake.collectives()} != 3j's {real['collectives']}")
+        rows[what] = {"flops": fake.flops, "collectives": fake.collectives(),
+                      "kernels": dict(fake.kernels),
+                      "kernels_3j": real["kernels"]}
+    peak = train.memory()
+    real_peak = j["tally_train"]["max_memory_allocated"]
+    ratio = peak["peak_bytes"] / real_peak
+    if not 0.5 <= ratio <= 2.0:
+        fail(f"3k: the dry run's peak {peak['peak_bytes']} B a rank is "
+             f"{ratio:.3f}x 3j's max_memory_allocated {real_peak} B "
+             f"(outside 0.5-2x)")
+    return {"mesh": "2x2 (data, model), fake \"cuda\"",
+            "layers": cfg.num_layers,
+            "param_and_moment_bytes": got_bytes, "match_3j": True,
+            "steps": rows, "peak": peak, "max_memory_allocated_3j": real_peak,
+            "peak_over_3j": ratio, "trace_train_s": t1 - t0,
+            "trace_decode_s": t2 - t1}
+
+
+def dryrun_proc(j_path: str, out: str) -> None:
+    """Phase 3k's own process (spawned): opcheck, then the dry run held to
+    3j; writes its record to ``out``."""
+    import torch
+    torch.cuda.set_device(0)
+    rec = {"opcheck": opcheck_ops(torch)}
+    print(f"  [3k] opcheck (schema, fake tensor) of the six kernel ops: "
+          f"{rec['opcheck']}", flush=True)
+    rec["vs_3j"] = dryrun_vs_3j(torch, json.loads(Path(j_path).read_text()))
+    v = rec["vs_3j"]
+    print(f"  [3k] dry run of 3j's steps on a fake 2x2 cuda mesh: parameter "
+          f"and moment bytes a rank {v['param_and_moment_bytes']} (= 3j's), "
+          f"FLOPs and collectives by kind = 3j's rank 0: "
+          f"{json.dumps(v['steps'])}; predicted peak "
+          f"{v['peak']['peak_bytes'] / 1e9:.3f} GB a rank "
+          f"({v['peak']['at_peak']}) vs 3j's max_memory_allocated "
+          f"{v['max_memory_allocated_3j'] / 1e9:.3f} GB: "
+          f"{v['peak_over_3j']:.3f}x; traced in {v['trace_train_s']:.1f} s "
+          f"(train), {v['trace_decode_s']:.1f} s (decode)", flush=True)
+    Path(out).write_text(json.dumps(rec))
+
+
+def run_examples(env) -> list:
+    """Each example on the card as a subprocess with its deadline."""
+    rows = []
+    for name, args, result, kernels in EXAMPLES:
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [sys.executable, str(ROOT / "examples" / f"{name}.py"),
+                 *args], cwd=ROOT, env=env, capture_output=True, text=True,
+                timeout=EXAMPLE_DEADLINE_S)
+        except subprocess.TimeoutExpired:
+            fail(f"3k: example {name} ran past its {EXAMPLE_DEADLINE_S} s "
+                 f"deadline")
+        secs = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        if proc.returncode != 0:
+            fail(f"3k: example {name} exited {proc.returncode}: "
+                 f"{proc.stderr[-3000:]}")
+        hit = [ln for ln in lines if re.search(result, ln)]
+        counts = [json.loads(ln.split(":", 1)[1]) for ln in lines
+                  if ln.startswith("kernel launches:")]
+        if not hit or not counts:
+            fail(f"3k: example {name} printed no result line ({result!r}) "
+                 f"or no kernel launches: {proc.stdout[-2000:]}")
+        if kernels and not sum(counts[-1].values()):
+            fail(f"3k: example {name} launched no kernel on the card: "
+                 f"{counts[-1]}")
+        rows.append({"example": name, "args": args, "result": hit[-1],
+                     "launches": counts[-1], "seconds": secs})
+        print(f"  [3k] examples/{name}.py {' '.join(args)}: exit 0 in "
+              f"{secs:.1f} s; {hit[-1].strip()}; launches {counts[-1]}",
+              flush=True)
+    return rows
+
+
+def dryrun_phase(torch, j_rec: dict) -> dict:
+    """Phase 3k: the production cells as ``repro_torch.launch.dryrun``
+    processes, all started together with the process that holds the dry
+    run to 3j; meanwhile the ten examples one after another; every
+    process stopped on the way out."""
+    import multiprocessing
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [q for q in [os.environ.get("PYTHONPATH")]
+                               if q]))
+    j_path = os.path.join(tmp, "3j.json")
+    Path(j_path).write_text(json.dumps(j_rec))
+    cells, procs = [], []
+    try:
+        for arch, shape, mesh in DRYRUN_CELLS:
+            out = os.path.join(tmp, f"{arch}__{shape}__{mesh}.json")
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--mesh", mesh,
+                   "--out", out]
+            log = open(os.path.join(tmp, f"{arch}.log"), "w")
+            procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                          stdout=log, stderr=log))
+            cells.append((arch, shape, mesh, out, log))
+        t0 = time.monotonic()
+        ctx = multiprocessing.get_context("spawn")
+        vs = ctx.Process(target=dryrun_proc,
+                         args=(j_path, os.path.join(tmp, "3k.json")))
+        vs.start()
+        examples = run_examples(env)
+        vs.join(max(1.0, DRYRUN_DEADLINE_S - (time.monotonic() - t0)))
+        if vs.exitcode != 0:
+            fail(f"3k: the dry run held to 3j exited {vs.exitcode} (None: "
+                 f"killed at the {DRYRUN_DEADLINE_S} s deadline)")
+        rec = json.loads(Path(tmp, "3k.json").read_text())
+        rec["examples"] = examples
+        rec["cells"] = []
+        for (arch, shape, mesh, out, log), proc in zip(cells, procs):
+            try:
+                proc.wait(max(1.0, DRYRUN_DEADLINE_S
+                              - (time.monotonic() - t0)))
+            except subprocess.TimeoutExpired:
+                fail(f"3k: dry run {arch} x {shape} x {mesh} ran past "
+                     f"{DRYRUN_DEADLINE_S} s")
+            log.close()
+            if proc.returncode != 0:
+                fail(f"3k: dry run {arch} x {shape} x {mesh} exited "
+                     f"{proc.returncode}: "
+                     f"{Path(log.name).read_text()[-3000:]}")
+            res = json.loads(Path(out).read_text())
+            if res.get("status") != "ok" or not res["flops"] > 0 or \
+                    not res["collectives"]["total_bytes"] > 0:
+                fail(f"3k: dry run {arch} x {shape} x {mesh}: {res}")
+            rec["cells"].append(res)
+            mem = res["memory"]
+            print(f"  [3k] dry run {arch} x {shape} x {mesh} ({res['layers']}"
+                  f" layers, {res['world']} fake cuda ranks): ok; a device "
+                  f"holds {res['param_bytes_per_device'] / 1e9:.3f} GB of "
+                  f"parameters, "
+                  f"{res.get('opt_bytes_per_device', 0) / 1e9:.3f} GB of "
+                  f"moments, {res.get('cache_bytes_per_device', 0) / 1e9:.3f}"
+                  f" GB of cache; peak {mem['peak_bytes'] / 1e9:.3f} GB "
+                  f"({mem['at_peak']}), fits {mem['device_bytes'] / 1e9:.1f}"
+                  f" GB: {mem['fits']}; FLOPs {res['flops']:.4e}; "
+                  f"collectives {res['collectives']}; kernels "
+                  f"{res['kernels']}; traced in {res['trace_s']} s",
+                  flush=True)
+        return rec
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for *_, log in cells:
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> None:
@@ -4357,6 +4699,14 @@ def main() -> None:
           f"path, summed over the {SHARDS} ranks: {launches_lm_sharded}",
           flush=True)
     print(json.dumps({"lm_sharded": lm_sharded}))
+
+    # -- 3k. the dry run on fake ranks, held to 3j; the ten examples ---------
+    t_phase = time.perf_counter()
+    dry = dryrun_phase(torch, lm_sharded)
+    dry.update(phase_s=time.perf_counter() - t_phase, card=card)
+    print(f"dry run and examples passed ({dry['phase_s']:.1f} s, {card})",
+          flush=True)
+    print(json.dumps({"dryrun": dry}))
 
     # -- 4. the kernels line ----------------------------------------------------
     print(f"bounds over {e_real} real edges, {h_rows} distinct source rows, "

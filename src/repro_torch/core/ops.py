@@ -34,6 +34,7 @@ import torch
 from repro_torch.core.config_space import KernelConfig
 from repro_torch.core.plan import SourceOrder, source_order
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels._build import is_fake
 
 __all__ = [
     "segment_reduce",
@@ -98,10 +99,16 @@ def _order(plan, gather_idx, seg_idx, num_segments: int,
 
 def _num_real(order: SourceOrder, plan, seg_idx, num_segments: int) -> int:
     """Edges whose segment is kept: a prefix of the sorted index. Known on
-    the host for a graph plan; else one read of the row offsets."""
+    the host for a graph plan; else one read of the row offsets. A fake
+    trace (shapes, no data: the dry run) reads none and counts every edge
+    as kept, the most there can be (and exact where no segment id is
+    dropped, as in the MoE combine)."""
     if order.num_real is not None:
         return order.num_real
-    return int(kops._row_ptr(plan, seg_idx, num_segments)[-1])
+    row_ptr = kops._row_ptr(plan, seg_idx, num_segments)
+    if is_fake(row_ptr):
+        return int(seg_idx.shape[0])
+    return int(row_ptr[-1])
 
 
 def _max_edge_grad(msg, y, y_bar, seg_idx, num_segments: int, impl, plan):

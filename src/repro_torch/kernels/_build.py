@@ -208,6 +208,13 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+def is_fake(t) -> bool:
+    """Whether ``t`` is a fake tensor (shapes without data, as a dry run
+    traces): no data to read, and no kernel to launch."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

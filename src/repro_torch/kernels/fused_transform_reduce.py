@@ -20,7 +20,10 @@ is cast to the io dtype before the product, as the reference does.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.core.config_space import (DEFAULT_S_B, SMEM_BYTES, TILE_SIZES,
                                            KernelConfig, io_dtype_bytes)
@@ -162,8 +165,8 @@ def fused_transform_reduce_cuda(h, w, gather_idx, seg_idx, num_segments: int,
     ``row_ptr`` is the plan's int64 row offsets of ``seg_idx`` on h's
     device; the kernel reads them and the gather indices, not ``seg_idx``
     itself. ``tile`` is the config's S_b, one of the built
-    :data:`~repro_torch.core.config_space.TILE_SIZES`."""
-    global launches
+    :data:`~repro_torch.core.config_space.TILE_SIZES`. The launch is the
+    ``repro_torch::fused_transform_reduce`` op."""
     if reduce not in ("sum", "mean"):
         raise ValueError(f"fused transform-reduce is linear-only: reduce "
                          f"must be sum or mean, got {reduce!r}")
@@ -189,6 +192,19 @@ def fused_transform_reduce_cuda(h, w, gather_idx, seg_idx, num_segments: int,
             f"{smem_bytes(d_in, d_out, h.dtype, tile)} B of shared memory, over "
             f"the {SMEM_BYTES} B of a Hopper block; use the two-launch "
             f"mp_transform path")
+    return torch.ops.repro_torch.fused_transform_reduce(
+        h, w, gather_idx, num_segments, weight, reduce, row_ptr, tile)
+
+
+@torch.library.custom_op("repro_torch::fused_transform_reduce",
+                         mutates_args=(), device_types="cuda")
+def _launch(h: torch.Tensor, w: torch.Tensor, gather_idx: torch.Tensor,
+            num_segments: int, weight: Optional[torch.Tensor], reduce: str,
+            row_ptr: torch.Tensor, tile: int) -> torch.Tensor:
+    """The launch, for inputs :func:`fused_transform_reduce_cuda` checked
+    (the kernel reads the row offsets, not the segment index)."""
+    global launches
+    d_in, d_out = int(h.shape[1]), int(w.shape[1])
     out = torch.empty((num_segments, d_out), dtype=h.dtype, device=h.device)
     if num_segments == 0 or d_out == 0:
         return out
@@ -203,3 +219,16 @@ def fused_transform_reduce_cuda(h, w, gather_idx, seg_idx, num_segments: int,
     _build.check(err, "fused_transform_reduce")
     launches += 1
     return out
+
+
+@_launch.register_fake
+def _(h, w, gather_idx, num_segments, weight, reduce, row_ptr, tile):
+    return h.new_empty((num_segments, w.shape[1]))
+
+
+@register_flop_formula(torch.ops.repro_torch.fused_transform_reduce)
+def _flops(h_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
+    """2·S·K·N: the (S, K) aggregate times W, as the flop counter counts
+    ``torch.matmul`` (the gather-reduce's adds are not counted, as an
+    ``index_add_``'s are not)."""
+    return 2 * out_shape[0] * w_shape[0] * w_shape[1]

@@ -23,6 +23,8 @@ The weight rides the io dtype of ``h``; the multiply is done in fp32.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core.config_space import DEFAULT_M_B, RUN_LENGTHS
@@ -185,8 +187,9 @@ def gather_segment_reduce_cuda(h, gather_idx, seg_idx, num_segments: int,
     kernels, the runs and the fix-up pass, counted as one launch.
     ``row_ptr`` is :func:`row_offsets` of ``seg_idx`` on h's device (the
     plan's); ``run_rows`` is the config's M_b, one of the built
-    :data:`~repro_torch.core.config_space.RUN_LENGTHS`."""
-    global launches
+    :data:`~repro_torch.core.config_space.RUN_LENGTHS`. The checks read
+    only shapes and dtypes; the launch is the ``repro_torch::
+    gather_segment_reduce`` op, whose fake gives the output's shape."""
     if reduce not in REDUCES:
         raise ValueError(f"unknown reduce: {reduce!r}")
     check_run_rows("gather_segment_reduce", run_rows)
@@ -197,7 +200,19 @@ def gather_segment_reduce_cuda(h, gather_idx, seg_idx, num_segments: int,
     if gather_idx.shape[0] != num_rows:
         raise ValueError("gather_idx and seg_idx must have the same length")
     check_row_ptr("gather_segment_reduce", row_ptr, num_segments, h.device)
-    feat = int(h.shape[1])
+    return torch.ops.repro_torch.gather_segment_reduce(
+        h, gather_idx, seg_idx, num_segments, weight, reduce, row_ptr,
+        run_rows)
+
+
+@torch.library.custom_op("repro_torch::gather_segment_reduce",
+                         mutates_args=(), device_types="cuda")
+def _launch(h: torch.Tensor, gather_idx: torch.Tensor, seg_idx: torch.Tensor,
+            num_segments: int, weight: Optional[torch.Tensor], reduce: str,
+            row_ptr: torch.Tensor, run_rows: int) -> torch.Tensor:
+    """The launch, for inputs :func:`gather_segment_reduce_cuda` checked."""
+    global launches
+    num_rows, feat = int(seg_idx.shape[0]), int(h.shape[1])
     out = torch.empty((num_segments, feat), dtype=h.dtype, device=h.device)
     if num_segments == 0 or feat == 0:
         return out
@@ -214,3 +229,9 @@ def gather_segment_reduce_cuda(h, gather_idx, seg_idx, num_segments: int,
     _build.check(err, "gather_segment_reduce")
     launches += 1
     return out
+
+
+@_launch.register_fake
+def _(h, gather_idx, seg_idx, num_segments, weight, reduce, row_ptr,
+      run_rows):
+    return h.new_empty((num_segments, h.shape[1]))

@@ -13,6 +13,18 @@ Backend (``impl``):
 
 There is no fallback: a CUDA tensor reaches the kernel or the call raises.
 
+Each kernel's launch is a ``torch.library`` custom op (namespace
+``repro_torch``: ``gather_segment_reduce``, ``segment_reduce``,
+``segment_softmax``, ``fused_transform_reduce``, ``segment_matmul``,
+``sddmm``), registered for CUDA tensors, with a fake that gives the
+output's shape and dtype: a trace under ``FakeTensorMode`` (the dry run,
+:mod:`repro_torch.launch.dryrun`) passes through the kernels without
+building or launching one. segment_matmul and the fused kernel register
+their FLOPs with ``torch.utils.flop_counter`` (2·M·K·N, 2·S·K·N). The
+checks before a launch read shapes and dtypes only, except sddmm's index
+check (:func:`sddmm`), which reads the indices on the host and is skipped
+on fake tensors; backward passes use :func:`sddmm_rows`, which has none.
+
 Config: every kernel reads its axis from ``plan`` > explicit ``config=``
 > :func:`~repro_torch.core.config_space.default_config`. The gather and
 segment_reduce run in runs of the config's M_b rows, the fused kernel in

@@ -30,8 +30,9 @@ def sddmm_ref(a, b, row_idx, col_idx):
 
 
 def check_indices(row_idx, col_idx, rows_a: int, rows_b: int) -> None:
-    """Raise unless every index lies in its operand's rows (one host sync)."""
-    if row_idx.numel() == 0:
+    """Raise unless every index lies in its operand's rows (one host sync).
+    Fake tensors (a trace for shapes) hold no indices to check."""
+    if row_idx.numel() == 0 or _build.is_fake(row_idx):
         return
     lo_r, hi_r, lo_c, hi_c = torch.stack(
         [row_idx.min(), row_idx.max(), col_idx.min(), col_idx.max()]).tolist()
@@ -71,7 +72,14 @@ def sddmm_cuda(a, b, row_idx, col_idx, validate: bool = True):
 def sddmm_launch(a, b, row_idx, col_idx):
     """The launch alone, for inputs :func:`sddmm_cuda` has checked (it
     reads the indices unchecked; timing uses it to keep the check's host
-    sync out of the kernel's time)."""
+    sync out of the kernel's time): the ``repro_torch::sddmm`` op."""
+    return torch.ops.repro_torch.sddmm(a, b, row_idx, col_idx)
+
+
+@torch.library.custom_op("repro_torch::sddmm", mutates_args=(),
+                         device_types="cuda")
+def _launch(a: torch.Tensor, b: torch.Tensor, row_idx: torch.Tensor,
+            col_idx: torch.Tensor) -> torch.Tensor:
     global launches
     m, n = int(row_idx.shape[0]), int(a.shape[1])
     if m == 0 or n == 0:
@@ -86,3 +94,8 @@ def sddmm_launch(a, b, row_idx, col_idx):
     _build.check(err, "sddmm")
     launches += 1
     return out
+
+
+@_launch.register_fake
+def _(a, b, row_idx, col_idx):
+    return a.new_empty((row_idx.shape[0],))

@@ -19,6 +19,7 @@ messages in (type, dst) order); ``group_sizes`` (G,) counts them; ``W`` is
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.gather_segment_reduce import DTYPE_CODE
@@ -75,8 +76,8 @@ def segment_matmul_ref(x, group_sizes, w):
 def segment_matmul_cuda(x, w, offsets, first_group, group_count, m_b: int):
     """Launch the Hopper kernel on the current stream (asynchronous).
     ``offsets`` / ``first_group`` / ``group_count`` are
-    :func:`group_metadata` for ``x``'s rows and ``m_b``, on x's device."""
-    global launches
+    :func:`group_metadata` for ``x``'s rows and ``m_b``, on x's device.
+    The launch is the ``repro_torch::segment_matmul`` op."""
     if not x.is_cuda:
         raise ValueError(f"segment_matmul: impl='cuda' needs CUDA tensors, "
                          f"got x on {x.device}")
@@ -99,6 +100,19 @@ def segment_matmul_cuda(x, w, offsets, first_group, group_count, m_b: int):
                 or t.shape != (n,) or not t.is_contiguous()):
             raise ValueError(f"segment_matmul: {label} must be a contiguous "
                              f"({n},) int32 tensor on {x.device}")
+    return torch.ops.repro_torch.segment_matmul(x, w, offsets, first_group,
+                                                group_count, m_b)
+
+
+@torch.library.custom_op("repro_torch::segment_matmul", mutates_args=(),
+                         device_types="cuda")
+def _launch(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
+            first_group: torch.Tensor, group_count: torch.Tensor,
+            m_b: int) -> torch.Tensor:
+    """The launch, for inputs :func:`segment_matmul_cuda` checked."""
+    global launches
+    num_rows, k_dim = (int(d) for d in x.shape)
+    num_groups, n_dim = int(w.shape[0]), int(w.shape[2])
     if num_rows == 0 or k_dim == 0 or n_dim == 0 or num_groups == 0:
         return torch.zeros((num_rows, n_dim), dtype=x.dtype, device=x.device)
     out = torch.empty((num_rows, n_dim), dtype=x.dtype, device=x.device)
@@ -112,3 +126,15 @@ def segment_matmul_cuda(x, w, offsets, first_group, group_count, m_b: int):
     _build.check(err, "segment_matmul")
     launches += 1
     return out
+
+
+@_launch.register_fake
+def _(x, w, offsets, first_group, group_count, m_b):
+    return x.new_empty((x.shape[0], w.shape[2]))
+
+
+@register_flop_formula(torch.ops.repro_torch.segment_matmul)
+def _flops(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
+    """2·M·K·N: every row of X times its group's (K, N) weight, as the flop
+    counter counts ``torch.matmul``."""
+    return 2 * x_shape[0] * x_shape[1] * w_shape[2]

@@ -54,8 +54,8 @@ def segment_reduce_cuda(x, idx, num_segments: int, reduce: str, row_ptr,
     """Launch the Hopper kernel on the current stream (asynchronous): two
     kernels, the runs and the fix-up pass, counted as one launch.
     ``row_ptr`` is the segments' int64 row offsets on x's device (the
-    plan's); ``run_rows`` is the config's M_b, a built run length."""
-    global launches
+    plan's); ``run_rows`` is the config's M_b, a built run length. The
+    launch is the ``repro_torch::segment_reduce`` op."""
     if reduce not in REDUCES:
         raise ValueError(f"unknown reduce: {reduce!r}")
     check_run_rows("segment_reduce", run_rows)
@@ -73,6 +73,18 @@ def segment_reduce_cuda(x, idx, num_segments: int, reduce: str, row_ptr,
         raise ValueError(f"segment_reduce: idx must be a contiguous "
                          f"({num_rows},) int32 tensor on {x.device}")
     check_row_ptr("segment_reduce", row_ptr, num_segments, x.device)
+    return torch.ops.repro_torch.segment_reduce(x, idx, num_segments, reduce,
+                                                row_ptr, run_rows)
+
+
+@torch.library.custom_op("repro_torch::segment_reduce", mutates_args=(),
+                         device_types="cuda")
+def _launch(x: torch.Tensor, idx: torch.Tensor, num_segments: int,
+            reduce: str, row_ptr: torch.Tensor,
+            run_rows: int) -> torch.Tensor:
+    """The launch, for inputs :func:`segment_reduce_cuda` checked."""
+    global launches
+    num_rows, feat = (int(d) for d in x.shape)
     out = torch.empty((num_segments, feat), dtype=x.dtype, device=x.device)
     if num_segments == 0 or feat == 0:
         return out
@@ -88,3 +100,8 @@ def segment_reduce_cuda(x, idx, num_segments: int, reduce: str, row_ptr,
     _build.check(err, "segment_reduce")
     launches += 1
     return out
+
+
+@_launch.register_fake
+def _(x, idx, num_segments, reduce, row_ptr, run_rows):
+    return x.new_empty((num_segments, x.shape[1]))

@@ -126,8 +126,8 @@ def segment_softmax_cuda(x, idx, num_segments: int, row_ptr):
     """Launch the Hopper kernel on the current stream (asynchronous): three
     kernels (the runs, the fold of the cut segments, their rows), counted
     as one launch. ``row_ptr`` is the segments' int64 row offsets on x's
-    device (the plan's)."""
-    global launches
+    device (the plan's). The launch is the ``repro_torch::segment_softmax``
+    op."""
     if not x.is_cuda:
         raise ValueError(f"segment_softmax: impl='cuda' needs CUDA tensors, "
                          f"got x on {x.device}")
@@ -143,6 +143,17 @@ def segment_softmax_cuda(x, idx, num_segments: int, row_ptr):
         raise ValueError(f"segment_softmax: idx must be a contiguous "
                          f"({num_rows},) int32 tensor on {x.device}")
     check_row_ptr("segment_softmax", row_ptr, num_segments, x.device)
+    return torch.ops.repro_torch.segment_softmax(x, idx, num_segments,
+                                                 row_ptr)
+
+
+@torch.library.custom_op("repro_torch::segment_softmax", mutates_args=(),
+                         device_types="cuda")
+def _launch(x: torch.Tensor, idx: torch.Tensor, num_segments: int,
+            row_ptr: torch.Tensor) -> torch.Tensor:
+    """The launch, for inputs :func:`segment_softmax_cuda` checked."""
+    global launches
+    num_rows = int(x.shape[0])
     heads = 1 if x.dim() == 1 else int(x.shape[1])
     # every element is written by the kernel, dropped rows as 0
     out = torch.empty_like(x)
@@ -160,3 +171,8 @@ def segment_softmax_cuda(x, idx, num_segments: int, row_ptr):
     _build.check(err, "segment_softmax")
     launches += 1
     return out
+
+
+@_launch.register_fake
+def _(x, idx, num_segments, row_ptr):
+    return torch.empty_like(x)

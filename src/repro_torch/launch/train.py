@@ -87,8 +87,9 @@ def main(argv=None):
     ap.add_argument("--mesh", choices=["none", "host"], default="none",
                     help="host: a 2x2 (data, model) mesh over 4 ranks "
                     "started by torchrun")
-    ap.add_argument("--moe-impl", choices=["capacity", "ragged"],
-                    default="capacity")
+    ap.add_argument("--moe-impl", choices=["capacity", "ragged", "cuda"],
+                    default="capacity",
+                    help="cuda: the dropless path on the kernels (the card)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="default: the card; 'cpu' runs the plain versions")

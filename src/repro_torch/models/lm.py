@@ -317,6 +317,11 @@ class LM(Params):
                                 positions=positions, causal=True, enc_kv=kv,
                                 moe_impl=moe_impl)
             aux_total = aux_total + aux
+        # pinned before the head as the reference's scan carry is: a last
+        # block's pending partial sum over "model" would otherwise meet the
+        # FSDP head weight and DTensor would gather the whole batch's logits
+        # on every rank
+        x = ashard(x, "batch", "seq", None)
         return ashard(self.head(x), "batch", "seq", "act_vocab"), aux_total
 
 

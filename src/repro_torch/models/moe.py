@@ -328,12 +328,19 @@ def moe_shard_map(prm, x, cfg: ModelConfig):
         body, opl, (dpl, dpl, dpl, wpl, wpl, wpl), mesh,
         in_grad_pls=(xgpl, dpl, xgpl, wgpl, wgpl, wgpl))(
             x2d, top_e, top_p, prm.w_up, prm.w_gate, prm.w_down)
+    if b % dsize == 0:
+        # the parts summed at (B, S, D): a gradient that comes back sharded
+        # on the sequence is then gathered, where at (T, D) it would be a
+        # strided shard of the tokens, whose conversion reads index tensors
+        # on the host (no fake trace can)
+        out = part.reshape(b, s, d).redistribute(mesh, dpl)
+        if cfg.num_shared_experts:
+            out = out + layers.mlp(prm.shared, x, cfg)
+        return out, aux
     out2d = part.redistribute(mesh, dpl)
     if cfg.num_shared_experts:
         out2d = out2d + layers.mlp(prm.shared, x2d, cfg)
-    if b % dsize != 0:
-        out2d = out2d.redistribute(mesh, rep)
-    return out2d.reshape(b, s, d), aux
+    return out2d.redistribute(mesh, rep).reshape(b, s, d), aux
 
 
 def moe(prm, x, cfg: ModelConfig, impl: str = "capacity"):

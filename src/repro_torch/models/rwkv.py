@@ -59,6 +59,26 @@ def _decay(prm, xw):
     return torch.exp(-torch.exp(prm.w0 + lora))              # (…, D) ∈ (0,1)
 
 
+def _whole_heads(t, h: int):
+    """A DTensor whose last dim (H·Dk) is sharded over mesh dims that do not
+    divide its H heads, gathered on that dim (a reshape to heads cannot
+    split a head; the state keeps such heads whole too,
+    ``decode_state_specs``); anything else as it is."""
+    from repro_torch.distributed import sharding as shd
+    if not shd.is_dtensor(t):
+        return t
+    last = t.dim() - 1
+    parts = 1
+    for n, p in zip(t.device_mesh.mesh.shape, t.placements):
+        if p.is_shard(last):
+            parts *= int(n)
+    if h % parts == 0:
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_shard(last)
+                                          else p for p in t.placements])
+
+
 def _wkv_step(state, r, k, v, w, u, h, dk):
     """One recurrence step on the (B, H, Dk, Dv) state."""
     b = r.shape[0]
@@ -80,11 +100,12 @@ def rwkv_time_mix(prm, x, cfg: ModelConfig, state: RWKVState):
     v = _lerp(x, x_prev, prm.mu_v) @ prm.wv
     g = F.silu(_lerp(x, x_prev, prm.mu_g) @ prm.wg)
     w = _decay(prm, _lerp(x, x_prev, prm.mu_w))              # (B,S,D) fp32
+    r, k, v, w, u = (_whole_heads(t, h) for t in (r, k, v, w, prm.u))
     wkv = state.wkv
     ys = []
     for t in range(s):
         wkv, y_t = _wkv_step(wkv, r[:, t].float(), k[:, t].float(),
-                             v[:, t].float(), w[:, t], prm.u, h, dk)
+                             v[:, t].float(), w[:, t], u, h, dk)
         ys.append(y_t)
     y = torch.stack(ys, 1)                                   # (B,S,D)
     # per-head RMS (the GroupNorm stand-in), then gate + output proj
