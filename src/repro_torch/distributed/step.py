@@ -74,7 +74,7 @@ def shard_state(params: dict, opt_state: adamw.AdamWState, psh: dict, osh,
     (:func:`~repro_torch.distributed.sharding.place_tensor`: a leaf
     already a DTensor is redistributed; every rank must hold the whole
     tensors of a plain state). An int8 moment keeps its payload and scale
-    (quantized against the whole tensor)."""
+    (quantized against the whole tensor or period slot)."""
     def moments(tree, shardings):
         out = {}
         for k, m in tree.items():
@@ -115,7 +115,11 @@ def build_train_step(cfg: ModelConfig, mesh, plan: shd.ParallelPlan,
     tensors and floats every rank holds.
 
     ``shardings_for(params, opt_state, batch_shapes)`` gives ``(param
-    placements, moment placements, {field: placements}, replicated)``."""
+    placements, moment placements, {field: placements}, replicated)``.
+
+    int8 moments are scaled a period slot at a time
+    (:func:`repro_torch.models.lm.moment_groups`), as the reference's
+    stacked ones; under a mesh the slot's max is over every shard."""
 
     def train_step(params, opt_state, batch, step):
         with shd.activation_sharding(mesh, plan):
@@ -132,8 +136,9 @@ def build_train_step(cfg: ModelConfig, mesh, plan: shd.ParallelPlan,
                      for k, g in zip(names, grads)}
             lr_scale = schedule.warmup_cosine(step, ts.warmup_steps,
                                               ts.total_steps)
-            new_p, new_o, om = adamw.update_(grads, opt_state, params,
-                                             ts.opt, lr_scale=lr_scale)
+            new_p, new_o, om = adamw.update_(
+                grads, opt_state, params, ts.opt, lr_scale=lr_scale,
+                groups=lm.moment_groups(cfg, names))
             metrics = dict(metrics, loss=loss, **om)
             metrics = {k: _whole(v).detach() if torch.is_tensor(v) else v
                        for k, v in metrics.items()}

@@ -49,9 +49,8 @@ Differences from the reference, by design:
     default traces CUDA-typed fake tensors on a ``"cuda"`` mesh and
     raises without a card, as every entry point of the port does.
   * The AdamW step counter and the decode length are host ints in the
-    port, where the reference keeps a 4-byte device scalar of each; the
-    port's int8 moments carry one fp32 scale a layer, the reference's one
-    a period slot of stacked layers (:func:`state_bytes`).
+    port, where the reference keeps a 4-byte device scalar of each
+    (:func:`state_bytes`).
 
 The plan is the reference's (``dryrun.py:167-200``): a decode cell whose
 global batch does not divide 16 shards its sequence on "data"; serving
@@ -154,10 +153,11 @@ def state_bytes(arch: str, shape: str, mesh, cfg=None, plan=None) -> dict:
     reference mesh's ``axis_names`` and ``devices.shape``.
 
     The port's state differs from the reference's in layout only: its
-    layers are unstacked (the same bytes, as every sharded dim divides),
-    its AdamW step and decode length are host ints (the reference adds a
-    4-byte device scalar of each), and its int8 moments hold one fp32
-    scale a layer (the reference's, one a stacked period slot)."""
+    layers are unstacked (the same bytes, as every sharded dim divides;
+    the int8 moments of a period slot's layers are scaled as one, as the
+    reference's stacked moment is, and its one fp32 scale is counted
+    once), and its AdamW step and decode length are host ints (the
+    reference adds a 4-byte device scalar of each)."""
     import torch
 
     from repro_torch.distributed import sharding as shd
@@ -179,7 +179,9 @@ def state_bytes(arch: str, shape: str, mesh, cfg=None, plan=None) -> dict:
         moment = sum(p.numel() * _STATE_BYTES[sd]
                      // _spec_parts(specs[k], sizes)
                      for k, p in params.items())
-        scales = 4 * len(params) if sd == "int8" else 0
+        groups = lm.moment_groups(cfg, params)
+        scales = 4 * (len(params) - sum(len(g) - 1 for g in groups)) \
+            if sd == "int8" else 0
         out["opt_bytes_per_device"] = 2 * (moment + scales)
     elif cell.kind == "decode":
         st_specs = steplib.decode_state_specs(cfg, mesh, plan,
@@ -319,7 +321,11 @@ def trace_step(kind: str, cfg, mesh, plan, specs: dict, device, *,
             params, opt = steplib.shard_state(params, opt, psh, osh, mesh)
             data = _place_batch(specs, mesh, plan, device)
             local["param"] = _local_bytes(params)
-            local["opt"] = _local_bytes((opt.mu, opt.nu))
+            # an int8 period slot's layers each hold the slot's scale,
+            # which the reference's stacked moment holds once: counted once
+            dup = sum(len(g) - 1 for g in lm.moment_groups(cfg, params)) \
+                if ts.opt.state_dtype == "int8" else 0
+            local["opt"] = _local_bytes((opt.mu, opt.nu)) - 2 * 4 * dup
             tally.resident(params, "params")
             tally.resident((opt.mu, opt.nu), "optimizer")
             tally.resident(data, "activations")

@@ -123,6 +123,7 @@ class StepTally(TorchDispatchMode):
         self._by_cat = dict.fromkeys(CATEGORIES, 0)
         self.peak = 0
         self.peak_by_cat = dict(self._by_cat)
+        self.largest = 0               # the largest one storage held
         self._fake = None
 
     # -- the mode -------------------------------------------------------
@@ -202,6 +203,7 @@ class StepTally(TorchDispatchMode):
                 rec[1] = category
             return
         nbytes = st.nbytes()
+        self.largest = max(self.largest, nbytes)
         self._live[key] = [nbytes, category]
         self._by_cat[category] += nbytes
         weakref.finalize(st, self._free, key)
@@ -238,6 +240,8 @@ class StepTally(TorchDispatchMode):
                 "total_bytes": sum(self.coll_bytes.values())}
 
     def memory(self) -> dict:
-        """The peak bytes of the rank and what was live at the peak."""
+        """The peak bytes of the rank, what was live at the peak, and the
+        largest one storage it held."""
         return {"peak_bytes": self.peak,
-                "at_peak": dict(self.peak_by_cat)}
+                "at_peak": dict(self.peak_by_cat),
+                "largest_bytes": self.largest}

@@ -39,7 +39,8 @@ from torch import nn
 from torch.utils import checkpoint as ckpt_lib
 
 from repro_torch.core.device import resolve_device
-from repro_torch.distributed.sharding import ashard
+from repro_torch.distributed.sharding import (ashard, is_dtensor,
+                                              place_tensor)
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
@@ -78,6 +79,26 @@ def stack_plan(cfg: ModelConfig, num_layers: Optional[int] = None):
                 body[i] == body[i % p] for i in range(len(body))):
             return kinds[:lead], body[:p], len(body) // p
     return kinds, [], 0  # unreachable
+
+
+def moment_groups(cfg: ModelConfig, names) -> tuple:
+    """The parameters the reference stacks into one tensor: for each
+    period slot and each of its parameters, that parameter's names in
+    every period (``layers.{lead + p·width + s}.<path>``, in period
+    order), one tuple a stacked tensor; ``names`` the LM's parameter
+    names (lead layers and the rest are in no group). The reference scales
+    an int8 moment over its stacked tensor, so these share one scale
+    (:func:`repro_torch.optim.adamw.update_`)."""
+    lead, period, _ = stack_plan(cfg)
+    groups: dict = {}
+    for name in names:
+        parts = name.split(".")
+        if parts[0] != "layers" or int(parts[1]) < len(lead):
+            continue
+        j = int(parts[1]) - len(lead)
+        key = (j % len(period), ".".join(parts[2:]))
+        groups.setdefault(key, []).append((j // len(period), name))
+    return tuple(tuple(n for _, n in sorted(v)) for v in groups.values())
 
 
 # ---------------------------------------------------------------------------
@@ -352,13 +373,62 @@ def loss_fn(model_or_params, cfg: ModelConfig, batch,
     # sharded: whole vocabulary rows a rank for the normaliser and the
     # gold logit's gather (the identity outside a sharding context)
     logits = ashard(logits, "batch", "seq", None)
-    labels = batch["labels"].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
-    mask = batch.get("mask")
-    mask = torch.ones_like(logz) if mask is None else mask.float()
-    ce = torch.sum((logz - gold) * mask) / torch.clamp_min(mask.sum(), 1.0)
+    args = (logits, batch["labels"].long())
+    if batch.get("mask") is not None:
+        args += (batch["mask"],)
+    if is_dtensor(logits):
+        total, count = _ce_sums_sharded(*args)
+    else:
+        total, count = _ce_sums(*args)
+    ce = total / torch.clamp_min(count, 1.0)
     return ce + aux_weight * aux, {"ce": ce, "moe_aux": aux}
+
+
+class _MaskedCrossEntropySum(torch.autograd.Function):
+    """``sum((logsumexp(logits) - logits[label]) · mask)`` over the
+    positions. Its backward writes ``softmax · g·mask`` and takes
+    ``g·mask`` off at the gold logits in place: one tensor of the logits'
+    size, where autograd's would make three (the exponentials, the gold
+    gather's scatter and their sum). The same values as autograd's, to
+    the bit: the same products, and x + 0 = x."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, mask):
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, labels[..., None],
+                                    dim=-1)[..., 0]
+        ctx.save_for_backward(logits, logz, labels, mask)
+        return torch.sum((logz - gold) * mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, logz, labels, mask = ctx.saved_tensors
+        gm = (g * mask)[..., None]
+        grad = (logits - logz[..., None]).exp_().mul_(gm)
+        grad.scatter_add_(-1, labels[..., None], -gm)
+        return grad, None, None
+
+
+def _ce_sums(logits, labels, mask=None):
+    """The masked sum of ``logz - gold`` over the positions, and the
+    mask's sum."""
+    mask = torch.ones(labels.shape, dtype=torch.float32,
+                      device=logits.device) if mask is None else mask.float()
+    return _MaskedCrossEntropySum.apply(logits, labels, mask), mask.sum()
+
+
+def _ce_sums_sharded(logits, *rest):
+    """:func:`_ce_sums` on each rank's own rows of the DTensor logits (the
+    batch on the data axes, the vocabulary whole): the gold logit's gather
+    and its backward stay local to the shard, and only the two scalar sums
+    cross ranks (partial over the dims the rows are sharded on)."""
+    from torch.distributed.tensor import Partial
+    mesh, pl = logits.device_mesh, list(logits.placements)
+    rest = tuple(r if is_dtensor(r) else place_tensor(r, mesh, pl)
+                 for r in rest)
+    sums = [Partial() if p.is_shard() else p for p in pl]
+    return layers._local_map(_ce_sums, (sums, sums), (pl,) * (1 + len(rest)),
+                             mesh)(logits, *rest)
 
 
 # ---------------------------------------------------------------------------

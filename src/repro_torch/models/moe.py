@@ -26,8 +26,11 @@ Under a sharding context (:mod:`repro_torch.distributed.sharding`)
 ``"capacity"`` takes :func:`moe_shard_map`, the reference's expert-parallel
 MoE: each rank dispatches its data shard's tokens to its own experts and
 combines them on the gather kernel, and one all-reduce over "model" sums
-the experts' parts. ``"ragged"`` and ``"cuda"`` under a mesh raise
-(ROADMAP Queue A, "LM sharding").
+the experts' parts. ``"ragged"`` and ``"cuda"`` take
+:func:`moe_ragged_shard_map`, its dropless counterpart: each rank runs its
+own experts' assignments through segment_matmul. Both run the global layer
+whole on every rank where the experts or the tokens do not divide the
+mesh.
 """
 from __future__ import annotations
 
@@ -242,9 +245,10 @@ def _route_local(x_loc, router, *, cfg: ModelConfig):
             probs.sum(0))
 
 
-def _replicated_moe(prm, x, cfg: ModelConfig, mesh):
-    """:func:`moe_capacity` whole on every rank (x and every weight
-    replicated, so each rank computes the same output and gradients)."""
+def _replicated_moe(prm, x, cfg: ModelConfig, mesh, fn):
+    """``fn(prm, x, cfg)`` (:func:`moe_capacity` or :func:`moe_ragged`)
+    whole on every rank (x and every weight replicated, so each rank
+    computes the same output and gradients)."""
     import types
     from torch.distributed.tensor import Replicate
     rep = [Replicate()] * mesh.ndim
@@ -263,24 +267,22 @@ def _replicated_moe(prm, x, cfg: ModelConfig, mesh):
             return types.SimpleNamespace(**{
                 k: ns(v) if isinstance(v, dict) else v
                 for k, v in node.items()})
-        return moe_capacity(ns(tree), x_l, cfg)
+        return fn(ns(tree), x_l, cfg)
 
     return layers._local_map(body, (rep, rep), (rep,) * (1 + len(names)),
                              mesh)(x, *(p for _, p in prm.named_parameters()))
 
 
-def moe_shard_map(prm, x, cfg: ModelConfig):
-    """Expert-parallel MoE (the reference's ``moe_shard_map``), on the
-    DTensors of a sharding context. The input is replicated over the model
-    dim (it feeds TP attention), so dispatch is local: each rank routes
-    its data shard's T_loc tokens, keeps the assignments that target its
-    E/|model| experts (at most ``cap`` = T_loc·k·capacity_factor/E,
-    rounded up to 8, each: capacity from the *local* token count), runs
-    them with the experts' hidden dim all-gathered (FSDP), combines on the
-    gather kernel, and one all-reduce over "model", in x's dtype, sums the
-    parts. Where E or the tokens do not divide the mesh it runs the global
-    :func:`moe_capacity` on every rank, replicated (the reference's
-    fallback)."""
+def _expert_parallel(prm, x, cfg: ModelConfig, make_body, whole):
+    """The expert-parallel frame of :func:`moe_shard_map` and
+    :func:`moe_ragged_shard_map` on the DTensors of a sharding context.
+    Routing runs on each data shard (the aux loss from the global counts
+    and probability sums); ``make_body(e_m, m_rank, t_loc)`` gives the
+    rank's part: ``(x_loc, top_e, top_p, w_up, w_gate, w_down) -> (T_loc,
+    D)``, the weights this rank's ``e_m`` experts with the hidden dim
+    gathered; one all-reduce over "model", in x's dtype, sums the parts.
+    Where E does not divide "model", or the tokens the data axes, it runs
+    ``whole`` on every rank, replicated (the reference's fallback)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     mesh, plan = shd.current_context()
     sizes = shd.mesh_sizes(mesh)
@@ -293,12 +295,7 @@ def moe_shard_map(prm, x, cfg: ModelConfig):
     t = b * s
     rep = [Replicate()] * mesh.ndim
     if e % msize != 0 or (b % dsize != 0 and t % dsize != 0):
-        return _replicated_moe(prm, x, cfg, mesh)   # unshardable: global
-    t_loc = t // dsize
-    k = cfg.top_k
-    cap = max(1, int(t_loc * k * cfg.capacity_factor / e))
-    cap = -(-cap // 8) * 8
-
+        return _replicated_moe(prm, x, cfg, mesh, whole)   # unshardable
     x2d = x.reshape(t, d)
     dpl = list(rep)                       # (T, ·): tokens on the data axes
     for a in plan.batch_axes:
@@ -322,8 +319,7 @@ def moe_shard_map(prm, x, cfg: ModelConfig):
     xgpl = list(dpl)
     xgpl[names.index(m_ax)] = Partial()
     opl = list(xgpl)                      # the parts, summed over "model"
-    body = functools.partial(_dispatch_local, cfg=cfg, e_m=e // msize,
-                             cap=cap, m_rank=mesh.get_local_rank(m_ax))
+    body = make_body(e // msize, mesh.get_local_rank(m_ax), t // dsize)
     part = layers._local_map(
         body, opl, (dpl, dpl, dpl, wpl, wpl, wpl), mesh,
         in_grad_pls=(xgpl, dpl, xgpl, wgpl, wgpl, wgpl))(
@@ -343,17 +339,101 @@ def moe_shard_map(prm, x, cfg: ModelConfig):
     return out2d.redistribute(mesh, rep).reshape(b, s, d), aux
 
 
+def moe_shard_map(prm, x, cfg: ModelConfig):
+    """Expert-parallel MoE (the reference's ``moe_shard_map``), on the
+    DTensors of a sharding context. The input is replicated over the model
+    dim (it feeds TP attention), so dispatch is local: each rank routes
+    its data shard's T_loc tokens, keeps the assignments that target its
+    E/|model| experts (at most ``cap`` = T_loc·k·capacity_factor/E,
+    rounded up to 8, each: capacity from the *local* token count), runs
+    them with the experts' hidden dim all-gathered (FSDP), combines on the
+    gather kernel, and one all-reduce over "model", in x's dtype, sums the
+    parts. Where E or the tokens do not divide the mesh it runs the global
+    :func:`moe_capacity` on every rank, replicated (the reference's
+    fallback)."""
+    def make_body(e_m, m_rank, t_loc):
+        cap = max(1, int(t_loc * cfg.top_k * cfg.capacity_factor
+                         / cfg.num_experts))
+        return functools.partial(_dispatch_local, cfg=cfg, e_m=e_m,
+                                 cap=-(-cap // 8) * 8, m_rank=m_rank)
+    return _expert_parallel(prm, x, cfg, make_body, moe_capacity)
+
+
+def _own_first(e_flat, e_m: int, m_rank: int):
+    """(mine, order, group_sizes): which assignments target the ``e_m``
+    experts of model rank ``m_rank``, the stable order that puts them
+    first in expert order (the rest after them, in their own order), and
+    those experts' (e_m,) group sizes."""
+    local = e_flat - m_rank * e_m
+    mine = (local >= 0) & (local < e_m)
+    key = torch.where(mine, local, torch.full_like(local, e_m))
+    order = torch.argsort(key, stable=True)
+    group_sizes = torch.bincount(key, minlength=e_m + 1)[:e_m].to(
+        torch.int32)
+    return mine, order, group_sizes
+
+
+def _ragged_local(x_loc, te_loc, tp_loc, wu, wg, wd, *, cfg: ModelConfig,
+                  e_m: int, m_rank: int, impl: str):
+    """One rank's part of :func:`moe_ragged_shard_map`: its data shard's
+    T_loc·k assignments sorted so that those of its ``e_m`` experts come
+    first, in expert order (the rest after them, in token order);
+    segment_matmul over its own experts' group sizes, so the rows past
+    them come out 0; the combine on ``index_weight_segment_reduce`` with
+    the other ranks' weights 0. Every shape is static (the rows are all
+    T_loc·k assignments whichever rank owns them), so the forward reads
+    nothing back to the host. Its price is the rows past the groups: at
+    |model| = m about (m − 1)/m of them, run through the gather, the
+    activation and the products as zeros and kept for the backward. On
+    the H100 (``chip_smoke.py`` 3j (f)) that costs less than reading the
+    live count at m = 2, whose sync drains the launch queue, and about as
+    much at m = 16, where the rows kept are 16× the live ones."""
+    t_loc = x_loc.shape[0]
+    e_flat, w_flat, tok_flat = _assignments(te_loc, tp_loc, t_loc,
+                                            cfg.top_k)
+    mine, order, group_sizes = _own_first(e_flat, e_m, m_rank)
+    xs = geot.gather(x_loc, tok_flat[order], impl=impl)
+    act = layers._ACTS[cfg.act]
+    hu = geot.segment_matmul(xs, group_sizes, wu, impl=impl)
+    hg = geot.segment_matmul(xs, group_sizes, wg, impl=impl)
+    ys = geot.segment_matmul(act(hg) * hu, group_sizes, wd, impl=impl)
+    out = geot.index_weight_segment_reduce(
+        ys, _inverse(order), torch.where(mine, w_flat,
+                                         torch.zeros_like(w_flat)),
+        tok_flat, t_loc, impl=None if impl == "cuda" else impl)
+    return out.to(x_loc.dtype)
+
+
+def moe_ragged_shard_map(prm, x, cfg: ModelConfig, impl: str = "ref"):
+    """Dropless expert-parallel MoE, the counterpart of
+    :func:`moe_shard_map` without capacity, on the DTensors of a sharding
+    context. Each rank routes its data shard, runs every assignment of its
+    E/|model| experts through segment_matmul (:func:`_ragged_local`) and
+    combines on ``index_weight_segment_reduce``; one all-reduce over
+    "model" sums the parts. No assignment drops, so each token's output is
+    the reference's GSPMD :func:`moe_ragged` up to summation order.
+    ``impl``: ``"ref"`` (the plain versions) or ``"cuda"`` (the kernels;
+    raises on CPU tensors). Where E or the tokens do not divide the mesh,
+    :func:`moe_ragged` runs whole on every rank."""
+    if impl not in ("ref", "cuda"):
+        raise ValueError(f"moe_ragged_shard_map: impl must be 'ref' or "
+                         f"'cuda', got {impl!r}")
+
+    def make_body(e_m, m_rank, t_loc):
+        return functools.partial(_ragged_local, cfg=cfg, e_m=e_m,
+                                 m_rank=m_rank, impl=impl)
+    return _expert_parallel(prm, x, cfg, make_body, functools.partial(
+        moe_ragged, impl=impl))
+
+
 def moe(prm, x, cfg: ModelConfig, impl: str = "capacity"):
+    if impl not in IMPLS:
+        raise ValueError(f"unknown moe impl {impl!r}; one of {IMPLS}")
+    sharded = shd.sharding_active() and shd.is_dtensor(x)
     if impl == "capacity":
-        if shd.sharding_active() and shd.is_dtensor(x):
-            return moe_shard_map(prm, x, cfg)
-        return moe_capacity(prm, x, cfg)
-    if shd.sharding_active() and shd.is_dtensor(x):
-        raise NotImplementedError(
-            f"moe impl {impl!r} under a mesh: the dropless path is not "
-            "sharded yet (ROADMAP Queue A, 'LM sharding': ragged/cuda "
-            "MoE under a mesh); use impl='capacity'")
-    if impl in ("ragged", "cuda"):
-        return moe_ragged(prm, x, cfg, impl="ref" if impl == "ragged"
-                          else "cuda")
-    raise ValueError(f"unknown moe impl {impl!r}; one of {IMPLS}")
+        return moe_shard_map(prm, x, cfg) if sharded else \
+            moe_capacity(prm, x, cfg)
+    dropless = "ref" if impl == "ragged" else "cuda"
+    if sharded:
+        return moe_ragged_shard_map(prm, x, cfg, impl=dropless)
+    return moe_ragged(prm, x, cfg, impl=dropless)

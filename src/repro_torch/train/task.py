@@ -306,8 +306,10 @@ class LMTask:
     initial parameters by their logical axes (the trainer's moments then
     shard alike), :meth:`prepare` places each batch on the data dims and
     :meth:`build_step` runs the sharded step (its warmup-cosine schedule
-    over ``TrainerConfig.steps``, as the reference's pjit step). Only
-    ``moe_impl="capacity"`` shards."""
+    over ``TrainerConfig.steps``, as the reference's pjit step); every
+    ``moe_impl`` shards (``"ragged"`` and ``"cuda"`` on
+    :func:`~repro_torch.models.moe.moe_ragged_shard_map`). int8 AdamW
+    moments are scaled a period slot at a time (:meth:`moment_groups`)."""
     cfg: Any
     remat_policy: str = "none"
     moe_impl: str = "capacity"
@@ -352,6 +354,13 @@ class LMTask:
                                   v.shape, splan, mesh), mesh))
                 for k, v in arrays.items()}
         return arrays, LMStatic(int(b), int(s))
+
+    def moment_groups(self, names) -> tuple:
+        """The parameters whose int8 AdamW moments share one scale: a
+        period slot's layers, stacked into one tensor in the reference
+        (:func:`repro_torch.models.lm.moment_groups`)."""
+        from repro_torch.models import lm
+        return lm.moment_groups(self.cfg, names)
 
     def loss(self, params, arrays, static, rng=None):
         from repro_torch.models import lm

@@ -206,6 +206,12 @@ class Trainer:
             self._m_steps.inc(**self._labels)
         return new_state, metrics
 
+    def _moment_groups(self, params):
+        """The task's groups of parameters whose int8 moments share a
+        scale (``task.moment_groups(names)``), or None."""
+        groups = getattr(self.task, "moment_groups", None)
+        return None if groups is None else groups(list(params))
+
     def _generic_step(self, state: TrainState, arrays, static):
         """Loss, ``torch.autograd.grad`` and ``adamw.update_`` on the
         task's device."""
@@ -219,7 +225,8 @@ class Trainer:
                  for (k, p), g in zip(params.items(), grads)}
         lr_scale = self._lr_scale(state.step, cfg.warmup_steps, cfg.steps)
         new_p, new_o, om = adamw.update_(grads, state.opt_state, params,
-                                         cfg.opt, lr_scale)
+                                         cfg.opt, lr_scale,
+                                         self._moment_groups(params))
         return (TrainState(new_p, new_o, state.step + 1, state.rng),
                 dict(metrics, loss=loss.detach(), **om))
 

@@ -23,18 +23,27 @@ path the card takes under gloo. The cases hold:
     reference's and against ``moe_capacity``: output within 1e-4,
     gradients of the parameters and x within 2e-3; E not dividing the
     mesh takes the global path;
+  * ``moe(impl="ragged")`` on the mesh (``moe_ragged_shard_map``, and
+    the replicated ``moe_ragged`` where E = 3 does not divide "model")
+    against the reference's ``moe(impl="ragged")`` under its host mesh
+    (GSPMD): output and aux within 1e-4, the five gradients within 2e-3;
   * ``tp_out_project`` against ``x @ w`` and the reference's, 1e-4;
   * the sharded train step on 2 × 2, 2 steps (the warmup's lr is 0 at
     step 0), against the reference's single-device ``loss_fn`` +
     ``adamw.update`` under ``warmup_cosine``: the loss within 1e-4
     relative, gathered gradients and parameters within 2e-3, a dense and a
-    MoE config; int8 moments: the payload sharded as its parameter, the
-    scale replicated and taken over the whole tensor;
+    MoE config, the MoE one also with ``moe_impl="ragged"``; int8 moments:
+    the payload sharded as its parameter, the scale replicated and taken
+    over the whole period slot;
   * the sharded prefill and 4 decode steps against the reference's
     single-device ``forward`` / ``decode_step``, 2e-3, a 1 × 4 case whose
-    KV heads do not divide "model" (the sequence-sharded cache);
-  * ``fit(LMTask, mesh=)`` 3 steps against ``repro.fit``, 2e-3;
-    ``launch.train.main(["--mesh", "host", ...])`` 3 steps;
+    KV heads do not divide "model" (the sequence-sharded cache), and the
+    MoE config's with ``moe_impl="ragged"``;
+  * ``fit(LMTask, mesh=)`` 3 steps against ``repro.fit``, 2e-3, a dense
+    config and the MoE one with ``moe_impl="ragged"`` on both sides;
+    ``launch.train.main(["--mesh", "host", ...])`` 3 steps, and 2 steps
+    of ``--moe-impl ragged`` on the reduced MoE arch against the same
+    command on one device, 2e-3;
   * ``pipeline_forward`` against the reference's and the stages in
     sequence, 1e-5; the elastic restore 2 × 2 → 4 × 1, bitwise; every
     parameter held as its share.
@@ -71,6 +80,11 @@ SERVE_CASES = (("dense", (2, 2)), ("moe", (2, 2)), ("dense", (1, 4)),
 LM_NAMES = ("dense", "moe", "jamba", "rwkv")
 BATCH, SEQ, DECODE, MAX_LEN = 4, 8, 4, 16
 FIT_STEPS = 3
+FIT_CASES = (("dense", "capacity"), ("moe", "ragged"))
+RAGGED_SERVE = ("moe", (2, 2))
+RAGGED_LAUNCH = ["--arch", "qwen3-moe-30b-a3b", "--reduced", "--device",
+                 "cpu", "--moe-impl", "ragged", "--steps", "2", "--batch",
+                 "4", "--seq", "8", "--log-every", "0"]
 
 
 def _cfgs(lib):
@@ -172,17 +186,19 @@ def _rank_moe(res, inp, out, mesh, plan):
         x = shd.place_tensor(torch.from_numpy(inp["moe_x"]), mesh,
                              shd.placements(("data", None, None), mesh))
         x.requires_grad_()
+        for impl, key in (("capacity", name), ("ragged", f"{name}_ragged")):
+            with shd.activation_sharding(mesh, plan):
+                y, aux = moe_lib.moe(prm, x, cfg, impl=impl)
+                grads = torch.autograd.grad((y ** 2).sum(),
+                                            [x] + list(leaves.values()))
+            res[f"{key}_y"] = _full(y)
+            res[f"{key}_aux"] = _full(aux)
+            for k, g in zip(["x"] + list(leaves), grads):
+                res[f"{key}_g_{k}"] = _full(g)
         with shd.activation_sharding(mesh, plan):
-            y, aux = moe_lib.moe(prm, x, cfg)
-            grads = torch.autograd.grad((y ** 2).sum(),
-                                        [x] + list(leaves.values()))
-            res[f"{name}_refuse_ragged"] = _raises(
-                NotImplementedError,
-                lambda: moe_lib.moe(prm, x, cfg, impl="ragged"))
-        res[f"{name}_y"] = _full(y)
-        res[f"{name}_aux"] = _full(aux)
-        for k, g in zip(["x"] + list(leaves), grads):
-            res[f"{name}_g_{k}"] = _full(g)
+            # the kernels or nothing: no plain version for CPU tensors
+            res[f"{name}_cuda_refuses_cpu"] = _raises(
+                ValueError, lambda: moe_lib.moe(prm, x, cfg, impl="cuda"))
 
 
 def _rank_tp(res, inp, mesh, plan):
@@ -210,17 +226,21 @@ def _rank_train(res, out, mesh, plan, rank):
     cfgs = _cfgs(configs)
     batch = dict(np.load(out / "train_batch.npz"))
     sizes = shd.mesh_sizes(mesh)
-    for name, sd in (("dense", "float32"), ("moe", "float32"),
-                     ("dense", "int8")):
+    for name, sd, impl in (("dense", "float32", "capacity"),
+                           ("moe", "float32", "capacity"),
+                           ("moe", "float32", "ragged"),
+                           ("dense", "int8", "capacity")):
         cfg = cfgs[name]
         key = name if sd == "float32" else f"{name}_int8"
+        key += "_ragged" if impl == "ragged" else ""
         model = from_jax_lm_params(cfg, _load_tree(out, name), device="cpu")
         params = {k: p.detach().clone().requires_grad_()
                   for k, p in model.named_parameters()}
         ts = steplib.TrainStepConfig(
             opt=adamw.AdamWConfig(lr=TRAIN_CFG["lr"], state_dtype=sd),
             warmup_steps=TRAIN_CFG["warmup"],
-            total_steps=TRAIN_CFG["total"], remat_policy="none")
+            total_steps=TRAIN_CFG["total"], remat_policy="none",
+            moe_impl=impl)
         opt = adamw.init(params, ts.opt)
         fn, shardings_for = steplib.build_train_step(cfg, mesh, plan, ts)
         psh, osh, bsh, _ = shardings_for(params, opt, {
@@ -231,7 +251,8 @@ def _rank_train(res, out, mesh, plan, rank):
         if sd == "float32":
             # step 0's gradients, gathered, through the step's own path
             with shd.activation_sharding(mesh, plan):
-                loss, _ = lm.loss_fn(sp, cfg, sb, remat_policy="none")
+                loss, _ = lm.loss_fn(sp, cfg, sb, remat_policy="none",
+                                     moe_impl=impl)
                 grads = torch.autograd.grad(steplib._whole(loss),
                                             list(sp.values()))
             for k, g in zip(sp, grads):
@@ -277,18 +298,20 @@ def _rank_serve(res, out, rank):
     from repro_torch.models.params import from_jax_lm_params
     cfgs = _cfgs(configs)
     tokens = torch.from_numpy(_inputs()["tokens"]).long()
-    for name, shape in SERVE_CASES:
+    for name, shape, impl in [c + ("capacity",) for c in SERVE_CASES] + [
+            RAGGED_SERVE + ("ragged",)]:
         key = f"{name}_{shape[0]}x{shape[1]}"
+        key = key if impl == "capacity" else f"{key}_{impl}"
         mesh = make_host_mesh(*shape, device_type="cpu")
         plan = shd.ParallelPlan.for_mesh(mesh)
         cfg = cfgs[name]
         model = shd.distribute(from_jax_lm_params(
             cfg, _load_tree(out, name), device="cpu"), plan, mesh)
-        prefill = steplib.build_prefill_step(cfg, mesh, plan)
+        prefill = steplib.build_prefill_step(cfg, mesh, plan, moe_impl=impl)
         res[f"prefill_{key}"] = _full(prefill(model,
                                               {"tokens": tokens[:, :SEQ]}))
-        serve, shardings_for = steplib.build_serve_step(cfg, mesh, plan,
-                                                        BATCH, MAX_LEN)
+        serve, shardings_for = steplib.build_serve_step(
+            cfg, mesh, plan, BATCH, MAX_LEN, moe_impl=impl)
         specs = shardings_for(model)[2]
         res[f"kv_spec_{key}"] = np.asarray(repr((specs.lead
                                                  or specs.period)[0][0]))
@@ -307,30 +330,37 @@ def _rank_fit_and_launch(res, out, mesh, rank):
     from repro_torch.launch import train as launch_train
     from repro_torch.models.params import from_jax_lm_params
     from repro_torch.optim import adamw
-    cfg = _cfgs(configs)["dense"]
-    model = from_jax_lm_params(cfg, _load_tree(out, "fit"), device="cpu")
-    params = {k: p.detach().clone().requires_grad_()
-              for k, p in model.named_parameters()}
-    opt = adamw.AdamWConfig(lr=1e-3, weight_decay=0.01)
-    state = train.TrainState(params, adamw.init(params, opt), 0,
-                             torch.Generator().manual_seed(0).get_state())
-    data = train.TokenProvider(TokenDatasetConfig(
-        vocab_size=cfg.vocab_size, seq_len=8, global_batch=4, seed=1))
-    ckpt_dir = out / "fit_ckpt"
-    run = train.fit(train.LMTask(cfg, device="cpu"), data,
-                    train.TrainerConfig(steps=FIT_STEPS, opt=opt,
-                                        warmup_steps=2, seed=0,
-                                        ckpt_dir=str(ckpt_dir), ckpt_every=2),
-                    mesh=mesh, state=state)
-    res["fit_losses"] = np.asarray(run.losses)
-    res["fit_ckpt"] = np.asarray([
-        ckpt.latest_step(str(ckpt_dir / f"rank{rank}")) or -1,
-        ckpt.latest_step(str(ckpt_dir)) or -1])
+    for name, impl in FIT_CASES:
+        cfg = _cfgs(configs)[name]
+        key = "" if name == "dense" else f"_{name}_{impl}"
+        model = from_jax_lm_params(cfg, _load_tree(out, f"fit{key}"),
+                                   device="cpu")
+        params = {k: p.detach().clone().requires_grad_()
+                  for k, p in model.named_parameters()}
+        opt = adamw.AdamWConfig(lr=1e-3, weight_decay=0.01)
+        state = train.TrainState(params, adamw.init(params, opt), 0,
+                                 torch.Generator().manual_seed(0).get_state())
+        data = train.TokenProvider(TokenDatasetConfig(
+            vocab_size=cfg.vocab_size, seq_len=8, global_batch=4, seed=1))
+        ckpt_dir = out / f"fit_ckpt{key}"
+        run = train.fit(train.LMTask(cfg, moe_impl=impl, device="cpu"), data,
+                        train.TrainerConfig(steps=FIT_STEPS, opt=opt,
+                                            warmup_steps=2, seed=0,
+                                            ckpt_dir=str(ckpt_dir),
+                                            ckpt_every=2),
+                        mesh=mesh, state=state)
+        res[f"fit_losses{key}"] = np.asarray(run.losses)
+        res[f"fit_ckpt{key}"] = np.asarray([
+            ckpt.latest_step(str(ckpt_dir / f"rank{rank}")) or -1,
+            ckpt.latest_step(str(ckpt_dir)) or -1])
     losses = launch_train.main([
         "--arch", "qwen3-8b", "--reduced", "--device", "cpu", "--mesh",
         "host", "--steps", "3", "--batch", "4", "--seq", "8", "--ckpt-dir",
         str(out / "launch_ckpt"), "--log-every", "0"])
     res["launch_losses"] = np.asarray(losses)
+    res["launch_ragged_losses"] = np.asarray(launch_train.main(
+        RAGGED_LAUNCH + ["--mesh", "host", "--ckpt-dir",
+                         str(out / "launch_ragged_ckpt")]))
 
 
 def _rank_elastic_and_shares(res, out, mesh, plan, rank):
@@ -476,6 +506,27 @@ def _run_jax(outdir: str) -> None:
     res["moe_g_x"] = np.asarray(g[1])
     for k in prm:
         res[f"moe_g_{k}"] = np.asarray(g[0][k].value)
+    for name in ("moe", "moe3"):
+        # the dropless layer under the mesh: GSPMD partitions moe_ragged
+        rcfg = _cfgs(jcfglib)[name]
+        tree = dict(np.load(out / f"moe_{name}.npz"))
+        rprm = {k: P(jnp.asarray(tree[k]), p.axes) for k, p in
+                jmoe.moe_init(jax.random.PRNGKey(0), rcfg,
+                              jnp.float32).items()}
+
+        def ragged(p, x, rcfg=rcfg):
+            with jshd.activation_sharding(mesh, plan):
+                y, aux = jmoe.moe(p, x, rcfg, impl="ragged")
+            return jnp.sum(y ** 2), (y, aux)
+
+        with mesh:
+            (_, (y, aux)), g = jax.jit(jax.value_and_grad(
+                ragged, argnums=(0, 1), has_aux=True))(rprm, x)
+        key = f"{name}_ragged"
+        res[f"{key}_y"], res[f"{key}_aux"] = np.asarray(y), np.asarray(aux)
+        res[f"{key}_g_x"] = np.asarray(g[1])
+        for k in rprm:
+            res[f"{key}_g_{k}"] = np.asarray(g[0][k].value)
     w = P(jnp.asarray(inp["tp_w"]), ("heads", "embed"))
     with mesh, jshd.activation_sharding(mesh, plan):
         res["tp"] = np.asarray(jax.jit(
@@ -499,14 +550,15 @@ def _jtree_np(tree):
                                   is_leaf=lambda x: isinstance(x, P))
 
 
-def _fit_pair():
+def _fit_pair(name, impl):
     from repro import configs as jcfglib
     from repro import train as jtrain
     from repro.data import tokens as jtokens
     from repro.optim import adamw as jadamw
-    cfg = _cfgs(jcfglib)["dense"]
+    cfg = _cfgs(jcfglib)[name]
     return jtrain.Trainer(
-        jtrain.LMTask(cfg), jtrain.TokenProvider(jtokens.TokenDatasetConfig(
+        jtrain.LMTask(cfg, moe_impl=impl),
+        jtrain.TokenProvider(jtokens.TokenDatasetConfig(
             vocab_size=cfg.vocab_size, seq_len=8, global_batch=4, seed=1)),
         jtrain.TrainerConfig(steps=FIT_STEPS, opt=jadamw.AdamWConfig(
             lr=1e-3, weight_decay=0.01), warmup_steps=2, seed=0))
@@ -538,14 +590,17 @@ def _references(jparams, moe_prm, batch):
             ref[f"{name}_g_{k}"] = g[0][k].value
     ref["tp"] = inp["tp_x"] @ inp["tp_w"]
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    for name in ("dense", "moe"):
+    for name, impl in (("dense", "capacity"), ("moe", "capacity"),
+                       ("moe", "ragged")):
         cfg = cfgs[name]
         prm = jparams[name]
         opt_cfg = jadamw.AdamWConfig(lr=TRAIN_CFG["lr"])
         opt = jadamw.init(prm, opt_cfg)
         step_fn = jax.jit(jax.value_and_grad(
-            lambda p: jlm.loss_fn(p, cfg, jb, remat_policy="none"),
+            lambda p, cfg=cfg, impl=impl: jlm.loss_fn(
+                p, cfg, jb, remat_policy="none", moe_impl=impl),
             has_aux=True))
+        name = name if impl == "capacity" else f"{name}_{impl}"
         losses = []
         for step in range(2):
             (loss, _), g = step_fn(prm)
@@ -558,15 +613,19 @@ def _references(jparams, moe_prm, batch):
         ref[f"train_{name}_losses"] = np.asarray(losses)
         ref[f"train_{name}_p"] = _jtree_np(prm)
     tokens = jnp.asarray(inp["tokens"])
-    for name in LM_NAMES:
+    for name, impl in [(n, "capacity") for n in LM_NAMES] + [
+            (RAGGED_SERVE[0], "ragged")]:
         cfg = cfgs[name]
-        ref[f"prefill_{name}"], _ = jlm.forward(
-            jparams[name], cfg, tokens[:, :SEQ], remat_policy="none")
+        key = name if impl == "capacity" else f"{name}_{impl}"
+        ref[f"prefill_{key}"], _ = jlm.forward(
+            jparams[name], cfg, tokens[:, :SEQ], remat_policy="none",
+            moe_impl=impl)
         state = jlm.init_decode_state(cfg, BATCH, MAX_LEN, jnp.float32)
-        dec = jax.jit(lambda p, t, s, cfg=cfg: jlm.decode_step(p, cfg, t, s))
+        dec = jax.jit(lambda p, t, s, cfg=cfg, impl=impl: jlm.decode_step(
+            p, cfg, t, s, moe_impl=impl))
         for i in range(DECODE):
             logits, state = dec(jparams[name], tokens[:, i:i + 1], state)
-            ref[f"decode_{name}_{i}"] = logits
+            ref[f"decode_{key}_{i}"] = logits
     return {k: (v if isinstance(v, dict) else np.asarray(v))
             for k, v in ref.items()}
 
@@ -595,9 +654,13 @@ def sharding(tmp_path_factory):
     toks = rng.integers(0, 256, (BATCH, SEQ), dtype=np.int32)
     batch = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
     np.savez(out / "train_batch.npz", **batch)
-    pair = _fit_pair()
-    fit_state = pair.init_state()
-    np.savez(out / "params_fit.npz", **_flat(_jtree_np(fit_state.params)))
+    pairs = {}
+    for name, impl in FIT_CASES:
+        key = "" if name == "dense" else f"_{name}_{impl}"
+        pair = _fit_pair(name, impl)
+        pairs[key] = (pair, pair.init_state())
+        np.savez(out / f"params_fit{key}.npz",
+                 **_flat(_jtree_np(pairs[key][1].params)))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
     procs = [subprocess.Popen([sys.executable, __file__, *flag, str(out)],
@@ -606,7 +669,12 @@ def sharding(tmp_path_factory):
              for flag in ([], ["--jax"])]
     try:
         ref = _references(jparams, moe_prm, batch)
-        ref["fit_losses"] = np.asarray(pair.fit(state=fit_state).losses)
+        for key, (pair, fit_state) in pairs.items():
+            ref[f"fit_losses{key}"] = np.asarray(
+                pair.fit(state=fit_state).losses)
+        from repro_torch.launch import train as launch_train
+        ref["launch_ragged_losses"] = np.asarray(launch_train.main(
+            RAGGED_LAUNCH + ["--ckpt-dir", str(out / "launch_ragged_one")]))
         logs = [p.communicate(timeout=TIMEOUT_S)[0] for p in procs]
     finally:
         for p in procs:
@@ -745,6 +813,25 @@ def test_logical_axes_match_reference(arch):
     assert axes == want
 
 
+@pytest.mark.parametrize("arch", cfglib.ARCH_NAMES)
+def test_moment_groups_are_the_reference_stacks(arch):
+    """``lm.moment_groups`` names, for each tensor the reference stacks
+    over a period slot's layers, the port's layers of it in period order:
+    the int8 moments that share one scale in both packages."""
+    from repro import configs as jcfglib
+    from repro_torch.models import lm
+    jcfg, cfg = jcfglib.get_config(arch).reduced(), \
+        cfglib.get_config(arch).reduced()
+    stacks: dict = {}
+    for name, p, stacked in _ref_leaves(_shape_tree(jcfg), jcfg):
+        if stacked:
+            stacks.setdefault(id(p), []).append(name)
+    names = [k for k, _ in lm.LM(cfg, device="meta",
+                                 seed=None).named_parameters()]
+    got = lm.moment_groups(cfg, names)
+    assert sorted(got) == sorted(tuple(v) for v in stacks.values())
+
+
 def test_from_jax_lm_params_checks_axes():
     import jax
 
@@ -820,7 +907,8 @@ def test_mesh_refusals(sharding):
     ranks, _, _ = sharding
     for r in range(WORLD):
         assert ranks[r]["refuse_uninit"] == 1 and ranks[r]["refuse_size"] == 1
-        assert ranks[r]["moe_refuse_ragged"] == 1
+        assert ranks[r]["moe_cuda_refuses_cpu"] == 1
+        assert ranks[r]["moe3_cuda_refuses_cpu"] == 1
 
 
 @pytest.mark.parametrize("against", ["reference_shard_map", "moe_capacity"])
@@ -854,6 +942,59 @@ def test_moe_shard_map_global_fallback(sharding):
                                        atol=2e-3)
 
 
+@pytest.mark.parametrize("name", ["moe", "moe3"])
+def test_moe_ragged_shard_map(sharding, name):
+    """The dropless layer on the 2 × 2 mesh against the reference's
+    ``moe(impl="ragged")`` under its host mesh: expert-parallel on
+    segment_matmul where the 4 experts divide "model", ``moe_ragged``
+    whole on every rank where the 3 do not."""
+    ranks, _, _ = sharding
+    want = ranks["jax"]
+    key = f"{name}_ragged"
+    for r in range(WORLD):
+        got = ranks[r]
+        np.testing.assert_allclose(got[f"{key}_y"], want[f"{key}_y"],
+                                   rtol=1e-4, atol=1e-4, err_msg=f"rank {r}")
+        np.testing.assert_allclose(got[f"{key}_aux"], want[f"{key}_aux"],
+                                   rtol=1e-4, err_msg=f"rank {r} aux")
+        for k in ("x", "router", "w_up", "w_gate", "w_down"):
+            np.testing.assert_allclose(got[f"{key}_g_{k}"],
+                                       want[f"{key}_g_{k}"], rtol=2e-3,
+                                       atol=2e-3, err_msg=f"rank {r} d{k}")
+
+
+def test_ragged_local_parts_sum_to_the_whole_layer():
+    """The model ranks' parts of ``moe_ragged_shard_map`` (each all of
+    the sorted assignments, its own experts' first and the rest past its
+    groups) sum to the part of one rank that owns every expert, forward
+    and gradients, where one rank owns no assignment (its part is 0)."""
+    from repro_torch.models import moe as moe_mod
+    cfg = cfglib.get_config("qwen3-moe-30b-a3b").reduced()
+    e, k, d, f = cfg.num_experts, cfg.top_k, cfg.d_model, cfg.moe_d_ff
+    e_m, t = e // 4, 6
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(t, d, generator=gen, requires_grad=True)
+    # no assignment targets the last rank's experts
+    te = torch.randint(0, e - e_m, (t, k), generator=gen, dtype=torch.int32)
+    tp = torch.rand(t, k, generator=gen, requires_grad=True)
+    ws = [(torch.randn(e, *s, generator=gen) / 8).requires_grad_()
+          for s in ((d, f), (d, f), (f, d))]
+    ct = torch.randn(t, d, generator=gen)
+
+    def part(e_m, r):         # rank r's experts' weights
+        return moe_mod._ragged_local(
+            x, te, tp, *(w[r * e_m:(r + 1) * e_m] for w in ws), cfg=cfg,
+            e_m=e_m, m_rank=r, impl="ref")
+
+    def run(e_m, ranks):
+        y = sum(part(e_m, r) for r in ranks)
+        return [y] + list(torch.autograd.grad((y * ct).sum(),
+                                              [x, tp] + ws))
+    for got, want in zip(run(e_m, range(4)), run(e, [0])):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert not part(e_m, 3).any()
+
+
 def test_tp_out_project(sharding):
     ranks, ref, _ = sharding
     for r in range(WORLD):
@@ -864,11 +1005,11 @@ def test_tp_out_project(sharding):
                                    rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("name", ["dense", "moe"])
+@pytest.mark.parametrize("name", ["dense", "moe", "moe_ragged"])
 def test_sharded_train_step(sharding, name):
     from repro_torch import configs as cfglib
     ranks, ref, _ = sharding
-    cfg = _cfgs(cfglib)[name]
+    cfg = _cfgs(cfglib)[name.split("_")[0]]
     want_g = _named(cfg, ref[f"train_{name}_g0"])
     want_p = _named(cfg, ref[f"train_{name}_p"])
     for r in range(WORLD):
@@ -886,9 +1027,10 @@ def test_sharded_train_step(sharding, name):
 
 def test_sharded_train_step_int8_moments(sharding):
     """int8 moments: the payload sharded as its parameter, the scale
-    replicated, and taken over the whole tensor (every rank holds the same
-    scale, and the largest |q| of the whole tensor is 127); the first
-    moments within 2e-3 of the port's single-device int8 step."""
+    replicated, and taken over the whole period slot (every rank holds the
+    same scale, and the largest |q| of a slot's layers, every shard of
+    them, is 127); the first moments within 2e-3 of the port's
+    single-device int8 step."""
     from repro_torch.distributed import step as steplib
     from repro_torch.models import lm
     from repro_torch.models.params import from_jax_lm_params
@@ -904,8 +1046,9 @@ def test_sharded_train_step_int8_moments(sharding):
     loss, _ = lm.loss_fn(params, cfg, batch, remat_policy="none")
     grads = dict(zip(params, torch.autograd.grad(loss,
                                                  list(params.values()))))
-    _, opt, _ = adamw.update_(grads, adamw.init(params, opt_cfg), params,
-                              opt_cfg, 0.0)
+    groups = lm.moment_groups(cfg, params)
+    _, opt, _ = adamw.update_(grads, adamw.init(params, opt_cfg),
+                              params, opt_cfg, 0.0, groups)
     want = np.concatenate([(opt.mu[k].q.float() * opt.mu[k].scale)
                            .reshape(-1).numpy() for k in sorted(opt.mu)])
     np.testing.assert_allclose(ranks[0]["int8_mu"], want, rtol=2e-3,
@@ -919,7 +1062,11 @@ def test_sharded_train_step_int8_moments(sharding):
         np.testing.assert_array_equal(ranks[r]["int8_mu"],
                                       ranks[0]["int8_mu"])
         assert np.all(np.isfinite(ranks[r]["train_dense_int8_losses"]))
-    assert np.all(ranks[0]["int8_max_q"] == 127)
+    names = sorted(params)
+    max_q = dict(zip(names, ranks[0]["int8_max_q"]))
+    assert groups and all(len(g) == 2 for g in groups)    # 2 periods
+    for unit in adamw._units(names, groups):
+        assert max(max_q[k] for k in unit) == 127, unit
 
 
 @pytest.mark.parametrize("name,shape", SERVE_CASES,
@@ -943,6 +1090,24 @@ def test_sharded_prefill_and_decode(sharding, name, shape):
         assert str(ranks[0][f"kv_spec_{key}"]) == repr(want)
 
 
+def test_sharded_prefill_and_decode_ragged(sharding):
+    """The dropless MoE under the mesh in the serving steps, against the
+    reference's single-device ``forward`` / ``decode_step`` with
+    ``moe_impl="ragged"``."""
+    ranks, ref, _ = sharding
+    name, shape = RAGGED_SERVE
+    key = f"{name}_{shape[0]}x{shape[1]}_ragged"
+    for r in range(WORLD):
+        np.testing.assert_allclose(ranks[r][f"prefill_{key}"],
+                                   ref[f"prefill_{name}_ragged"], rtol=2e-3,
+                                   atol=2e-3, err_msg=f"prefill rank {r}")
+        for i in range(DECODE):
+            np.testing.assert_allclose(ranks[r][f"decode_{key}_{i}"],
+                                       ref[f"decode_{name}_ragged_{i}"],
+                                       rtol=2e-3, atol=2e-3,
+                                       err_msg=f"decode {i} rank {r}")
+
+
 def test_fit_with_a_mesh_matches_reference(sharding):
     ranks, ref, _ = sharding
     for r in range(WORLD):
@@ -951,6 +1116,28 @@ def test_fit_with_a_mesh_matches_reference(sharding):
                                    rtol=2e-3)
         own, shared = ranks[r]["fit_ckpt"]
         assert own >= 2 and shared == -1
+
+
+def test_fit_with_a_mesh_ragged_moe(sharding):
+    """``fit(LMTask(moe_impl="ragged"), mesh=)`` on the reduced MoE config
+    against ``repro.fit`` of ``LMTask(moe_impl="ragged")``."""
+    ranks, ref, _ = sharding
+    for r in range(WORLD):
+        np.testing.assert_allclose(ranks[r]["fit_losses_moe_ragged"],
+                                   ref["fit_losses_moe_ragged"], rtol=2e-3)
+        own, shared = ranks[r]["fit_ckpt_moe_ragged"]
+        assert own >= 2 and shared == -1
+
+
+def test_launch_train_mesh_host_ragged(sharding):
+    """``launch.train --mesh host --moe-impl ragged`` on the reduced MoE
+    arch against the same command on one device."""
+    ranks, ref, _ = sharding
+    want = ref["launch_ragged_losses"]
+    assert len(want) == 2 and np.all(np.isfinite(want))
+    for r in range(WORLD):
+        np.testing.assert_allclose(ranks[r]["launch_ragged_losses"], want,
+                                   rtol=2e-3, err_msg=f"rank {r}")
 
 
 def test_launch_train_mesh_host(sharding):

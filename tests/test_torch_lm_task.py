@@ -156,8 +156,10 @@ def test_int8_steps_match_reference_from_its_states(arch):
     scales a second moment below 1/254 of its tensor's largest rounds to
     0, its update becomes m/eps, and both trajectories blow up along
     whichever element's rounding a last-bit difference flips. The
-    re-quantized moments are not compared: the reference scales a period
-    slot's stacked layers together, the port each layer's tensor alone."""
+    re-quantized moments are held to the reference's too: each scale
+    within rtol 1e-4 (a period slot's layers share the scale of the
+    reference's stacked moment), each int8 payload within 1 (a rounding
+    that a last-bit difference in the gradient flips)."""
     cfg, jt, tt = _pair(arch, "int8")
     jstate = jt.init_state()
     for step in range(3):
@@ -184,6 +186,15 @@ def test_int8_steps_match_reference_from_its_states(arch):
                 p.detach()[held].numpy(), want[k][held].numpy(), rtol=0,
                 atol=1e-4 * float(want[k].abs().max()), err_msg=k)
         assert new.opt_state.step == int(jnext.opt_state.step) == step + 1
+        for got, want_q in ((new.opt_state.mu, jnext.opt_state.mu),
+                            (new.opt_state.nu, jnext.opt_state.nu)):
+            want_q = _int8_moments(cfg, want_q)
+            for k, m in got.items():
+                np.testing.assert_allclose(float(m.scale),
+                                           float(want_q[k].scale), rtol=1e-4,
+                                           err_msg=k)
+                diff = (m.q.int() - want_q[k].q.int()).abs()
+                assert int(diff.max()) <= 1, k
         jstate = jnext
 
 
@@ -240,6 +251,55 @@ def test_adamw_update_in_place_is_bitwise_the_functional_update():
                 assert torch.equal(adamw._decode(a, state_dtype),
                                    adamw._decode(b, state_dtype))
         assert s_f.step == s_i.step == 3
+
+
+def test_adamw_int8_groups_share_the_slot_absmax():
+    """int8 moments of a group are quantized by the absmax over all of the
+    group (the reference's stacked tensor: the same q and scale as one
+    tensor of the members stacked), each member holding that scale in a
+    tensor of its own; ``update`` and ``update_`` give the same bits; a
+    member alone, or no groups, is the tensor's own absmax."""
+    rng = np.random.default_rng(1)
+    cfg = adamw.AdamWConfig(lr=3e-2, state_dtype="int8")
+    shapes = {"l1.w": (6, 4), "l3.w": (6, 4), "l2.w": (5,), "lead": (3,)}
+    params = {k: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).requires_grad_() for k, s in shapes.items()}
+    groups = (("l1.w", "l3.w"), ("l2.w",))
+    stacked = {"w": torch.stack([params["l1.w"], params["l3.w"]]).detach()
+               .clone().requires_grad_(), "l2.w": params["l2.w"].detach()
+               .clone().requires_grad_(), "lead": params["lead"].detach()
+               .clone().requires_grad_()}
+    state = adamw.init(params, cfg)
+    p_i = {k: p.detach().clone().requires_grad_() for k, p in params.items()}
+    s_i = adamw.init(p_i, cfg)
+    s_st = adamw.init(stacked, cfg)
+    for _ in range(3):
+        grads = {k: torch.from_numpy(rng.standard_normal(s).astype(
+            np.float32)) for k, s in shapes.items()}
+        g_st = {"w": torch.stack([grads["l1.w"], grads["l3.w"]]),
+                "l2.w": grads["l2.w"], "lead": grads["lead"]}
+        params, state, _ = adamw.update(grads, state, params, cfg, 0.5,
+                                        groups)
+        p_i, s_i, _ = adamw.update_(grads, s_i, p_i, cfg, 0.5, groups)
+        stacked, s_st, _ = adamw.update(g_st, s_st, stacked, cfg, 0.5)
+    for tree_f, tree_i, tree_s in ((state.mu, s_i.mu, s_st.mu),
+                                   (state.nu, s_i.nu, s_st.nu)):
+        assert tree_f["l1.w"].scale is not tree_f["l3.w"].scale
+        for k in shapes:
+            assert torch.equal(tree_f[k].q, tree_i[k].q)
+            assert torch.equal(tree_f[k].scale, tree_i[k].scale)
+        want = tree_s["w"]
+        for i, k in enumerate(("l1.w", "l3.w")):
+            assert torch.equal(tree_f[k].q, want.q[i])
+            assert torch.equal(tree_f[k].scale, want.scale)
+        for k in ("l2.w", "lead"):
+            assert torch.equal(tree_f[k].q, tree_s[k].q)
+            assert torch.equal(tree_f[k].scale, tree_s[k].scale)
+    for k in shapes:
+        assert torch.equal(params[k], p_i[k])
+    np.testing.assert_array_equal(
+        torch.stack([params["l1.w"], params["l3.w"]]).detach().numpy(),
+        stacked["w"].detach().numpy())
 
 
 def test_kill_and_resume_is_bitwise(tmp_path):

@@ -296,3 +296,28 @@ def test_remat_replays_kernels_only_under_checkpointing():
             torch.autograd.grad(loss, list(params.values()))
         seen[policy] = ran["unfused:gather_segment_reduce_weighted:ref"]
     assert seen == {"none": cfg.num_layers, "full": 2 * cfg.num_layers}
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_cross_entropy_backward_is_bitwise_autograds(masked):
+    """The loss's hand-written cross-entropy backward (the softmax and the
+    gold's subtraction in place, one tensor of the logits' size) gives
+    autograd's gradient of ``sum((logsumexp - gold) · mask)`` to the bit,
+    and the same sums."""
+    rng = np.random.default_rng(4)
+    logits = torch.from_numpy(rng.standard_normal((3, 5, 33))
+                              .astype(np.float32) * 4)
+    labels = torch.from_numpy(rng.integers(0, 33, (3, 5)))
+    mask = torch.from_numpy((rng.random((3, 5)) > 0.3).astype(np.float32)) \
+        if masked else None
+    a = logits.clone().requires_grad_()
+    total, count = lm._ce_sums(a, labels, mask)
+    (total / count).backward()
+    b = logits.clone().requires_grad_()
+    m = torch.ones(labels.shape) if mask is None else mask
+    logz = torch.logsumexp(b, dim=-1)
+    gold = torch.take_along_dim(b, labels[..., None], dim=-1)[..., 0]
+    want = torch.sum((logz - gold) * m)
+    (want / m.sum()).backward()
+    assert torch.equal(total, want) and torch.equal(count, m.sum())
+    assert torch.equal(a.grad, b.grad)
