@@ -40,7 +40,9 @@ Phases (any failure exits non-zero before the result line):
       ``torch.sparse.softmax`` of a COO.
    b. segment_matmul at the typed rows of the AM graph (M = 5,988,321
       edges in 133 zipf-skewed relation groups) at K->N = 64->64, 32->128,
-      64->128, 64->16 and 64->32, plus, in fp32 and bf16, empty groups, a
+      64->128, 64->16 and 64->32 (in bf16 beside today's mma_sync kernel
+      through its C entry, whichever path the rule takes), plus, in fp32
+      and bf16, empty groups, a
       single group, rows past the groups, 3,000 groups of 1-3 rows, and
       N = 16 and 32, and K = 512, 1001 and 1024 (deeper than one pass of
       shared memory holds), and the MoE expert products of 3h (K = 2048 ->
@@ -214,8 +216,12 @@ Phases (any failure exits non-zero before the result line):
       ``moe_impl="cuda"`` (the three expert products on segment_matmul,
       the combine on the gather kernel: exactly 3 and 1 launches) within
       the bf16 tolerance of the fp32 plain version of the same upcast
-      inputs, bitwise over two calls; each product timed (kernel, plain,
-      ``torch._grouped_mm``) beside its bound, max(bytes / 3.35 TB/s,
+      inputs, bitwise over two calls, its three products on
+      segment_matmul's wgmma path (``kops.path_launch_counts``); each
+      product held to the fp32 plain version and bitwise over two calls,
+      and timed (kernel; today's mma_sync kernel through its C entry
+      ``smm_launch`` in the same call; plain; ``torch._grouped_mm``)
+      beside its bound, max(bytes / 3.35 TB/s,
       2·rows·K·N / 989 TFLOP/s), the bytes counting X, the W of each
       expert with rows and the output once; the combine timed beside its
       bound and ``torch.sparse.mm`` of the (T, T·k) CSR of the router
@@ -253,8 +259,10 @@ Phases (any failure exits non-zero before the result line):
       and the gradients of x, the router and the three expert weights at
       the bf16 tolerance; then each piece of the backward timed beside its
       bound and a one-call yardstick: the three products forward and
-      their dX on segment_matmul (``torch._grouped_mm``), the three Wᵀ
-      copies, the three dW loops of ``torch.matmul`` with their host sync
+      their dX on segment_matmul's wgmma path, the dX reading W[g]ᵀ in
+      place (no copy), each held to the fp32 plain version, bitwise over
+      two calls and beside today's mma_sync kernel through its C entry
+      (``torch._grouped_mm``), the three dW loops of ``torch.matmul`` with their host sync
       (``torch._grouped_mm`` of Xᵀ and dY), the combine's dH on the gather
       kernel (``torch.sparse.mm`` of the transposed CSR) and its
       router-weight gradient on sddmm (``torch.sparse.sampled_addmm``),
@@ -298,7 +306,8 @@ Phases (any failure exits non-zero before the result line):
       tail (all of the shard's sorted rows, those past the rank's groups
       0) against the live count at this run's share of the experts and a
       16-way model axis's: segment_matmul and the forward's expert part
-      timed both ways, the products beside their
+      timed both ways, the products on the wgmma path (bitwise over two
+      calls) beside today's mma_sync kernel through its C entry, their
       bound, plain version and ``torch._grouped_mm``; (g) prefill and 8
       decode steps with ``moe_impl="cuda"``, every MoE layer held to the
       plain ``moe_ragged`` on its data shard, the logits read against
@@ -358,7 +367,11 @@ Phases (any failure exits non-zero before the result line):
    yardstick), and its hub and reddit2 times beside their bounds; sddmm's
    adds ``shuffled_ms``; the gather's adds ``moe_combine`` and
    segment_matmul's ``moe_products``, the MoE shapes of 3h, each with its
-   ms, plain ms, bound and library ms; from 3i, segment_matmul's
+   ms, ``mma_sync_ms`` (today's kernel in the same call), plain ms, bound
+   and library ms; segment_matmul's ``typed_bf16`` (the path the rule
+   takes at the bf16 typed widths, beside ``mma_sync_ms``) and
+   ``launches_by_kernel_path`` (its launches on 3h and 3i by the kernel
+   they took: wgmma or mma_sync); from 3i, segment_matmul's
    ``moe_train_products`` (forward and dX), the gather's
    ``moe_train_backward`` (the combine's and the dispatch's dH), sddmm's
    ``moe_train_router_grad`` and segment_reduce's ``embedding_backward``.
@@ -486,6 +499,66 @@ def smm_bound(torch, m, k, n, groups, dtype, plan_bytes):
                      3 * flops, TF32_FLOPS, "TF32 tensor cores, 3 passes")
     return bound(m * (k + n) * es + groups * k * n * es + plan_bytes, flops,
                  BF16_FLOPS, "bf16 tensor cores")
+
+
+def smm_mma_sync(torch, x, sizes, w, w_transposed=False):
+    """A call of today's mma_sync kernel through its C entry
+    (``smm_launch``) on the inputs of a wgmma launch, for its time beside
+    the new path's in the same call (not a launch of the op, so not
+    counted); W read transposed is copied to (G, K, N) once, before."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.gather_segment_reduce import DTYPE_CODE
+    from repro_torch.kernels.segment_matmul import group_metadata
+    lib = _build.load("segment_matmul")
+    wk = w.transpose(1, 2).contiguous() if w_transposed else w.contiguous()
+    (m, k), (g, n) = x.shape, (wk.shape[0], wk.shape[2])
+    meta = group_metadata(sizes, m, 64)
+
+    def call():
+        out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+        _build.check(lib.smm_launch(
+            DTYPE_CODE[x.dtype], _build.ptr(x), _build.ptr(wk),
+            *(_build.ptr(t) for t in meta), _build.ptr(out), m, k, n, g, 64,
+            _build.stream_of(x)), "segment_matmul (mma_sync, C entry)")
+        return out
+    return call
+
+
+def smm_paths(kops, what, expect) -> dict:
+    """segment_matmul's launches by path since the last reset; fails unless
+    they equal ``expect``."""
+    got = kops.path_launch_counts()
+    if got != expect:
+        fail(f"{what}: segment_matmul's launches by path {got}, expected "
+             f"{expect}")
+    return got
+
+
+def smm_row(torch, kops, what, x, sizes, w, w_transposed=False) -> dict:
+    """A MoE product on the op (the wgmma path, checked): against the fp32
+    plain version, bitwise over two calls, its time, and today's mma_sync
+    kernel's through its C entry in the same call. {"max_abs_err", "ms",
+    "mma_sync_ms", "path"}."""
+    def kern():
+        return kops.segment_matmul(x, sizes, w, impl="cuda",
+                                   w_transposed=w_transposed)
+    before = kops.path_launch_counts()
+    got = kern()
+    torch.cuda.synchronize()
+    took = {p: v - before[p] for p, v in kops.path_launch_counts().items()}
+    if took != {"wgmma": 1, "mma_sync": 0}:
+        fail(f"{what}: took the paths {took}, expected the wgmma path")
+    err = compare(torch, what, got, kops.segment_matmul(
+        x.float(), sizes, w.float(), impl="ref", w_transposed=w_transposed),
+        torch.bfloat16)
+    deterministic(torch, what, kern)
+    mma = smm_mma_sync(torch, x, sizes, w, w_transposed)
+    compare(torch, f"{what} (mma_sync)", mma(), got, torch.bfloat16)
+    rec = {"max_abs_err": err, "ms": time_ms(torch, kern),
+           "mma_sync_ms": time_ms(torch, mma), "path": "wgmma"}
+    print(f"  {what}: wgmma {rec['ms']:.4f} ms, today's mma_sync kernel "
+          f"{rec['mma_sync_ms']:.4f} ms", flush=True)
+    return rec
 
 
 def cut_rows(row_ptr, run: int):
@@ -1938,7 +2011,10 @@ LM_SEEDS = (SEED, SEED + 1)            # the forward's weights and tokens
 # the port's kernels a MoE layer launches on moe_impl="cuda", and the names
 # of their CUDA kernels in a profile
 LM_MOE_KERNELS = {"segment_matmul": 3, "gather_segment_reduce": 1}
-LM_KERNEL_NAMES = ("smm_kernel", "gsr_runs", "gsr_fix")
+LM_KERNEL_NAMES = ("smm_tc_kernel", "smm_kernel", "gsr_runs", "gsr_fix")
+# segment_matmul's launches by path (kops.path_launch_counts) of one MoE
+# layer: its three products on the wgmma path
+LM_MOE_PATHS = {"wgmma": 3, "mma_sync": 0}
 
 
 @contextlib.contextmanager
@@ -2121,6 +2197,7 @@ def lm_phase(torch, dev, card) -> dict:
             if launched != LM_MOE_KERNELS:
                 fail(f"MoE layer T={t}: launched {launched}, expected "
                      f"{LM_MOE_KERNELS}")
+            smm_paths(kops, f"MoE layer T={t}", LM_MOE_PATHS)
             want, _ = moe_mod.moe(prm32, x.float(), cfg, impl="ragged")
             plain16, _ = moe_mod.moe(prm, x, cfg, impl="ragged")
         err = compare(torch, f"MoE layer T={t} cuda vs fp32 plain", got,
@@ -2156,15 +2233,11 @@ def lm_phase(torch, dev, card) -> dict:
         for name, xin, w in (("up", xs, prm.w_up), ("gate", xs, prm.w_gate),
                              ("down", hd, prm.w_down)):
             k_dim, n_dim = int(w.shape[1]), int(w.shape[2])
-            kern = (lambda xin=xin, w=w: kops.segment_matmul(
-                xin, sizes, w, impl="cuda"))
             plain = (lambda xin=xin, w=w: kops.segment_matmul(
                 xin, sizes, w, impl="ref"))
-            err_p = compare(torch, f"segment_matmul MoE {name} T={t}",
-                            kern(), kops.segment_matmul(
-                                xin.float(), sizes, w.float(), impl="ref"),
-                            bf16)
-            k_ms = time_ms(torch, kern)
+            row = smm_row(torch, kops, f"segment_matmul MoE {name} T={t}",
+                          xin, sizes, w)
+            err_p, k_ms = row["max_abs_err"], row["ms"]
             p_ms = time_ms(torch, plain, reps=5, warmup=1)
             print(f"  segment_matmul MoE {name} {k_dim}->{n_dim} T={t}: {a} "
                   f"rows in {active} of {cfg.num_experts} experts, bf16:",
@@ -2183,12 +2256,14 @@ def lm_phase(torch, dev, card) -> dict:
                 lib_ms = time_ms(torch, lambda xin=xin, w=w:
                                  torch._grouped_mm(xin, w, offs=offs))
             print(f"    max_abs_err={err_p:.3g} kernel_ms={k_ms:.4f} "
+                  f"(mma_sync {row['mma_sync_ms']:.4f}) "
                   f"plain_ms={p_ms:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]}) "
                   f"library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)}"
                   f" ({k_ms / bnd[0]:.1f}x its bound)", flush=True)
             smm_shapes.append({
                 "product": name, "tokens": t, "rows": a, "k": k_dim,
                 "n": n_dim, "experts_with_rows": active, "dtype": "bf16",
+                "path": row["path"], "mma_sync_ms": row["mma_sync_ms"],
                 "max_abs_err": err_p, "ms": k_ms, "plain_ms": p_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms,
                 "library_note": "torch._grouped_mm with the group offsets"
@@ -2304,6 +2379,9 @@ def lm_phase(torch, dev, card) -> dict:
         step_ms.append((time.perf_counter() - t1) * 1e3)
         step_logits.append(logits)
     launches_b = kops.launch_counts()
+    paths_b = smm_paths(kops, "lm serving", {
+        p: n * cfg.num_layers * (LM_PROMPT_LEN + LM_GEN)
+        for p, n in LM_MOE_PATHS.items()})
     expect = {k: n * cfg.num_layers * (LM_PROMPT_LEN + LM_GEN)
               for k, n in LM_MOE_KERNELS.items()}
     if {k: v for k, v in launches_b.items() if v} != expect:
@@ -2385,6 +2463,7 @@ def lm_phase(torch, dev, card) -> dict:
     torch.cuda.synchronize()
     cb_s = time.perf_counter() - t0
     launches_c = kops.launch_counts()
+    paths_c = smm_paths(kops, "batcher", {"wgmma": 0, "mma_sync": 0})
     if launches_c["gather_segment_reduce"] != ticks * cfg.num_layers:
         fail(f"batcher: {launches_c['gather_segment_reduce']} gather "
              f"launches over {ticks} ticks of {cfg.num_layers} MoE layers")
@@ -2429,6 +2508,8 @@ def lm_phase(torch, dev, card) -> dict:
           f"{record['batcher']['launches']}", flush=True)
     record["launches"] = {k: launches_b[k] + launches_c[k]
                           for k in launches_b}
+    record["segment_matmul_paths"] = {p: paths_b[p] + paths_c[p]
+                                      for p in paths_b}
     record["segment_matmul_moe"] = smm_shapes
     record["gather_moe"] = gather_shapes
     del model, batcher
@@ -2650,6 +2731,10 @@ def lm_train_phase(torch, dev, card) -> dict:
         if launched != want:
             fail(f"MoE layer forward + backward, {impl}: launched "
                  f"{launched}, expected {want}")
+        # the forward's three products and their dX, W read in place
+        smm_paths(kops, f"MoE layer forward + backward, {impl}",
+                  {p: 2 * n if impl == "cuda" else 0
+                   for p, n in LM_MOE_PATHS.items()})
         res[impl] = (y.detach(),) + tuple(grads)
         del leaves, xl, y, aux, grads
     errs = {}
@@ -2698,10 +2783,9 @@ def lm_train_phase(torch, dev, card) -> dict:
         w = wts[name]
         xin = h if name == "down" else xs
         kd, nd = int(w.shape[1]), int(w.shape[2])
-        err = compare(torch, f"segment_matmul forward {name}",
-                      kops.segment_matmul(xin, sizes, w, impl="cuda"),
-                      kops.segment_matmul(xin.float(), sizes, w.float(),
-                                          impl="ref"), bf16)
+        row = smm_row(torch, kops, f"segment_matmul forward {name}", xin,
+                      sizes, w)
+        err = row["max_abs_err"]
         pieces.append(piece(
             torch, f"forward {name} {kd}->{nd} (segment_matmul)",
             lambda xin=xin, w=w: kops.segment_matmul(xin, sizes, w,
@@ -2713,31 +2797,29 @@ def lm_train_phase(torch, dev, card) -> dict:
             lambda xin=xin, w=w: kops.segment_matmul(xin, sizes, w,
                                                      impl="ref"),
             err, {"kernel": "segment_matmul", "role": "forward", "rows": a,
-                  "k": kd, "n": nd, "experts_with_rows": active}))
-        w_t = w.transpose(1, 2).contiguous()
-        kd, nd = int(w_t.shape[1]), int(w_t.shape[2])
-        err = compare(torch, f"segment_matmul dX {name}",
-                      kops.segment_matmul(g, sizes, w_t, impl="cuda"),
-                      kops.segment_matmul(g.float(), sizes, w_t.float(),
-                                          impl="ref"), bf16)
+                  "k": kd, "n": nd, "experts_with_rows": active,
+                  "path": row["path"], "mma_sync_ms": row["mma_sync_ms"]}))
+        # dX = dY @ W[g]^T with W read in place (no transposed copy)
+        kd, nd = int(w.shape[2]), int(w.shape[1])
+        row = smm_row(torch, kops, f"segment_matmul dX {name}", g, sizes, w,
+                      w_transposed=True)
+        err = row["max_abs_err"]
         pieces.append(piece(
-            torch, f"dX {name} {kd}->{nd} (segment_matmul)",
-            lambda g=g, w_t=w_t: kops.segment_matmul(g, sizes, w_t,
-                                                     impl="cuda"),
+            torch, f"dX {name} {kd}->{nd} (segment_matmul, W^T read in place)",
+            lambda g=g, w=w: kops.segment_matmul(g, sizes, w, impl="cuda",
+                                                 w_transposed=True),
             bound(a * (kd + nd) * 2 + active * kd * nd * 2 + plan_bytes,
                   2 * a * kd * nd, BF16_FLOPS, "bf16 tensor cores"),
-            lambda g=g, w_t=w_t: torch._grouped_mm(g, w_t, offs=offs),
-            "torch._grouped_mm with the group offsets",
-            lambda g=g, w_t=w_t: kops.segment_matmul(g, sizes, w_t,
-                                                     impl="ref"),
+            lambda g=g, w=w: torch._grouped_mm(g, w.transpose(1, 2),
+                                               offs=offs),
+            "torch._grouped_mm with the group offsets, W^T a strided view",
+            lambda g=g, w=w: kops.segment_matmul(g, sizes, w, impl="ref",
+                                                 w_transposed=True),
             err, {"kernel": "segment_matmul", "role": "dX", "rows": a,
-                  "k": kd, "n": nd, "experts_with_rows": active}))
-        del w_t
-        nbytes = w.numel() * 2
-        pieces.append(piece(
-            torch, f"W^T copy {name} ({nbytes / 1e6:.0f} MB)",
-            lambda w=w: w.transpose(1, 2).contiguous(),
-            bound(2 * nbytes, 0), extra={"role": "W^T copy"}))
+                  "k": kd, "n": nd, "experts_with_rows": active,
+                  "path": row["path"], "mma_sync_ms": row["mma_sync_ms"],
+                  "mma_sync_note": "today's kernel on a (G, K, N) copy of "
+                  "W^T made before the timing"}))
         gout = g_ys if name == "down" else g_h
         kd, nd = int(w.shape[1]), int(w.shape[2])
         pieces.append(piece(
@@ -2878,6 +2960,8 @@ def lm_train_phase(torch, dev, card) -> dict:
         t0 = time.perf_counter()
         run = train.fit(task, data, tcfg(LM_TRAIN_STEPS), metrics_cb=mark)
     launches = kops.launch_counts()
+    smm_paths_train = smm_paths(kops, "lm training", {
+        "wgmma": launches["segment_matmul"], "mma_sync": 0})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_s = [ends[0] - t0] + [ends[i] - ends[i - 1]
                                for i in range(1, len(ends))]
@@ -2904,6 +2988,7 @@ def lm_train_phase(torch, dev, card) -> dict:
         "peak_alloc_gb": peak_gb, "before_fit_gb": base_gb,
         "reckoned_state_gb": reckoned_gb,
         "launches": {kk: v for kk, v in launches.items() if v},
+        "segment_matmul_paths": smm_paths_train,
         "profiled_step": split}
     record["training"] = training
     print(f"  fit: {LM_TRAIN_STEPS} steps, losses "
@@ -2986,6 +3071,7 @@ def lm_train_phase(torch, dev, card) -> dict:
           f"uninterrupted run's", flush=True)
     record["resume_bitwise"] = True
     record["launches"] = training["launches"]
+    record["segment_matmul_paths"] = training["segment_matmul_paths"]
     del whole, resumed
     gc.collect()
     torch.cuda.empty_cache()
@@ -3417,11 +3503,12 @@ def _dropless_tail(torch, kops, moe_mod, cfg, prm, x_loc, e_m, m_rank):
                 if share != "model_2":
                     continue
                 kd, nd = int(w.shape[1]), int(w.shape[2])
-                rec[f"{what}_max_abs_err"] = compare(
-                    torch, f"segment_matmul {what} over the static tail",
-                    kops.segment_matmul(a, sizes, w, impl="cuda"),
-                    kops.segment_matmul(a.float(), sizes, w.float(),
-                                        impl="ref"), torch.bfloat16)
+                # the wgmma path (checked, bitwise, beside today's kernel)
+                row = smm_row(torch, kops, f"segment_matmul {what} over the "
+                              "static tail", a, sizes, w)
+                rec[f"{what}_max_abs_err"] = row["max_abs_err"]
+                rec[f"{what}_mma_sync_ms"] = row["mma_sync_ms"]
+                rec[f"{what}_path"] = row["path"]
                 # the live rows read, every row written (the tail as 0),
                 # the weights of the experts with rows read once
                 rec[f"{what}_bound_ms"], rec[f"{what}_bound_by"] = bound(
@@ -3495,6 +3582,8 @@ def _lm_dropless(torch, dist, rank, dev, mesh, plan, cfg, say) -> dict:
         if not launched_f.get(k):
             fail(f"rank {rank}: the dropless MoE layer under the mesh never "
                  f"launched {k}: {launched_f}")
+    smm_paths(kops, f"rank {rank}: the dropless MoE layer under the mesh",
+              {"wgmma": launched_f["segment_matmul"], "mma_sync": 0})
     got = [y.to_local(), grads[0].redistribute(mesh, xpl).to_local()] + [
         g.full_tensor() for g in grads[1:]]
     del sprm, leaves, xs, cts, y, grads
@@ -3730,6 +3819,9 @@ def _sharded_serve_and_train(torch, dist, rank, dev, mesh, plan, cfg,
     torch.cuda.synchronize()
     counts = kops.launch_counts()
     launched = {k: counts[k] - ref_launches[k] for k in counts}
+    if kops.path_launch_counts()["mma_sync"]:
+        fail(f"{what}: a MoE product took segment_matmul's mma_sync path: "
+             f"{kops.path_launch_counts()}")
     losses = run.losses
     if not all(math.isfinite(v) for v in losses):
         fail(f"{what}: non-finite losses {losses}")
@@ -4502,6 +4594,18 @@ def main() -> None:
                               f"{str(dtype)[6:]}",
                               lambda: kops.segment_matmul(
                                   x, sizes, w, plan=rplan, impl="cuda"))
+            if dtype == torch.bfloat16:
+                # the path the rule takes here, beside today's mma_sync
+                # kernel through its C entry in the same call
+                from repro_torch.kernels import segment_matmul as smm_mod
+                mma_ms = time_ms(torch, smm_mma_sync(torch, x, sizes, w))
+                results[("smm typed bf16", k_dim, n_dim)] = {
+                    "path": smm_mod.path_of(x, w), "ms":
+                    results[("smm", k_dim, n_dim, dtype)][1],
+                    "mma_sync_ms": mma_ms}
+                print(f"  segment_matmul {k_dim}->{n_dim} bf16 took the "
+                      f"{smm_mod.path_of(x, w)} path; today's mma_sync "
+                      f"kernel {mma_ms:.4f} ms", flush=True)
             # yardstick: one torch._grouped_mm with the group offsets
             # (timed only)
             out, reason = library(
@@ -5186,6 +5290,15 @@ def main() -> None:
     # the MoE shapes of phase 3h: the combine, and the three expert products
     kernels[0]["moe_combine"] = lm_record["gather_moe"]
     kernels[3]["moe_products"] = lm_record["segment_matmul_moe"]
+    # the typed widths in bf16: the path the rule takes, and today's
+    # mma_sync kernel's time in the same call
+    kernels[3]["typed_bf16"] = {
+        f"{k_dim}->{n_dim}": results[("smm typed bf16", k_dim, n_dim)]
+        for k_dim, n_dim in ((HIDDEN, HIDDEN), (FEAT, 2 * HIDDEN))}
+    # segment_matmul's launches on the LM paths by the kernel they took
+    kernels[3]["launches_by_kernel_path"] = {
+        "lm": lm_record["segment_matmul_paths"],
+        "lm_train": lm_train["segment_matmul_paths"]}
     # the training shapes of phase 3i: the expert products' dX, the
     # combine's dH and the dispatch's dH, the router-weight gradient, the
     # embedding's backward

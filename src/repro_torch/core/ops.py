@@ -18,11 +18,11 @@ gather kernel walking the edges in source order
 (:func:`~repro_torch.kernels.ops.transposed_gather`, over the plan's
 :class:`~repro_torch.core.plan.SourceOrder` or one sorted on the device),
 an edge-weight gradient is the sddmm kernel, the softmax's per-segment sum
-is segment_reduce, and the grouped matmul's dX is segment_matmul with Wᵀ.
-The reference's rules hold: rows with an out-of-range segment id get no
-gradient, tied maxima split it, gradients accumulate in fp32 and are cast
-back to the io dtype. Only the gradients ``ctx.needs_input_grad`` asks for
-are computed.
+is segment_reduce, and the grouped matmul's dX is segment_matmul reading
+Wᵀ in place. The reference's rules hold: rows with an out-of-range segment
+id get no gradient, tied maxima split it, gradients accumulate in fp32 and
+are cast back to the io dtype. Only the gradients ``ctx.needs_input_grad``
+asks for are computed.
 """
 from __future__ import annotations
 
@@ -515,11 +515,10 @@ class _GroupedSegmentMatmul(torch.autograd.Function):
         y_bar = y_bar.to(x.dtype)
         dx = dw = None
         if need_x:
-            # one grouped launch with Wᵀ on the same group schedule; rows
-            # past the groups come out 0
-            dx = kops.segment_matmul(y_bar, group_sizes,
-                                     w.transpose(1, 2).contiguous(),
-                                     plan=plan, impl=impl)
+            # one grouped launch with W[g]ᵀ read in place, on the same
+            # group schedule; rows past the groups come out 0
+            dx = kops.segment_matmul(y_bar, group_sizes, w, plan=plan,
+                                     impl=impl, w_transposed=True)
         if need_w:
             dw = _grouped_dw(x, y_bar, group_sizes, plan, w.shape, w.dtype)
         return dx, dw, None, None, None, None

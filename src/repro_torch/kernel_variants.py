@@ -3,8 +3,10 @@
     python -m repro_torch.kernel_variants [--rounds 3] [--kernels a,b]
 
 Compiles copies of ``kernels/csrc/segment_softmax.cu`` with ``RUN`` = 64,
-128, 256 and 512, of ``segment_matmul.cu`` with its ring of ``STAGES`` =
-2, 3 and 4 X stages, of ``fused_transform_reduce.cu`` with ``U`` = 2, 4
+128, 256 and 512, of ``segment_matmul.cu`` with its mma_sync path's ring
+of ``STAGES`` = 2, 3 and 4 X stages and its wgmma path's tile width
+``TC_BN`` = 64, 128 and 256, depth ``TC_BK`` = 64 and 128 and ring of
+``TC_STAGES`` = 3, 4 and 5 stages, of ``fused_transform_reduce.cu`` with ``U`` = 2, 4
 and 8 rows of H in flight a lane group (its product is the tensor-core one
 only; it runs at the default tile, S_b = 64), and of ``sddmm.cu`` with runs of
 ``RUN`` = 16, 32 and 64 pairs and ``LPR`` = 4, 8 and 16 lanes a row (each
@@ -16,7 +18,15 @@ directory), and times each through its C entry point at the shapes
 
   * segment_softmax: fp32 and bf16 (E, 4) and fp32 (E,) at the ogbn-arxiv
     bucket, fp32 (E, 2) over the AM typed rows;
-  * segment_matmul: fp32 and bf16 64->64 and 64->128 over the AM typed rows;
+  * segment_matmul: the mma_sync path (STAGES) at fp32 and bf16 64->64 and
+    64->128 over the AM typed rows; the wgmma path (TC_*) at bf16 64->64
+    over the AM typed rows and at the MoE products of qwen3-moe-30b-a3b
+    (2048->768 and 768->2048, 128 experts): 64 rows in 47 experts (a
+    decode step), 16,384 rows (a training step) and 32,768 (a 4096-token
+    prefill), W as (G, K, N) and, for the dX, as (G, N, K); and both
+    paths at their shipped values in bf16 over the AM typed rows, at the
+    typed widths (32->128, 64->16, 64->32, 64->64, 64->128) and at K =
+    128 and 256 (which path the rule should give them);
   * fused_transform_reduce: weighted sum fp32 and bf16 32->64, fp32 64->64
     and 64->16, and mean fp32 32->64 at the ogbn-arxiv bucket, weighted
     sum fp32 32->64 at gcn's reddit2 request;
@@ -38,9 +48,11 @@ bf16 2e-2, atol the same times the largest magnitude). The variants of one
 configuration are timed in turns, ``--rounds`` rounds of the median of 20
 CUDA-event timings after 3 warm-ups, each behind a busy-wait kernel so host
 launch time stays out; the median over the rounds is printed, with the
-card's name and power limit. The shipped values are RUN = 128 (the
-softmax), RUN = 32 and LPR = 8 (sddmm), STAGES = 2, and U = 4 (the fused
-kernel). The gather's and segment_reduce's run length and the fused
+card's name and power limit. A variant that does not fit (a wgmma
+ring above the 227 KB of shared memory) is reported and left out. The
+shipped values are RUN = 128 (the softmax), RUN = 32 and LPR = 8
+(sddmm), STAGES = 2, TC_BN = 128, TC_BK = 64, TC_STAGES = 5, and U = 4
+(the fused kernel). The gather's and segment_reduce's run length and the fused
 kernel's tile are no longer build-time variants: each is built for every
 value of its config axis and picked at run time, and
 :func:`repro_torch.core.autotune.tune` sweeps them (``chip_smoke.py``
@@ -68,7 +80,10 @@ AM_NODES, AM_EDGES, AM_RELATIONS = 1_666_764, 5_988_321, 133
 # loads at a time; 16: one vector, four pairs')
 VARIANTS = {
     "segment_softmax": [("constexpr int RUN = {};", (64, 128, 256, 512))],
-    "segment_matmul": [("constexpr int STAGES = {};", (2, 3, 4))],
+    "segment_matmul": [("constexpr int STAGES = {};", (2, 3, 4)),
+                       ("constexpr int TC_BN = {};", (64, 128, 256)),
+                       ("constexpr int TC_BK = {};", (64, 128)),
+                       ("constexpr int TC_STAGES = {};", (3, 4, 5))],
     "fused_transform_reduce": [("constexpr int U = {};", (2, 4, 8))],
     "sddmm": [("constexpr int RUN = {};", (16, 32, 64)),
               ("constexpr int LPR = {};", (4, 8, 16))]}
@@ -98,6 +113,20 @@ def _nvcc(_build, cu, so):
                             stderr=subprocess.STDOUT, text=True)
 
 
+def shipped_values(_build, name) -> dict:
+    """{CONST: value} of every line swept for ``name``, as its source has
+    them."""
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    shipped = {}
+    for line, values in VARIANTS[name]:
+        found = [v for v in values if line.format(v) in src]
+        if len(found) != 1:
+            sys.exit(f"kernel_variants: {name}.cu has no line "
+                     f"{line.format('N')!r} with one of {values}")
+        shipped[_const(line)] = found[0]
+    return shipped
+
+
 def build_variants(_build, names, probe=False):
     """{(name, "CONST=value"): (loaded library, {CONST: value} of every
     line swept for ``name``)}, compiled in parallel; with ``probe``, also
@@ -107,13 +136,7 @@ def build_variants(_build, names, probe=False):
     procs = {}
     for name in names:
         src = (_build.CSRC / f"{name}.cu").read_text()
-        shipped = {}
-        for line, values in VARIANTS[name]:
-            found = [v for v in values if line.format(v) in src]
-            if len(found) != 1:
-                sys.exit(f"kernel_variants: {name}.cu has no line "
-                         f"{line.format('N')!r} with one of {values}")
-            shipped[_const(line)] = found[0]
+        shipped = shipped_values(_build, name)
         for line, values in VARIANTS[name]:
             const = _const(line)
             for v in values:
@@ -266,6 +289,35 @@ def main() -> None:
             nbytes = int(col.numel()) * b.shape[1] * b.element_size()
             rate = f", {nbytes} B at {nbytes / t / 1e9:.2f} TB/s"
         print(f"    {label} alone: {u} {t:.4f} ms{rate}", flush=True)
+
+    def smm_tc(key, x, w, off, n, w_kn):
+        """The wgmma path of variant `key`; None where its launch is
+        refused (a ring that does not fit)."""
+        lib, _ = libs[("segment_matmul", key)]
+        out = torch.empty((int(x.shape[0]), n), dtype=x.dtype, device=dev)
+        err = lib.smm_tc_launch(ptr(x), ptr(w), ptr(off), ptr(out),
+                                int(x.shape[0]), int(x.shape[1]), n,
+                                int(w.shape[0]), w_kn, stream(x))
+        return None if err else out
+
+    def timed_tc(what, keys, x, w, off, n, w_kn, want):
+        """`timed` over the wgmma variants of `keys` that launch and agree
+        with `want` (each one left out is reported)."""
+        calls = {}
+        for key in keys:
+            got = smm_tc(key, x, w, off, n, w_kn)
+            torch.cuda.synchronize()
+            if got is None:
+                print(f"  {what}: {key} refused at launch (shared memory)",
+                      flush=True)
+                continue
+            err = float((got.float() - want).abs().max())
+            if not err <= 2e-2 * max(float(want.abs().max()), 1e-30):
+                print(f"  {what}: {key} disagrees with the plain version "
+                      f"(max abs error {err:.4g}); left out", flush=True)
+                continue
+            calls[key] = (lambda key=key: smm_tc(key, x, w, off, n, w_kn))
+        return timed(what, calls, want, x.dtype)
 
     def smm(key, x, w, rplan):
         lib, _ = libs[("segment_matmul", key)]
@@ -435,24 +487,89 @@ def main() -> None:
               torch.float32)
         del x
     if "segment_matmul" in names:
-        stages = variant_keys("segment_matmul")
+        keys = variant_keys("segment_matmul")
+        stages = [k for k in keys if k.startswith("STAGES=")]
+        tc_keys = [k for k in keys if k.startswith("TC_")]
         sizes = torch.from_numpy(am.type_counts).to(dev)
         rplan = am.make_relation_plan(feat=HIDDEN, device=dev)
         print(f"segment_matmul over M={m} rows in {AM_RELATIONS} groups, "
-              f"variants {stages}:", flush=True)
+              f"mma_sync variants {stages}:", flush=True)
         for k, n in ((HIDDEN, HIDDEN), (HIDDEN, 2 * HIDDEN)):
             x32 = torch.randn(m, k, generator=gen, device=dev)
             w32 = torch.randn(AM_RELATIONS, k, n, generator=gen,
                               device=dev) / k ** 0.5
             for dtype in (torch.float32, torch.bfloat16):
                 x, w = x32.to(dtype), w32.to(dtype)
+                want = kops.segment_matmul(x.float(), sizes, w.float(),
+                                           impl="ref")
                 timed(f"{k}->{n} {str(dtype)[6:]}",
                       {s: (lambda s=s: smm(s, x, w, rplan)) for s in stages},
-                      kops.segment_matmul(x.float(), sizes, w.float(),
-                                          impl="ref"), dtype)
-                del x, w
+                      want, dtype)
+                if dtype == torch.bfloat16 and n == HIDDEN:
+                    timed_tc(f"{k}->{n} bf16 on the wgmma path", tc_keys, x,
+                             w, rplan.offsets, n, 1, want)
+                del x, w, want
             del x32, w32
+        # where the rule should send bf16 (segment_matmul.TC_MIN_N): both
+        # paths at their shipped values
+        shipped = shipped_values(_build, "segment_matmul")
+        ship = {p: next(v for v in keys if v.startswith(p) and
+                        libs[("segment_matmul", v)][1] == shipped)
+                for p in ("STAGES", "TC")}
+        print(f"segment_matmul bf16 over M={m} rows, mma_sync "
+              f"({ship['STAGES']}) against wgmma ({ship['TC']}), shipped "
+              f"values, at the typed widths and deeper K:", flush=True)
+        for k, n in ((32, 128), (64, 16), (64, 32), (64, 64), (64, 128),
+                     (128, 64), (256, 64)):
+            x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+            w = (torch.randn(AM_RELATIONS, k, n, generator=gen,
+                             device=dev) / k ** 0.5).bfloat16()
+            want = kops.segment_matmul(x.float(), sizes, w.float(),
+                                       impl="ref")
+            timed(f"{k}->{n} bf16",
+                  {"mma_sync": lambda: smm(ship["STAGES"], x, w, rplan),
+                   "wgmma": lambda: smm_tc(ship["TC"], x, w, rplan.offsets,
+                                           n, 1)}, want, torch.bfloat16)
+            del x, w, want
+        smm_moe(tc_keys, smm_tc, timed_tc, gen, dev)
     print(card, flush=True)
+
+
+def moe_sizes(gen, rows, groups, active, dev):
+    """``rows`` rows routed over ``active`` of ``groups`` experts (each at
+    least one), drawn from ``gen``: int32 sizes on ``dev``."""
+    pick = torch.randperm(groups, generator=gen, device=dev)[:active]
+    extra = torch.multinomial(torch.ones(active, device=dev), rows - active,
+                              replacement=True, generator=gen)
+    sizes = torch.zeros(groups, dtype=torch.int64, device=dev)
+    sizes[pick] = 1 + torch.bincount(extra, minlength=active)
+    return sizes.to(torch.int32)
+
+
+def smm_moe(tc_keys, smm_tc, timed_tc, gen, dev):
+    """The wgmma variants at qwen3-moe-30b-a3b's products (128 experts,
+    d_model 2048, d_ff 768): a decode step's 64 rows in 47 experts, a
+    training step's 16,384 rows and a 4096-token prefill's 32,768 in all,
+    W as (G, K, N) and as (G, N, K)."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.segment_matmul import group_metadata
+    print(f"segment_matmul at the MoE products, wgmma variants {tc_keys}:",
+          flush=True)
+    for rows, active in ((64, 47), (16384, 128), (32768, 128)):
+        sizes = moe_sizes(gen, rows, 128, active, dev)
+        off = group_metadata(sizes, rows, 64)[0]
+        for k, n in ((2048, 768), (768, 2048)):
+            x = torch.randn(rows, k, generator=gen, device=dev).bfloat16()
+            w = (torch.randn(128, k, n, generator=gen, device=dev)
+                 / k ** 0.5).bfloat16()
+            want = kops.segment_matmul(x.float(), sizes, w.float(),
+                                       impl="ref")
+            timed_tc(f"{rows} rows in {active} experts {k}->{n} W (G, K, N)",
+                     tc_keys, x, w, off, n, 1, want)
+            wt = w.transpose(1, 2).contiguous()
+            timed_tc(f"{rows} rows in {active} experts {k}->{n} W (G, N, K)",
+                     tc_keys, x, wt, off, n, 0, want)
+            del x, w, wt, want
 
 
 if __name__ == "__main__":

@@ -89,6 +89,9 @@ SIGNATURES = {
         # dtype, x, w, offsets, first_group, group_count, out, num_rows,
         # k_dim, n_dim, num_groups, m_b, stream
         "smm_launch": [_I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
+        # x, w, offsets, out, num_rows, k_dim, n_dim, num_groups, w_kn,
+        # stream (the bf16 wgmma path)
+        "smm_tc_launch": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
     },
 }
 

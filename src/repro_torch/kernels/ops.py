@@ -8,8 +8,8 @@ Backend (``impl``):
   * ``"ref"`` — the plain PyTorch version, on any device (on the card it is
     only ever asked for explicitly, as an oracle);
   * ``"blocked"`` — gather_segment_reduce, segment_reduce,
-    segment_softmax and fused_transform_reduce: their kernels' schedules in
-    plain PyTorch.
+    segment_softmax, fused_transform_reduce and segment_matmul (its wgmma
+    path's work items): their kernels' schedules in plain PyTorch.
 
 There is no fallback: a CUDA tensor reaches the kernel or the call raises.
 
@@ -105,9 +105,18 @@ def launch_counts() -> dict:
     return {name: mod.launches for name, mod in _KERNEL_MODULES.items()}
 
 
+def path_launch_counts() -> dict:
+    """segment_matmul's launches since the last reset by the path each
+    took (:func:`~repro_torch.kernels.segment_matmul.path`): ``wgmma``
+    and ``mma_sync``; they sum to its count in :func:`launch_counts`."""
+    return dict(_smm.path_launches)
+
+
 def reset_launch_counts() -> None:
     for mod in _KERNEL_MODULES.values():
         mod.launches = 0
+    for which in _smm.path_launches:
+        _smm.path_launches[which] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -399,10 +408,15 @@ def sddmm_rows(a, b, row_idx, col_idx, impl: Optional[str] = None):
 
 
 def segment_matmul(x, group_sizes, w, config: Optional[KernelConfig] = None,
-                   plan=None, impl: Optional[str] = None):
+                   plan=None, impl: Optional[str] = None,
+                   w_transposed: bool = False):
     """Grouped GEMM over contiguous row groups, one launch for every
     relation: out[rows of g] = X[rows of g] @ W[g]; rows past
-    ``sum(group_sizes)`` are 0.
+    ``sum(group_sizes)`` are 0. With ``w_transposed``, ``w`` is (G, N, K)
+    and the product is X @ W[g]ᵀ, read in place (the backward's dX).
+
+    ``impl="blocked"`` runs the wgmma path's work items in plain PyTorch
+    (:func:`~repro_torch.kernels.segment_matmul.segment_matmul_blocked`).
 
     ``plan`` may be a :class:`~repro_torch.core.plan.RelationPlan`: its
     ``offsets`` / ``first_group`` / ``group_count`` feed the kernel (no
@@ -410,10 +424,13 @@ def segment_matmul(x, group_sizes, w, config: Optional[KernelConfig] = None,
     (m_b, n_b). A :class:`~repro_torch.core.plan.SegmentPlan` contributes
     its config only. Without a RelationPlan the metadata is computed on
     the device from ``group_sizes``."""
-    impl = resolve_impl(x, impl, ("cuda", "ref"))
+    impl = resolve_impl(x, impl, ("cuda", "ref", "blocked"))
     if impl == "ref":
         account("unfused", "segment_matmul:ref")
-        return _smm.segment_matmul_ref(x, group_sizes, w)
+        return _smm.segment_matmul_ref(x, group_sizes, w, w_transposed)
+    if impl == "blocked":
+        account("unfused", "segment_matmul:blocked")
+        return _smm.segment_matmul_blocked(x, group_sizes, w, w_transposed)
     num_rows, num_groups = int(x.shape[0]), int(w.shape[0])
     if plan is not None and hasattr(plan, "first_group"):
         plan.validate(num_rows, num_groups)
@@ -429,13 +446,18 @@ def segment_matmul(x, group_sizes, w, config: Optional[KernelConfig] = None,
     else:
         if config is None and plan is not None:
             config = plan.config
-        config = config or default_config(int(w.shape[-1]))
+        config = config or default_config(_smm._out_width(w, w_transposed))
         sizes = torch.as_tensor(group_sizes, device=x.device)
         if sizes.shape != (num_groups,):
             raise ValueError(f"group_sizes must be ({num_groups},), got "
                              f"{tuple(sizes.shape)}")
-        meta = _smm.group_metadata(sizes, num_rows, config.m_b)
+        if _smm.path_of(x, w, w_transposed) == "wgmma":
+            # the offsets only: no row-block schedule to compute
+            none = torch.empty(0, dtype=torch.int32, device=x.device)
+            meta = (_smm.group_offsets(sizes), none, none)
+        else:
+            meta = _smm.group_metadata(sizes, num_rows, config.m_b)
     account("fused", "segment_matmul")
     return _smm.segment_matmul_cuda(x.contiguous(),
                                     w.to(x.dtype).contiguous(), *meta,
-                                    config.m_b)
+                                    config.m_b, w_transposed)

@@ -360,14 +360,44 @@ SMM_CASES = {
     # a deep odd K: a short last chunk, and 2-byte copies in bf16
     "k1001": dict(sizes=lambda rng: rng.integers(0, 300, 6), pad=0, k=1001,
                   n=40),
+    # the MoE shapes of qwen3-moe-30b-a3b (bf16 on the wgmma path): a
+    # decode step's 64 rows in 47 of 128 experts, up and down
+    "moe_decode": dict(sizes=lambda rng: _moe_sizes(rng, 64, 128, 47),
+                       pad=0, k=2048, n=768),
+    "moe_down": dict(sizes=lambda rng: _moe_sizes(rng, 64, 128, 47), pad=0,
+                     k=768, n=2048),
+    # a training step's 16,384 rows in 128 experts
+    "moe_16k": dict(sizes=lambda rng: _moe_sizes(rng, 16384, 128, 128),
+                    pad=0, k=2048, n=768),
+    # the dropless static tail: half of a rank's rows past its 64 experts
+    "dropless_tail": dict(sizes=lambda rng: _moe_sizes(rng, 8192, 64, 64),
+                          pad=8192, k=768, n=2048),
+    # a group of one row among empty ones
+    "one_row": dict(sizes=lambda rng: np.array([0, 1, 0, 0]), pad=0,
+                    k=2048, n=768),
 }
+
+
+def _moe_sizes(rng, rows, groups, active):
+    """``rows`` routed rows over ``active`` of ``groups`` experts, each
+    active expert at least one row."""
+    sizes = np.zeros(groups, np.int64)
+    idx = rng.choice(groups, active, replace=False)
+    sizes[idx] = 1 + rng.multinomial(rows - active,
+                                      np.full(active, 1.0 / active))
+    return sizes
 
 
 @pytest.mark.parametrize("case", list(SMM_CASES))
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("with_plan", [False, True])
-def test_segment_matmul_kernel(dev, case, dtype, with_plan):
+@pytest.mark.parametrize("w_transposed", [False, True])
+def test_segment_matmul_kernel(dev, case, dtype, with_plan, w_transposed):
+    """Each case against the fp32 plain version, with W read as (G, K, N)
+    or, transposed, as (G, N, K); the launch took the path the rule
+    names."""
     from repro_torch.core.plan import make_relation_plan
+    from repro_torch.kernels import segment_matmul as smm
     c = SMM_CASES[case]
     rng = np.random.default_rng(len(case))
     sizes = torch.from_numpy(c["sizes"](rng).astype(np.int32)).to(dev)
@@ -375,12 +405,18 @@ def test_segment_matmul_kernel(dev, case, dtype, with_plan):
     x = torch.randn(m, c["k"], device=dev).to(dtype)
     w = (torch.randn(sizes.numel(), c["k"], c["n"], device=dev)
          / c["k"] ** 0.5).to(dtype)
+    wc = w.transpose(1, 2).contiguous() if w_transposed else w
     plan = make_relation_plan(sizes, num_rows=m, feat=c["n"]) \
         if with_plan else None
     before = kops.launch_counts()["segment_matmul"]
-    got = kops.segment_matmul(x, sizes, w, plan=plan, impl="cuda")
+    paths = kops.path_launch_counts()
+    got = kops.segment_matmul(x, sizes, wc, plan=plan, impl="cuda",
+                              w_transposed=w_transposed)
     torch.cuda.synchronize()
     assert kops.launch_counts()["segment_matmul"] == before + 1
+    took = {k: v - paths[k] for k, v in kops.path_launch_counts().items()}
+    want_path = smm.path(dtype, m, c["k"], c["n"], sizes.numel())
+    assert took == {p: int(p == want_path) for p in took}
     assert got.dtype == dtype and got.shape == (m, c["n"])
     _close(got, kops.segment_matmul(x.float(), sizes, w.float(), impl="ref"),
            dtype)
@@ -389,15 +425,18 @@ def test_segment_matmul_kernel(dev, case, dtype, with_plan):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n", [16, 64, 128])
-def test_segment_matmul_deterministic(dev, dtype, n):
+@pytest.mark.parametrize("k,n", [(64, 16), (64, 64), (64, 128), (2048, 768)])
+def test_segment_matmul_deterministic(dev, dtype, k, n):
+    """Two launches give the same bits: the typed widths, and the MoE up
+    product at 16,384 rows in 128 experts (bf16: the wgmma path)."""
     from repro_torch.core.plan import make_relation_plan
     rng = np.random.default_rng(n)
-    sizes = torch.from_numpy(rng.integers(0, 5000, 40).astype(np.int32)
-                             ).to(dev)
+    sizes = (_moe_sizes(rng, 16384, 128, 128) if k == 2048
+             else rng.integers(0, 5000, 40))
+    sizes = torch.from_numpy(sizes.astype(np.int32)).to(dev)
     m = int(sizes.sum()) + 33
-    x = torch.randn(m, 64, device=dev).to(dtype)
-    w = (torch.randn(40, 64, n, device=dev) / 8).to(dtype)
+    x = torch.randn(m, k, device=dev).to(dtype)
+    w = (torch.randn(sizes.numel(), k, n, device=dev) / k ** 0.5).to(dtype)
     plan = make_relation_plan(sizes, num_rows=m, feat=n)
     first = kops.segment_matmul(x, sizes, w, plan=plan, impl="cuda")
     again = kops.segment_matmul(x, sizes, w, plan=plan, impl="cuda")

@@ -631,6 +631,40 @@ def test_flop_formulas_of_the_product_kernels():
         assert fc.get_total_flops() == 2 * s * k * n
 
 
+@pytest.mark.parametrize("k,n", [(16, 24), (512, 256)])
+@pytest.mark.parametrize("counter", ["flop_counter", "step_tally"])
+def test_traced_dx_counts_with_w_transposed(counter, k, n):
+    """The backward's dX, W read transposed (dY (M, N) @ W[g]ᵀ with W (G,
+    K, N)), traced on fake CUDA tensors: 2·M·N·K FLOPs by the flop
+    counter and by the dry run's tally, one segment_matmul, an (M, K)
+    output; on the mma_sync path's metadata (N = 24) and on the wgmma
+    path's offsets alone (N = 256)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import segment_matmul as smm
+    from repro_torch.launch.tally import StepTally
+    m = 300
+    assert smm.path(torch.bfloat16, m, n, k, 3) == (
+        "wgmma" if n == 256 else "mma_sync")
+    with FakeTensorMode():
+        dy = torch.empty(m, n, device="cuda", dtype=torch.bfloat16)
+        w = torch.empty(3, k, n, device="cuda", dtype=torch.bfloat16)
+        sizes = torch.tensor([100, 0, 150], device="cuda")
+        mode = (FlopCounterMode(display=False) if counter == "flop_counter"
+                else StepTally())
+        with mode as c:
+            dx = kops.segment_matmul(dy, sizes, w, impl="cuda",
+                                     w_transposed=True)
+        assert tuple(dx.shape) == (m, k) and dx.dtype == torch.bfloat16
+        if counter == "flop_counter":
+            assert c.get_total_flops() == 2 * m * n * k
+        else:
+            assert c.flops == 2 * m * n * k
+            assert c.kernels["segment_matmul"] == 1
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "--fake":
         _fake_main(sys.argv[2])

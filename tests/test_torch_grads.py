@@ -292,6 +292,33 @@ def test_grouped_segment_matmul_grad(dtype, k):
     _check("gsm", dtype, None, k)
 
 
+@pytest.mark.parametrize("impl", [None, "blocked"])
+@pytest.mark.parametrize("k", FEATS)
+def test_grouped_segment_matmul_dx_reads_w_in_place(k, impl, monkeypatch):
+    """The backward's dX is one segment_matmul that reads W[g]ᵀ in place
+    (``w_transposed``, the forward's own W tensor, no transposed copy),
+    held with dW to ``jax.vjp`` of the reference in fp32 (1e-5); with
+    ``impl="blocked"`` the forward and the dX walk the wgmma path's work
+    items."""
+    calls = []
+    orig = kops.segment_matmul
+
+    def spy(x, group_sizes, w, *args, **kwargs):
+        calls.append((w, kwargs.get("w_transposed", False)))
+        return orig(x, group_sizes, w, *args, **kwargs)
+    monkeypatch.setattr(kops, "segment_matmul", spy)
+    want = _jax_grads("gsm", "float32", k)
+    fn, args, ct = _CASES["gsm"]("float32", k)
+    x, w = (t.clone().requires_grad_() for t in args[1])
+    y = fn[1](x, w, impl)
+    y.backward(ct[0])
+    (fw, fw_t), (bw, bw_t) = calls
+    assert fw is w and not fw_t
+    assert bw is w and bw_t          # W itself, read transposed
+    for g, want_g in zip((x.grad, w.grad), want):
+        _assert_close(g.numpy(), want_g, "float32")
+
+
 # ---------------------------------------------------------------------------
 # rules: ties, the graph plan's source order, gradients not asked for
 # ---------------------------------------------------------------------------

@@ -39,7 +39,9 @@ from repro_torch.kernels import segment_reduce as tsrd  # noqa: E402
 from repro_torch.kernels import segment_softmax as tssm  # noqa: E402
 from repro_torch.kernels.gather_segment_reduce import (  # noqa: E402
     gather_segment_reduce_cuda)
+from repro_torch.kernels import segment_matmul as tsmm  # noqa: E402
 from repro_torch.kernels.segment_softmax import segment_softmax_cuda  # noqa: E402
+from repro.kernels.segment_matmul import segment_matmul_pallas  # noqa: E402
 from repro.kernels.segment_reduce import segment_reduce_pallas  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -535,6 +537,176 @@ def test_sweep_lines_match_kernel_source(kernel):
     assert kv.variant_keys(kernel) == keys
     assert (ROOT / "src/repro_torch/kernels/csrc/probes/row_reads.cu"
             ).is_file()
+
+
+# ---------------------------------------------------------------------------
+# segment_matmul's wgmma path: its work items and path rule on the CPU
+# ---------------------------------------------------------------------------
+
+# small MoE-like shapes: (group sizes, rows past the groups, K, N)
+_SMM_BLOCKED = {
+    # G = 16 groups of 0-3 rows (the decode regime), rows past the groups
+    "tiny_groups": (np.array([3, 0, 2, 1, 0, 3, 1, 2, 0, 0, 1, 3, 2, 1, 0, 1]),
+                    11, 64, 48),
+    # G = 8 with one group of 300 rows: three row tiles, the last partial
+    "one_deep_group": (np.array([0, 5, 300, 0, 7, 1, 0, 2]), 4, 64, 48),
+}
+
+
+def _smm_inputs(case, w_transposed, integer):
+    """x (M, K), the sizes, W as the call reads it ((G, K, N), or (G, N,
+    K) transposed) and as (G, K, N). ``integer``: small integers, whose
+    products and sums are exact in fp32, so any two orders of a sum give
+    the same bits."""
+    sizes, pad, k, n = _SMM_BLOCKED[case]
+    m = int(sizes.sum()) + pad
+    rng = np.random.default_rng(len(case) + 7 * w_transposed)
+    if integer:
+        x = rng.integers(-4, 5, (m, k)).astype(np.float32)
+        w = rng.integers(-4, 5, (sizes.size, k, n)).astype(np.float32)
+    else:
+        x = rng.standard_normal((m, k)).astype(np.float32)
+        w = (rng.standard_normal((sizes.size, k, n)) / np.sqrt(k)).astype(
+            np.float32)
+    w_call = np.ascontiguousarray(w.transpose(0, 2, 1)) if w_transposed \
+        else w
+    return x, sizes.astype(np.int32), w_call, w, m, n
+
+
+@pytest.mark.parametrize("w_transposed", [False, True])
+@pytest.mark.parametrize("case", list(_SMM_BLOCKED))
+def test_segment_matmul_blocked_schedule(case, w_transposed):
+    """The wgmma path's work items, as the kernel walks them: every row of
+    [0, M) written by exactly one item of each column tile, the count within
+    the static bound that sizes the grid, rows past the groups by items that
+    read no W; the blocked result equal to the plain version's bits in fp32
+    (exact integer inputs) and to the reference's Pallas kernel (interpret
+    mode) within 1e-5, with W read as (G, K, N) or (G, N, K)."""
+    x, sizes, w_call, w, m, n = _smm_inputs(case, w_transposed, True)
+    g = sizes.size
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    items = tsmm.work_items(torch.from_numpy(offsets), m, n)
+    assert len(items) <= tsmm.item_bound(m, n, g)
+    writes = np.zeros((m, -(-n // tsmm.TC_BN)), np.int64)
+    for seg, row0, rows, n0 in items:
+        assert 0 < rows <= tsmm.TC_BM
+        lo, hi = (offsets[seg], offsets[seg + 1]) if seg < g else (
+            offsets[g], m)
+        assert lo <= row0 and row0 + rows <= hi   # never straddles a group
+        assert (row0 - lo) % tsmm.TC_BM == 0      # tiles start at its row
+        writes[row0:row0 + rows, n0 // tsmm.TC_BN] += 1
+    assert (writes == 1).all()
+    assert [it[0] for it in items] == sorted(it[0] for it in items)
+    past = [it for it in items if it[0] == g]
+    assert sum(it[2] for it in past) == (m - offsets[g]) * writes.shape[1]
+
+    xt, st, wt = (torch.from_numpy(a) for a in (x, sizes, w_call))
+    got = kops.segment_matmul(xt, st, wt, impl="blocked",
+                              w_transposed=w_transposed)
+    want = kops.segment_matmul(xt, st, wt, impl="ref",
+                               w_transposed=w_transposed)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert torch.equal(got, want)
+    assert not bool(got[int(sizes.sum()):].any())
+
+    x, sizes, w_call, w, m, n = _smm_inputs(case, w_transposed, False)
+    got = tsmm.segment_matmul_blocked(torch.from_numpy(x),
+                                      torch.from_numpy(sizes),
+                                      torch.from_numpy(w_call), w_transposed)
+    pallas = segment_matmul_pallas(jnp.asarray(x), jnp.asarray(sizes),
+                                   jnp.asarray(w), m_b=16, n_b=128,
+                                   interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas, np.float32),
+                               rtol=1e-5, atol=1e-5)
+
+
+def _card_smm_cases():
+    """The card tests' SMM_CASES (tests/test_torch_cuda.py) as (K, N, G)."""
+    from test_torch_cuda import SMM_CASES
+    out = {}
+    for name, c in SMM_CASES.items():
+        sizes = c["sizes"](np.random.default_rng(len(name)))
+        out[name] = (c["k"], c["n"], int(sizes.size),
+                     int(sizes.sum()) + c["pad"])
+    return out
+
+
+# the path each card case takes in bf16 (fp32 always takes mma_sync); the
+# four MoE products of qwen3-moe-30b-a3b at decode and at 16,384 rows
+_SMM_PATHS = {
+    "zipf": "wgmma", "padded": "wgmma", "single": "wgmma",
+    # N below TC_MIN_N = 64: narrow outputs stay on mma_sync
+    "all_empty": "mma_sync", "n16": "mma_sync", "n32": "mma_sync",
+    "k1024": "mma_sync",
+    "tiny_groups": "mma_sync",      # 2000 groups: above TC_MAX_GROUPS
+    "odd_k": "mma_sync", "k1001": "mma_sync",   # K not a multiple of 8
+    "deep_k": "wgmma", "k512": "wgmma",
+    "moe_decode": "wgmma", "moe_down": "wgmma", "moe_16k": "wgmma",
+    "dropless_tail": "wgmma", "one_row": "wgmma",
+}
+_MOE_SHAPES = {"up_decode": (64, 2048, 768, 128),
+               "down_decode": (64, 768, 2048, 128),
+               "up_16k": (16384, 2048, 768, 128),
+               "down_16k": (16384, 768, 2048, 128)}
+
+
+@pytest.mark.parametrize("case", list(_SMM_PATHS) + list(_MOE_SHAPES))
+def test_segment_matmul_path_rule(case):
+    """One rule, a pure function of dtype, shape and alignment, picks the
+    kernel: the branch it names for every card case and the MoE shapes;
+    fp32 and a misaligned base always take mma_sync."""
+    if case in _MOE_SHAPES:
+        m, k, n, g = _MOE_SHAPES[case]
+        want = "wgmma"
+    else:
+        k, n, g, m = _card_smm_cases()[case]
+        want = _SMM_PATHS[case]
+    # more groups than shared memory keeps offsets for, or N below the
+    # threshold: mma_sync whatever else the shape
+    assert tsmm.path(torch.bfloat16, m, k, max(n, 64),
+                     tsmm.TC_MAX_GROUPS + 1) == "mma_sync"
+    assert tsmm.path(torch.bfloat16, m, k, tsmm.TC_MIN_N - 8, g) == \
+        "mma_sync"
+    assert tsmm.path(torch.bfloat16, m, k, n, g) == want
+    assert tsmm.path(torch.float32, m, k, n, g) == "mma_sync"
+    assert tsmm.path(torch.bfloat16, m, k, n, g, aligned=False) == \
+        "mma_sync"
+    # transposed W: the same rule on the product's K and N
+    w = torch.empty(g, n, k, dtype=torch.bfloat16)
+    x = torch.empty(m, k, dtype=torch.bfloat16)
+    assert tsmm.path_of(x, w, w_transposed=True) == want
+
+
+def test_segment_matmul_cards_cases_all_have_a_path():
+    from test_torch_cuda import SMM_CASES
+    assert set(SMM_CASES) == set(_SMM_PATHS)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_segment_matmul_offsets_alone_match_the_metadata(dtype):
+    """The wgmma path's only metadata, the offsets, equal the row-block
+    schedule's; the path counts reset with the launch counts."""
+    sizes = torch.tensor([3, 0, 5, 1, 0], dtype=dtype)
+    off = tsmm.group_offsets(sizes)
+    assert off.dtype == torch.int32
+    assert torch.equal(off, tsmm.group_metadata(sizes, 20, 64)[0])
+    tsmm.path_launches["wgmma"] += 1
+    kops.reset_launch_counts()
+    assert kops.path_launch_counts() == {"wgmma": 0, "mma_sync": 0}
+
+
+def test_segment_matmul_tile_matches_kernel_source():
+    """The mirror's tile, the group limit and the item bound are the
+    kernel's own."""
+    src = (ROOT / "src/repro_torch/kernels/csrc/segment_matmul.cu"
+           ).read_text()
+    for name, value in (("TC_BM", tsmm.TC_BM), ("TC_BN", tsmm.TC_BN),
+                        ("TC_MAX_GROUPS", tsmm.TC_MAX_GROUPS)):
+        assert re.findall(rf"constexpr int {name} = (\d+);", src) == [
+            str(value)], name
+    assert "(num_rows + TC_BM - 1) / TC_BM + num_groups" in src
+    assert tsmm.item_bound(1, 1, 1) == 2
+    assert tsmm.item_bound(300, 48, 8, bm=128, bn=128) == 3 + 8
 
 
 # ---------------------------------------------------------------------------
