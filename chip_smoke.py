@@ -99,9 +99,9 @@ Phases (any failure exits non-zero before the result line):
       the softmax, and no op may take a plain version. Prints each
       family's warm forward time (CUDA events, median of 3) and one
       forward under ``torch.profiler``: device-busy time, idle share, the
-      ops that take the most device time, the gather's two kernels
-      (gsr_runs, gsr_fix) and the softmax's three (ssm_runs, ssm_fix,
-      ssm_cut) summed over the forward.
+      ops that take the most device time, the gather's kernels
+      (gsr_runs, gsr_fix, and gsr_owner for inputs of few rows) and the
+      softmax's three (ssm_runs, ssm_fix, ssm_cut) summed over the forward.
    c. The public ops: ``segment_reduce`` (sum, mean, max) and ``sddmm`` on
       arxiv's card tensors, as ``examples/quickstart.py`` calls them.
    d. Training, under ``torch.use_deterministic_algorithms(True)`` with a
@@ -217,15 +217,18 @@ Phases (any failure exits non-zero before the result line):
       the combine on the gather kernel: exactly 3 and 1 launches) within
       the bf16 tolerance of the fp32 plain version of the same upcast
       inputs, bitwise over two calls, its three products on
-      segment_matmul's wgmma path (``kops.path_launch_counts``); each
-      product held to the fp32 plain version and bitwise over two calls,
-      and timed (kernel; today's mma_sync kernel through its C entry
-      ``smm_launch`` in the same call; plain; ``torch._grouped_mm``)
-      beside its bound, max(bytes / 3.35 TB/s,
+      segment_matmul's wgmma path and its combine on the gather's owner
+      path at 8 tokens (64 rows), its runs path at 4096
+      (``kops.path_launch_counts``); each product held to the fp32 plain
+      version and bitwise over two calls, and timed (kernel; plain;
+      ``torch._grouped_mm``) beside its bound, max(bytes / 3.35 TB/s,
       2·rows·K·N / 989 TFLOP/s), the bytes counting X, the W of each
-      expert with rows and the output once; the combine timed beside its
-      bound and ``torch.sparse.mm`` of the (T, T·k) CSR of the router
-      weights. (b) As ``launch/serve.py`` serves: the forward on 2 x 2048
+      expert with rows and the output once; the combine held to the fp32
+      plain version, bitwise over two calls, timed through the op (its
+      metadata included) beside its bound and ``torch.sparse.mm`` of the
+      (T, T·k) CSR of the router weights and, at 8 tokens, beside the
+      runs path through its C entry ``gsr_launch`` with the row offsets it
+      builds. (b) As ``launch/serve.py`` serves: the forward on 2 x 2048
       SyntheticTokens tokens on the kernels, for the weights and tokens of
       two seeds. The two paths sum in other orders, so from the second
       layer on a token may take another top-8 set: the check holds routing
@@ -260,13 +263,15 @@ Phases (any failure exits non-zero before the result line):
       the bf16 tolerance; then each piece of the backward timed beside its
       bound and a one-call yardstick: the three products forward and
       their dX on segment_matmul's wgmma path, the dX reading W[g]ᵀ in
-      place (no copy), each held to the fp32 plain version, bitwise over
-      two calls and beside today's mma_sync kernel through its C entry
-      (``torch._grouped_mm``), the three dW loops of ``torch.matmul`` with their host sync
-      (``torch._grouped_mm`` of Xᵀ and dY), the combine's dH on the gather
-      kernel (``torch.sparse.mm`` of the transposed CSR) and its
-      router-weight gradient on sddmm (``torch.sparse.sampled_addmm``),
-      the dispatch gather's dH with its sort (``index_add_``). (b) The
+      place (no copy), each held to the fp32 plain version and bitwise
+      over two calls (``torch._grouped_mm``), the three dW loops of
+      ``torch.matmul`` with their host sync (``torch._grouped_mm`` of Xᵀ
+      and dY), the combine's dH on the gather kernel (``torch.sparse.mm``
+      of the transposed CSR) and its router-weight gradient on sddmm's
+      wide path, held, bitwise, with B (the expert outputs) in fp32
+      (``torch.sparse.sampled_addmm``; beside it the runs kernel through
+      its C entry ``sddmm_launch``) and in bf16, as the backward passes
+      it, the dispatch gather's dH with its sort (``index_add_``). (b) The
       embedding's backward at full vocab: 2048 sorted ids of width 2048
       into 151,936 segments on segment_reduce against the fp32
       ``index_add_`` at the fp32 tolerance, timed beside its bound and
@@ -307,8 +312,8 @@ Phases (any failure exits non-zero before the result line):
       0) against the live count at this run's share of the experts and a
       16-way model axis's: segment_matmul and the forward's expert part
       timed both ways, the products on the wgmma path (bitwise over two
-      calls) beside today's mma_sync kernel through its C entry, their
-      bound, plain version and ``torch._grouped_mm``; (g) prefill and 8
+      calls) beside their bound, plain version and ``torch._grouped_mm``;
+      (g) prefill and 8
       decode steps with ``moe_impl="cuda"``, every MoE layer held to the
       plain ``moe_ragged`` on its data shard, the logits read against
       the single-device decode; (h) ``fit(mesh=)`` on
@@ -367,14 +372,19 @@ Phases (any failure exits non-zero before the result line):
    yardstick), and its hub and reddit2 times beside their bounds; sddmm's
    adds ``shuffled_ms``; the gather's adds ``moe_combine`` and
    segment_matmul's ``moe_products``, the MoE shapes of 3h, each with its
-   ms, ``mma_sync_ms`` (today's kernel in the same call), plain ms, bound
-   and library ms; segment_matmul's ``typed_bf16`` (the path the rule
-   takes at the bf16 typed widths, beside ``mma_sync_ms``) and
-   ``launches_by_kernel_path`` (its launches on 3h and 3i by the kernel
-   they took: wgmma or mma_sync); from 3i, segment_matmul's
+   path, ms, plain ms, bound and library ms (the combine at 8 tokens with
+   ``runs_path_ms``, the runs path with its offsets in the same call);
+   segment_matmul's ``typed_bf16`` (the path the rule takes at the bf16
+   typed widths, beside ``mma_sync_ms``, today's mma_sync kernel in the
+   same call); the gather's, segment_matmul's and sddmm's
+   ``launches_by_kernel_path`` (their launches on 3h, 3i and 3j's two
+   paths, summed over the ranks, by the path they took: runs or owner,
+   wgmma or mma_sync, runs or wide) and the gather's and sddmm's
+   ``path``, the one their generic row took; from 3i, segment_matmul's
    ``moe_train_products`` (forward and dX), the gather's
    ``moe_train_backward`` (the combine's and the dispatch's dH), sddmm's
-   ``moe_train_router_grad`` and segment_reduce's ``embedding_backward``.
+   ``moe_train_router_grad`` (B in fp32, with ``runs_kernel_ms``, and in
+   bf16) and segment_reduce's ``embedding_backward``.
 5. The last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -524,41 +534,97 @@ def smm_mma_sync(torch, x, sizes, w, w_transposed=False):
     return call
 
 
-def smm_paths(kops, what, expect) -> dict:
-    """segment_matmul's launches by path since the last reset; fails unless
-    they equal ``expect``."""
+def took_paths(kops, what, expect) -> dict:
+    """The launches by path since the last reset
+    (``kops.path_launch_counts()``); fails unless each kernel of ``expect``
+    ({kernel: {path: launches}}) took exactly those."""
     got = kops.path_launch_counts()
-    if got != expect:
-        fail(f"{what}: segment_matmul's launches by path {got}, expected "
-             f"{expect}")
+    bad = {k: got[k] for k, want in expect.items() if got[k] != want}
+    if bad:
+        fail(f"{what}: launches by path {bad}, expected "
+             f"{ {k: expect[k] for k in bad} }")
     return got
+
+
+def count_diff(after, before) -> dict:
+    """``after`` - ``before``, key by key, of two launch counts of one
+    form: {kernel: launches} or {kernel: {path: launches}}."""
+    return {k: (count_diff(v, before.get(k, {})) if isinstance(v, dict)
+                else v - before.get(k, 0)) for k, v in after.items()}
+
+
+@contextlib.contextmanager
+def not_counted(kops, ref):
+    """Adds the launches the block makes, each kernel's and by path, to
+    ``ref`` ({"launches": Counter, "paths": defaultdict(Counter)}), for the
+    caller to take off its run's counts (:func:`count_diff`)."""
+    before = kops.launch_counts(), kops.path_launch_counts()
+    yield
+    ref["launches"].update(count_diff(kops.launch_counts(), before[0]))
+    for k, by in count_diff(kops.path_launch_counts(), before[1]).items():
+        ref["paths"][k].update(by)
 
 
 def smm_row(torch, kops, what, x, sizes, w, w_transposed=False) -> dict:
     """A MoE product on the op (the wgmma path, checked): against the fp32
-    plain version, bitwise over two calls, its time, and today's mma_sync
-    kernel's through its C entry in the same call. {"max_abs_err", "ms",
-    "mma_sync_ms", "path"}."""
+    plain version, bitwise over two calls, and its time. {"max_abs_err",
+    "ms", "path"}."""
     def kern():
         return kops.segment_matmul(x, sizes, w, impl="cuda",
                                    w_transposed=w_transposed)
-    before = kops.path_launch_counts()
+    kops.reset_launch_counts()
     got = kern()
     torch.cuda.synchronize()
-    took = {p: v - before[p] for p, v in kops.path_launch_counts().items()}
-    if took != {"wgmma": 1, "mma_sync": 0}:
-        fail(f"{what}: took the paths {took}, expected the wgmma path")
+    took_paths(kops, what, {"segment_matmul": {"wgmma": 1, "mma_sync": 0}})
     err = compare(torch, what, got, kops.segment_matmul(
         x.float(), sizes, w.float(), impl="ref", w_transposed=w_transposed),
         torch.bfloat16)
     deterministic(torch, what, kern)
-    mma = smm_mma_sync(torch, x, sizes, w, w_transposed)
-    compare(torch, f"{what} (mma_sync)", mma(), got, torch.bfloat16)
-    rec = {"max_abs_err": err, "ms": time_ms(torch, kern),
-           "mma_sync_ms": time_ms(torch, mma), "path": "wgmma"}
-    print(f"  {what}: wgmma {rec['ms']:.4f} ms, today's mma_sync kernel "
-          f"{rec['mma_sync_ms']:.4f} ms", flush=True)
+    rec = {"max_abs_err": err, "ms": time_ms(torch, kern), "path": "wgmma"}
+    print(f"  {what}: wgmma {rec['ms']:.4f} ms", flush=True)
     return rec
+
+
+def gsr_runs_call(torch, h, gidx, seg, num_segments, weight):
+    """A call of the gather's runs path through its C entry
+    (:func:`~repro_torch.kernels.gather_segment_reduce.c_entry`) with the
+    row offsets it builds on the card (``row_offsets``: arange and
+    searchsorted), as the op ran every input before the owner path: for
+    its time beside the owner path's in the same call (not a launch of the
+    op, so not counted)."""
+    from repro_torch.kernels import gather_segment_reduce as gsr
+
+    def call():
+        # int32 indices, as the op makes them
+        g32, s32 = (t.to(torch.int32).contiguous() for t in (gidx, seg))
+        return gsr.c_entry("runs", h, g32, s32, num_segments, weight,
+                           row_ptr=gsr.row_offsets(s32, num_segments))
+    return call
+
+
+def sddmm_runs_call(torch, a, b, row, col):
+    """A call of sddmm's runs kernel through its C entry
+    (:func:`~repro_torch.kernels.sddmm.c_entry`; A and B in one dtype) on
+    the inputs of a wide-path launch: for its time beside the wide path's
+    in the same call (not a launch of the op, so not counted)."""
+    from repro_torch.kernels import sddmm as sdd
+
+    def call():
+        # int32 indices, as the op makes them
+        r32, c32 = (t.to(torch.int32).contiguous() for t in (row, col))
+        return sdd.c_entry("runs", a, b, r32, c32)
+    return call
+
+
+def took_one_path(torch, kops, kernel, fn) -> str:
+    """The path one call of ``fn`` (one launch of ``kernel``) took."""
+    kops.reset_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    took = [p for p, n in kops.path_launch_counts()[kernel].items() if n]
+    if kops.launch_counts()[kernel] != 1 or len(took) != 1:
+        fail(f"{kernel}: one call launched {kops.path_launch_counts()}")
+    return took[0]
 
 
 def cut_rows(row_ptr, run: int):
@@ -610,13 +676,15 @@ def profiled(torch, fn):
     return wall_ms, sum(r[1] for r in rows), rows
 
 
-def port_kernel_names() -> set:
+def port_kernel_names(*sources) -> set:
     """The names of the ``__global__`` functions in the port's CUDA
-    sources."""
+    sources: those named (file names in ``kernels/csrc``), else all."""
     pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
                      r"(\w+)\s*\(")
+    csrc = ROOT / "src/repro_torch/kernels/csrc"
     names = set()
-    for f in (ROOT / "src/repro_torch/kernels/csrc").glob("*.cu*"):
+    for f in ([csrc / n for n in sources] if sources
+              else csrc.glob("*.cu*")):
         names.update(pat.findall(f.read_text()))
     return names
 
@@ -2008,13 +2076,18 @@ LM_FWD_BATCH, LM_FWD_SEQ = 2, 2048
 LM_PROMPTS, LM_PROMPT_LEN, LM_GEN = 8, 128, 32
 LM_REQUESTS, LM_SLOTS, LM_NEW, LM_MIN_PROMPT, LM_MAX_PROMPT = 12, 4, 16, 16, 96
 LM_SEEDS = (SEED, SEED + 1)            # the forward's weights and tokens
-# the port's kernels a MoE layer launches on moe_impl="cuda", and the names
-# of their CUDA kernels in a profile
+# the port's kernels a MoE layer launches on moe_impl="cuda", and the
+# sources of their CUDA kernels: a profile reads every __global__ in them
+# (each path's)
 LM_MOE_KERNELS = {"segment_matmul": 3, "gather_segment_reduce": 1}
-LM_KERNEL_NAMES = ("smm_tc_kernel", "smm_kernel", "gsr_runs", "gsr_fix")
+LM_KERNEL_SOURCES = ("segment_matmul.cu", "gather_segment_reduce.cu",
+                     "row_runs.cuh")
 # segment_matmul's launches by path (kops.path_launch_counts) of one MoE
 # layer: its three products on the wgmma path
 LM_MOE_PATHS = {"wgmma": 3, "mma_sync": 0}
+# the path of the combine on the gather kernel at LM_MOE_TOKENS: 64 rows at
+# decode (the owner path), 32,768 at prefill (the runs path)
+LM_COMBINE_PATHS = {8: "owner", 4096: "runs"}
 
 
 @contextlib.contextmanager
@@ -2107,12 +2180,13 @@ def profiled_lm_step(torch, fn, layers_mod, moe_mod) -> dict:
         return (us if us is not None
                 else getattr(evt, attr.replace("device", "cuda"))) / 1e3
     busy = moe_k = 0.0
+    names = port_kernel_names(*LM_KERNEL_SOURCES)
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA or evt.key.startswith("lm."):
             continue
         ms = dev_ms(evt, "self_device_time_total")
         busy += ms
-        if any(n in evt.key for n in LM_KERNEL_NAMES):
+        if any(n in evt.key for n in names):
             moe_k += ms
     spans = collections.Counter()
     for evt in prof.events():
@@ -2197,7 +2271,11 @@ def lm_phase(torch, dev, card) -> dict:
             if launched != LM_MOE_KERNELS:
                 fail(f"MoE layer T={t}: launched {launched}, expected "
                      f"{LM_MOE_KERNELS}")
-            smm_paths(kops, f"MoE layer T={t}", LM_MOE_PATHS)
+            took_paths(kops, f"MoE layer T={t}", {
+                "segment_matmul": LM_MOE_PATHS,
+                "gather_segment_reduce": {
+                    p: int(p == LM_COMBINE_PATHS[t])
+                    for p in ("runs", "owner")}})
             want, _ = moe_mod.moe(prm32, x.float(), cfg, impl="ragged")
             plain16, _ = moe_mod.moe(prm, x, cfg, impl="ragged")
         err = compare(torch, f"MoE layer T={t} cuda vs fp32 plain", got,
@@ -2256,32 +2334,47 @@ def lm_phase(torch, dev, card) -> dict:
                 lib_ms = time_ms(torch, lambda xin=xin, w=w:
                                  torch._grouped_mm(xin, w, offs=offs))
             print(f"    max_abs_err={err_p:.3g} kernel_ms={k_ms:.4f} "
-                  f"(mma_sync {row['mma_sync_ms']:.4f}) "
                   f"plain_ms={p_ms:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]}) "
                   f"library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)}"
                   f" ({k_ms / bnd[0]:.1f}x its bound)", flush=True)
             smm_shapes.append({
                 "product": name, "tokens": t, "rows": a, "k": k_dim,
                 "n": n_dim, "experts_with_rows": active, "dtype": "bf16",
-                "path": row["path"], "mma_sync_ms": row["mma_sync_ms"],
+                "path": row["path"],
                 "max_abs_err": err_p, "ms": k_ms, "plain_ms": p_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms,
                 "library_note": "torch._grouped_mm with the group offsets"
                 if lib_ms is not None else reason})
-        # the combine: Y[token] = sum of its k rows of ys, router-weighted
+        # the combine: Y[token] = sum of its k rows of ys, router-weighted,
+        # through the op (its metadata included) on the path the rule picks
         inv = moe_mod._inverse(order)
         comb = (lambda: kops.gather_segment_reduce(
             ys, inv, tok_flat, t, w_flat, "sum", impl="cuda"))
-        err_c = compare(torch, f"gather combine T={t}", comb(),
-                        kops.gather_segment_reduce(
-                            ys.float(), inv, tok_flat, t, w_flat.float(),
-                            "sum", impl="ref"), bf16)
+        c_path = took_one_path(torch, kops, "gather_segment_reduce", comb)
+        if c_path != LM_COMBINE_PATHS[t]:
+            fail(f"gather combine T={t}: took the {c_path} path, expected "
+                 f"{LM_COMBINE_PATHS[t]}")
+        want_c = kops.gather_segment_reduce(ys.float(), inv, tok_flat, t,
+                                            w_flat.float(), "sum", impl="ref")
+        err_c = compare(torch, f"gather combine T={t} ({c_path} path)",
+                        comb(), want_c, bf16)
+        deterministic(torch, f"gather combine T={t} ({c_path} path)", comb)
         c_ms = time_ms(torch, comb)
+        runs_ms = None
+        if c_path == "owner":
+            # the runs path beside it, with the row offsets it builds
+            runs = gsr_runs_call(torch, ys, inv, tok_flat, t,
+                                 w_flat.to(ys.dtype))
+            compare(torch, f"gather combine T={t} (runs path, C entry)",
+                    runs(), want_c, bf16)
+            runs_ms = time_ms(torch, runs)
         cp_ms = time_ms(torch, lambda: kops.gather_segment_reduce(
             ys, inv, tok_flat, t, w_flat, "sum", impl="ref"))
         print(f"  gather combine T={t}: {a} rows of F={cfg.d_model} into "
-              f"{t} tokens, bf16:", flush=True)
-        cb = bound(a * cfg.d_model * 2 + a * (4 + 4 + 2) + (t + 1) * 8
+              f"{t} tokens, bf16, the {c_path} path:", flush=True)
+        # the runs path also reads the row offsets it builds
+        cb = bound(a * cfg.d_model * 2 + a * (4 + 4 + 2)
+                   + (t + 1) * 8 * (c_path == "runs")
                    + t * cfg.d_model * 2, 2 * a * cfg.d_model)
         # yardstick: torch.sparse.mm of the (T, T·k) CSR of the weights
         row_ptr = torch.arange(0, a + 1, cfg.top_k, device=dev)
@@ -2295,11 +2388,15 @@ def lm_phase(torch, dev, card) -> dict:
                                   lambda: torch.sparse.mm(csr, ys))
             if out is not None:
                 lib_c = time_ms(torch, lambda: torch.sparse.mm(csr, ys))
-        print(f"    max_abs_err={err_c:.3g} kernel_ms={c_ms:.4f} plain_ms="
-              f"{cp_ms:.4f} bound_ms={cb[0]:.4f} ({cb[1]}) library_ms="
-              f"{lib_c if lib_c is None else round(lib_c, 4)}", flush=True)
+        print(f"    max_abs_err={err_c:.3g} kernel_ms={c_ms:.4f} "
+              + ("" if runs_ms is None else
+                 f"(runs path with its offsets {runs_ms:.4f}) ")
+              + f"plain_ms={cp_ms:.4f} bound_ms={cb[0]:.4f} ({cb[1]}) "
+              f"library_ms={lib_c if lib_c is None else round(lib_c, 4)}",
+              flush=True)
         gather_shapes.append({
             "tokens": t, "rows": a, "feat": cfg.d_model, "dtype": "bf16",
+            "path": c_path, "runs_path_ms": runs_ms,
             "max_abs_err": err_c, "ms": c_ms, "plain_ms": cp_ms,
             "bound_ms": cb[0], "bound_by": cb[1], "library_ms": lib_c,
             "library_note": "torch.sparse.mm of the (T, T*k) CSR of the "
@@ -2379,9 +2476,11 @@ def lm_phase(torch, dev, card) -> dict:
         step_ms.append((time.perf_counter() - t1) * 1e3)
         step_logits.append(logits)
     launches_b = kops.launch_counts()
-    paths_b = smm_paths(kops, "lm serving", {
-        p: n * cfg.num_layers * (LM_PROMPT_LEN + LM_GEN)
-        for p, n in LM_MOE_PATHS.items()})
+    # every step's combine gathers LM_PROMPTS x top-k rows: the owner path
+    n_calls = cfg.num_layers * (LM_PROMPT_LEN + LM_GEN)
+    paths_b = took_paths(kops, "lm serving", {
+        "segment_matmul": {p: n * n_calls for p, n in LM_MOE_PATHS.items()},
+        "gather_segment_reduce": {"runs": 0, "owner": n_calls}})
     expect = {k: n * cfg.num_layers * (LM_PROMPT_LEN + LM_GEN)
               for k, n in LM_MOE_KERNELS.items()}
     if {k: v for k, v in launches_b.items() if v} != expect:
@@ -2463,7 +2562,11 @@ def lm_phase(torch, dev, card) -> dict:
     torch.cuda.synchronize()
     cb_s = time.perf_counter() - t0
     launches_c = kops.launch_counts()
-    paths_c = smm_paths(kops, "batcher", {"wgmma": 0, "mma_sync": 0})
+    # each tick's combine gathers LM_SLOTS x top-k rows: the owner path
+    paths_c = took_paths(kops, "batcher", {
+        "segment_matmul": {"wgmma": 0, "mma_sync": 0},
+        "gather_segment_reduce": {"runs": 0,
+                                  "owner": ticks * cfg.num_layers}})
     if launches_c["gather_segment_reduce"] != ticks * cfg.num_layers:
         fail(f"batcher: {launches_c['gather_segment_reduce']} gather "
              f"launches over {ticks} ticks of {cfg.num_layers} MoE layers")
@@ -2508,8 +2611,9 @@ def lm_phase(torch, dev, card) -> dict:
           f"{record['batcher']['launches']}", flush=True)
     record["launches"] = {k: launches_b[k] + launches_c[k]
                           for k in launches_b}
-    record["segment_matmul_paths"] = {p: paths_b[p] + paths_c[p]
-                                      for p in paths_b}
+    record["kernel_paths"] = {
+        k: {p: n + paths_c[k][p] for p, n in by.items()}
+        for k, by in paths_b.items()}
     record["segment_matmul_moe"] = smm_shapes
     record["gather_moe"] = gather_shapes
     del model, batcher
@@ -2731,10 +2835,12 @@ def lm_train_phase(torch, dev, card) -> dict:
         if launched != want:
             fail(f"MoE layer forward + backward, {impl}: launched "
                  f"{launched}, expected {want}")
-        # the forward's three products and their dX, W read in place
-        smm_paths(kops, f"MoE layer forward + backward, {impl}",
-                  {p: 2 * n if impl == "cuda" else 0
-                   for p, n in LM_MOE_PATHS.items()})
+        # the forward's three products and their dX, W read in place; the
+        # router-weight gradient's rows of F = 2048 on sddmm's wide path
+        took_paths(kops, f"MoE layer forward + backward, {impl}", {
+            "segment_matmul": {p: 2 * n if impl == "cuda" else 0
+                               for p, n in LM_MOE_PATHS.items()},
+            "sddmm": {"runs": 0, "wide": int(impl == "cuda")}})
         res[impl] = (y.detach(),) + tuple(grads)
         del leaves, xl, y, aux, grads
     errs = {}
@@ -2798,7 +2904,7 @@ def lm_train_phase(torch, dev, card) -> dict:
                                                      impl="ref"),
             err, {"kernel": "segment_matmul", "role": "forward", "rows": a,
                   "k": kd, "n": nd, "experts_with_rows": active,
-                  "path": row["path"], "mma_sync_ms": row["mma_sync_ms"]}))
+                  "path": row["path"]}))
         # dX = dY @ W[g]^T with W read in place (no transposed copy)
         kd, nd = int(w.shape[2]), int(w.shape[1])
         row = smm_row(torch, kops, f"segment_matmul dX {name}", g, sizes, w,
@@ -2817,9 +2923,7 @@ def lm_train_phase(torch, dev, card) -> dict:
                                                  w_transposed=True),
             err, {"kernel": "segment_matmul", "role": "dX", "rows": a,
                   "k": kd, "n": nd, "experts_with_rows": active,
-                  "path": row["path"], "mma_sync_ms": row["mma_sync_ms"],
-                  "mma_sync_note": "today's kernel on a (G, K, N) copy of "
-                  "W^T made before the timing"}))
+                  "path": row["path"]}))
         gout = g_ys if name == "down" else g_h
         kd, nd = int(w.shape[1]), int(w.shape[2])
         pieces.append(piece(
@@ -2856,22 +2960,45 @@ def lm_train_phase(torch, dev, card) -> dict:
         lambda: kops.transposed_gather(g_t, c_order.dst, c_order.src,
                                        c_order.row_ptr, a, wt, impl="ref"),
         err, {"kernel": "gather_segment_reduce", "role": "combine dH"}))
+    # the router-weight gradient on sddmm's wide path: B (the expert
+    # outputs) read in fp32, as an fp32 copy of it, and in bf16, as the
+    # backward passes it; beside the fp32 one, the runs kernel through its
+    # C entry (the path rows of this width took before the wide path)
     ys32 = ys.float()
-    err = compare(torch, "combine dw", kops.sddmm_rows(
-        g_t, ys32, tok_flat, inv, impl="cuda"), kops.sddmm_rows(
-            g_t, ys32, tok_flat, inv, impl="ref"), torch.float32)
     pattern = torch.sparse_csr_tensor(
         torch.arange(0, a + 1, k, device=dev), inv.long(),
         torch.zeros(a, device=dev), size=(t, a))
-    pieces.append(piece(
-        torch, f"combine dw ({a} dots of F={d}, sddmm)",
-        lambda: kops.sddmm_rows(g_t, ys32, tok_flat, inv, impl="cuda"),
-        bound(t * d * 4 + a * d * 4 + a * 8 + a * 4, 2 * a * d),
-        lambda: torch.sparse.sampled_addmm(pattern, g_t, ys32.T),
-        "torch.sparse.sampled_addmm on the (T, T·k) CSR pattern",
-        lambda: kops.sddmm_rows(g_t, ys32, tok_flat, inv, impl="ref"), err,
-        {"kernel": "sddmm", "role": "combine dw"}))
-    del ys32, dh_k
+    old = sddmm_runs_call(torch, g_t, ys32, tok_flat, inv)
+    for b_in, lib_fn in ((ys32, lambda: torch.sparse.sampled_addmm(
+            pattern, g_t, ys32.T)), (ys, None)):
+        def dw(b_in=b_in):
+            return kops.sddmm_rows(g_t, b_in, tok_flat, inv, impl="cuda")
+        b_name = str(b_in.dtype)[6:]
+        what = f"combine dw, B {b_name} (sddmm)"
+        w_path = took_one_path(torch, kops, "sddmm", dw)
+        if w_path != "wide":
+            fail(f"{what}: took the {w_path} path, expected the wide path")
+        want_dw = kops.sddmm_rows(g_t, b_in, tok_flat, inv, impl="ref")
+        err = compare(torch, what, dw(), want_dw, torch.float32)
+        deterministic(torch, what, dw)
+        if b_in is ys32:
+            compare(torch, f"{what}: the runs kernel (C entry)", old(),
+                    want_dw, torch.float32)
+        pieces.append(piece(
+            torch, f"combine dw ({a} dots of F={d}, B {b_name}, sddmm "
+            "wide path)", dw,
+            bound(t * d * 4 + a * d * b_in.element_size() + a * 8 + a * 4,
+                  2 * a * d),
+            lib_fn, "torch.sparse.sampled_addmm on the (T, T·k) CSR pattern"
+            if lib_fn is not None else "no PyTorch call takes an fp32 A "
+            "with a bf16 B: the fp32 row's library_ms",
+            lambda b_in=b_in: kops.sddmm_rows(g_t, b_in, tok_flat, inv,
+                                              impl="ref"), err,
+            {"kernel": "sddmm", "role": "combine dw", "b_dtype": b_name,
+             "path": w_path,
+             "runs_kernel_ms": time_ms(torch, old, reps=10, warmup=2)
+             if b_in is ys32 else None}))
+    del ys32, dh_k, old
 
     # the dispatch gather's dH: its sort and the gather kernel
     def dispatch_dh(impl):
@@ -2960,8 +3087,11 @@ def lm_train_phase(torch, dev, card) -> dict:
         t0 = time.perf_counter()
         run = train.fit(task, data, tcfg(LM_TRAIN_STEPS), metrics_cb=mark)
     launches = kops.launch_counts()
-    smm_paths_train = smm_paths(kops, "lm training", {
-        "wgmma": launches["segment_matmul"], "mma_sync": 0})
+    # the router-weight gradient's rows of F = 2048: sddmm's wide path
+    paths_train = took_paths(kops, "lm training", {
+        "segment_matmul": {"wgmma": launches["segment_matmul"],
+                           "mma_sync": 0},
+        "sddmm": {"runs": 0, "wide": launches["sddmm"]}})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_s = [ends[0] - t0] + [ends[i] - ends[i - 1]
                                for i in range(1, len(ends))]
@@ -2988,7 +3118,7 @@ def lm_train_phase(torch, dev, card) -> dict:
         "peak_alloc_gb": peak_gb, "before_fit_gb": base_gb,
         "reckoned_state_gb": reckoned_gb,
         "launches": {kk: v for kk, v in launches.items() if v},
-        "segment_matmul_paths": smm_paths_train,
+        "kernel_paths": paths_train,
         "profiled_step": split}
     record["training"] = training
     print(f"  fit: {LM_TRAIN_STEPS} steps, losses "
@@ -3071,7 +3201,7 @@ def lm_train_phase(torch, dev, card) -> dict:
           f"uninterrupted run's", flush=True)
     record["resume_bitwise"] = True
     record["launches"] = training["launches"]
-    record["segment_matmul_paths"] = training["segment_matmul_paths"]
+    record["kernel_paths"] = training["kernel_paths"]
     del whole, resumed
     gc.collect()
     torch.cuda.empty_cache()
@@ -3186,7 +3316,7 @@ def _local_share(torch, t, spec, sizes) -> bool:
 
 @contextlib.contextmanager
 def shard_held(torch, shd, moe_mod, kops, plain_of, moe_impl, what, rows,
-               ref_launches):
+               ref):
     """While open, every expert-parallel MoE call (``moe_shard_map`` for
     ``moe_impl="capacity"``, ``moe_ragged_shard_map`` for the dropless
     path) is also run on this rank's data shard by the single-device layer
@@ -3194,8 +3324,8 @@ def shard_held(torch, shd, moe_mod, kops, plain_of, moe_impl, what, rows,
     ``moe_capacity`` at the shard's capacity (the same routing, the same
     drops), or the plain ``moe_ragged(impl="ref")`` (every token's output
     is its own). The model goes on with the sharded output. The
-    reference's kernel launches go to ``ref_launches``; its plain ops are
-    recorded outside the caller's fusion scope."""
+    reference's kernel launches go to ``ref`` (:func:`not_counted`); its
+    plain ops are recorded outside the caller's fusion scope."""
     name = ("moe_shard_map" if moe_impl == "capacity"
             else "moe_ragged_shard_map")
     sharded = getattr(moe_mod, name)
@@ -3206,22 +3336,20 @@ def shard_held(torch, shd, moe_mod, kops, plain_of, moe_impl, what, rows,
         rows_pl = shd.placements(shd.spec_for_axes(("batch", None, None),
                                                    x.shape, plan, mesh), mesh)
         x_loc = x.redistribute(mesh, rows_pl).to_local()
-        before = kops.launch_counts()
-        if moe_impl == "capacity":
-            t_loc = x_loc.shape[0] * x_loc.shape[1]
-            cap = max(1, int(t_loc * cfg.top_k * cfg.capacity_factor
-                             / cfg.num_experts))
-            cap = -(-cap // 8) * 8
-            want, _ = moe_mod.moe_capacity(plain_of[id(prm)], x_loc, cfg,
-                                           capacity=cap)
-            against = f"moe_capacity on the data shard (capacity {cap})"
-        else:
-            with kops.in_fusion_scopes(()):
-                want, _ = moe_mod.moe_ragged(plain_of[id(prm)], x_loc, cfg,
-                                             impl="ref")
-            against = "the plain moe_ragged on the data shard"
-        for k, v in kops.launch_counts().items():
-            ref_launches[k] += v - before[k]
+        with not_counted(kops, ref):
+            if moe_impl == "capacity":
+                t_loc = x_loc.shape[0] * x_loc.shape[1]
+                cap = max(1, int(t_loc * cfg.top_k * cfg.capacity_factor
+                                 / cfg.num_experts))
+                cap = -(-cap // 8) * 8
+                want, _ = moe_mod.moe_capacity(plain_of[id(prm)], x_loc, cfg,
+                                               capacity=cap)
+                against = f"moe_capacity on the data shard (capacity {cap})"
+            else:
+                with kops.in_fusion_scopes(()):
+                    want, _ = moe_mod.moe_ragged(plain_of[id(prm)], x_loc,
+                                                 cfg, impl="ref")
+                against = "the plain moe_ragged on the data shard"
         got = y.redistribute(mesh, rows_pl).to_local()
         err = compare(torch, f"{what}: MoE layer call {len(rows)} against "
                       f"{against}", got, want, torch.bfloat16)
@@ -3362,7 +3490,7 @@ def _lm_sharded_rank(torch, dist, rank, world, backend, dev, out):
     main = _sharded_serve_and_train(torch, dist, rank, dev, mesh, plan, cfg,
                                     "capacity", gen, ("c", "d"), say)
     rec.update(main["record"])
-    run, launched = main["run"], main["launches"]
+    run, launched, main_paths = main["run"], main["launches"], main["paths"]
     del main
     # each rank's parameters and moments hold exactly its share
     skeleton = lm.LM(cfg, device="meta", seed=None)
@@ -3418,6 +3546,7 @@ def _lm_sharded_rank(torch, dist, rank, world, backend, dev, out):
         f"shard's: {LM_SHARD_PEAK_BEFORE_GB} GB)")
     rec["launches"] = launched
     rec["launches_by_rank"] = every(launched)
+    rec["paths_by_rank"] = every(main_paths)
     rec["peak_mem_gb_by_rank"] = every(max(rec["serving"]["peak_mem_gb"],
                                            rec["training"]["peak_mem_gb"]))
     rec["tally_peak_gb_by_rank"] = every(peak_gb)
@@ -3429,6 +3558,7 @@ def _lm_sharded_rank(torch, dist, rank, world, backend, dev, out):
     dropless = _lm_dropless(torch, dist, rank, dev, mesh, plan, cfg, say)
     rec["dropless"] = dropless
     rec["dropless"]["launches_by_rank"] = every(dropless["launches"])
+    rec["dropless"]["paths_by_rank"] = every(dropless["paths"])
     rec["dropless"]["peak_mem_gb_by_rank"] = every(dropless["peak_mem_gb"])
     if rank == 0:
         Path(out).write_text(json.dumps(rec))
@@ -3507,7 +3637,6 @@ def _dropless_tail(torch, kops, moe_mod, cfg, prm, x_loc, e_m, m_rank):
                 row = smm_row(torch, kops, f"segment_matmul {what} over the "
                               "static tail", a, sizes, w)
                 rec[f"{what}_max_abs_err"] = row["max_abs_err"]
-                rec[f"{what}_mma_sync_ms"] = row["mma_sync_ms"]
                 rec[f"{what}_path"] = row["path"]
                 # the live rows read, every row written (the tail as 0),
                 # the weights of the experts with rows read once
@@ -3582,8 +3711,10 @@ def _lm_dropless(torch, dist, rank, dev, mesh, plan, cfg, say) -> dict:
         if not launched_f.get(k):
             fail(f"rank {rank}: the dropless MoE layer under the mesh never "
                  f"launched {k}: {launched_f}")
-    smm_paths(kops, f"rank {rank}: the dropless MoE layer under the mesh",
-              {"wgmma": launched_f["segment_matmul"], "mma_sync": 0})
+    took_paths(kops, f"rank {rank}: the dropless MoE layer under the mesh",
+               {"segment_matmul": {"wgmma": launched_f["segment_matmul"],
+                                   "mma_sync": 0},
+                "sddmm": {"runs": 0, "wide": launched_f["sddmm"]}})
     got = [y.to_local(), grads[0].redistribute(mesh, xpl).to_local()] + [
         g.full_tensor() for g in grads[1:]]
     del sprm, leaves, xs, cts, y, grads
@@ -3639,7 +3770,7 @@ def _lm_dropless(torch, dist, rank, dev, mesh, plan, cfg, say) -> dict:
         torch, dist, rank, dev, mesh, plan, cfg, "cuda",
         torch.Generator(device=dev).manual_seed(SEED + 3), ("g", "h"), say)
     rec.update(main["record"])
-    rec["launches"] = main["launches"]
+    rec["launches"], rec["paths"] = main["launches"], main["paths"]
     rec["peak_mem_gb"] = max(rec["serving"]["peak_mem_gb"],
                              rec["training"]["peak_mem_gb"])
     return rec
@@ -3687,14 +3818,15 @@ def _sharded_serve_and_train(torch, dist, rank, dev, mesh, plan, cfg,
     serve, shardings_for = steplib.build_serve_step(
         cfg, mesh, plan, LM_SHARD_BATCH, 16, moe_impl=moe_impl)
     held_rows = []
-    ref_launches = collections.Counter()
+    ref = {"launches": collections.Counter(),
+           "paths": collections.defaultdict(collections.Counter)}
     torch.cuda.synchronize()
     dist.barrier()
     kops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     with kops.fusion_scope() as fusion:
         with shard_held(torch, shd, moe_mod, kops, plain_of, moe_impl,
-                        f"{what} serve", held_rows, ref_launches):
+                        f"{what} serve", held_rows, ref):
             t0 = time.perf_counter()
             logits = prefill(smodel, {"tokens": tokens})
             torch.cuda.synchronize()
@@ -3736,15 +3868,13 @@ def _sharded_serve_and_train(torch, dist, rank, dev, mesh, plan, cfg,
         # the single-device decode of the same tokens, a reading
         ref_state = lm.init_decode_state(cfg, LM_SHARD_BATCH, 16, bf16,
                                          device=dev)
-        before = kops.launch_counts()
         tok, e2e = tokens[:, :1], []
-        for want in dec_logits:
-            lg, ref_state = lm.decode_step(model, tok, ref_state,
-                                           moe_impl=moe_impl)
-            e2e.append(e2e_reading(torch, f"{what} decode", want, lg))
-            tok = want[:, -1].argmax(-1, keepdim=True)
-        for k, v in kops.launch_counts().items():
-            ref_launches[k] += v - before[k]
+        with not_counted(kops, ref):
+            for want in dec_logits:
+                lg, ref_state = lm.decode_step(model, tok, ref_state,
+                                               moe_impl=moe_impl)
+                e2e.append(e2e_reading(torch, f"{what} decode", want, lg))
+                tok = want[:, -1].argmax(-1, keepdim=True)
         # the single-device model (and the layers the held checks read)
         # is done with: four ranks share the card's memory
         del ref_state, dec_logits, smodel, model, plain_of
@@ -3775,19 +3905,17 @@ def _sharded_serve_and_train(torch, dist, rank, dev, mesh, plan, cfg,
         tcfg = train.TrainerConfig(steps=LM_SHARD_STEPS, warmup_steps=1,
                                    opt=adamw.AdamWConfig(lr=1e-4))
         trainer = train.Trainer(task, data, tcfg, mesh=mesh)
-        before = kops.launch_counts()
-        st0 = trainer.init_state()
-        whole0 = {k: p.full_tensor() for k, p in st0.params.items()}
-        del st0
-        batch0 = {k: torch.as_tensor(v).to(dev)
-                  for k, v in data.batch(0).items()}
-        with torch.no_grad():
-            ref_loss0 = float(lm.loss_fn(whole0, cfg, batch0,
-                                         remat_policy="none",
-                                         moe_impl=moe_impl)[0])
-        del whole0
-        for k, v in kops.launch_counts().items():
-            ref_launches[k] += v - before[k]
+        with not_counted(kops, ref):
+            st0 = trainer.init_state()
+            whole0 = {k: p.full_tensor() for k, p in st0.params.items()}
+            del st0
+            batch0 = {k: torch.as_tensor(v).to(dev)
+                      for k, v in data.batch(0).items()}
+            with torch.no_grad():
+                ref_loss0 = float(lm.loss_fn(whole0, cfg, batch0,
+                                             remat_policy="none",
+                                             moe_impl=moe_impl)[0])
+            del whole0
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         ends = []
@@ -3817,11 +3945,12 @@ def _sharded_serve_and_train(torch, dist, rank, dev, mesh, plan, cfg,
                 tally_record(tally),
                 max_memory_allocated=torch.cuda.max_memory_allocated())
     torch.cuda.synchronize()
-    counts = kops.launch_counts()
-    launched = {k: counts[k] - ref_launches[k] for k in counts}
-    if kops.path_launch_counts()["mma_sync"]:
-        fail(f"{what}: a MoE product took segment_matmul's mma_sync path: "
-             f"{kops.path_launch_counts()}")
+    # the path's launches, each kernel's and by path
+    launched = count_diff(kops.launch_counts(), ref["launches"])
+    paths = count_diff(kops.path_launch_counts(), ref["paths"])
+    if paths["segment_matmul"]["mma_sync"] or paths["sddmm"]["runs"]:
+        fail(f"{what}: a MoE product took segment_matmul's mma_sync path, "
+             f"or a router-weight gradient sddmm's runs path: {paths}")
     losses = run.losses
     if not all(math.isfinite(v) for v in losses):
         fail(f"{what}: non-finite losses {losses}")
@@ -3855,7 +3984,7 @@ def _sharded_serve_and_train(torch, dist, rank, dev, mesh, plan, cfg,
         + f"); warm step {rec['training']['warm_step_ms']:.1f} ms; profiled "
         f"split (wall, kernels' device ms, collectives' host ms) {split}; "
         f"peak {train_mem / 1e9:.2f} GB a rank; launches {launched}")
-    return {"record": rec, "run": run, "launches": launched}
+    return {"record": rec, "run": run, "launches": launched, "paths": paths}
 
 
 def tally_record(tally) -> dict:
@@ -3907,10 +4036,12 @@ def opcheck_ops(torch) -> dict:
     ops on the card at small shapes; returns each output's shape, dtype
     and strides."""
     from repro_torch.kernels import segment_matmul as smm
-    from repro_torch.kernels.gather_segment_reduce import row_offsets
+    from repro_torch.kernels.gather_segment_reduce import (OWNER_MAX_ROWS,
+                                                           row_offsets)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     m, v, s, f = 5000, 1000, 800, 64
+    few = OWNER_MAX_ROWS
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
@@ -3925,6 +4056,9 @@ def opcheck_ops(torch) -> dict:
     cases = {
         "gather_segment_reduce": (randn(v, f), gidx, seg, s, wt, "sum", rp,
                                   64),
+        # the owner path (few rows) reads no row offsets
+        "gather_segment_reduce owner": (randn(v, f), gidx[:few], seg[:few],
+                                        s, wt[:few], "max", None, 64),
         "segment_reduce": (randn(m, f), seg, s, "sum", rp, 64),
         "segment_softmax": (randn(m, 4), seg, s, rp),
         "fused_transform_reduce": (randn(v, 32), randn(32, f), gidx, s, wt,
@@ -3934,7 +4068,7 @@ def opcheck_ops(torch) -> dict:
     }
     out = {}
     for name, args in cases.items():
-        op = getattr(torch.ops.repro_torch, name).default
+        op = getattr(torch.ops.repro_torch, name.split()[0]).default
         try:
             torch.library.opcheck(op, args, test_utils=("test_schema",
                                                          "test_faketensor"))
@@ -4241,6 +4375,11 @@ def main() -> None:
     deterministic(torch, f"gather_segment_reduce weighted sum F={HIDDEN} "
                   "float32", lambda: kops.gather_segment_reduce(
                       h64, src, dst, v, wts, "sum", plan=plan, impl="cuda"))
+    # the generic rows keep the old paths: the gather's runs at the arxiv
+    # bucket (and, below, sddmm's runs kernel at F = 64)
+    gsr_generic = took_one_path(
+        torch, kops, "gather_segment_reduce", lambda: kops.gather_segment_reduce(
+            h64, src, dst, v, wts, "sum", plan=plan, impl="cuda"))
 
     # widths that are not a multiple of the 16-byte vector
     for feat in (16, 40, 3):
@@ -4787,6 +4926,12 @@ def main() -> None:
                                        impl="ref"))
     deterministic(torch, f"sddmm F={HIDDEN} float32",
                   lambda: sddmm_launch(sd_a32, sd_b32, a_dst, a_src))
+    generic_paths = (gsr_generic, took_one_path(
+        torch, kops, "sddmm", lambda: sddmm_launch(sd_a32, sd_b32, a_dst,
+                                                   a_src)))
+    if generic_paths != ("runs", "runs"):
+        fail(f"the generic rows took the paths {generic_paths} (gather, "
+             "sddmm), expected the runs paths")
     # every pair reads its row of B (src, random over the nodes) in full
     sd_b_bytes = a_e * HIDDEN * 4
     print(f"  sddmm F={HIDDEN} float32 dst-sorted: {sd_b_bytes} bytes of B "
@@ -4966,11 +5111,11 @@ def main() -> None:
         fwd_ms = time_ms(torch, forward, reps=3, warmup=1)
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         wall_ms, busy_ms, rows = profiled(torch, forward)
-        # the gather's two kernels and the softmax's three, summed over the
-        # forward's launches
+        # the gather's kernels (its runs path's two and its owner path's)
+        # and the softmax's three, summed over the forward's launches
         gsr = {p: sum(ms for key, ms, _ in rows if p in key)
-               for p in ("gsr_runs", "gsr_fix", "ssm_runs", "ssm_fix",
-                         "ssm_cut")}
+               for p in ("gsr_runs", "gsr_fix", "gsr_owner", "ssm_runs",
+                         "ssm_fix", "ssm_cut")}
         ssm_ms = gsr["ssm_runs"] + gsr["ssm_fix"] + gsr["ssm_cut"]
         typed.append({"family": family, "heads": n_heads, "layers": layers,
                       "forward_ms": fwd_ms, "max_abs_err": err,
@@ -4978,6 +5123,7 @@ def main() -> None:
                       "device_busy_ms": busy_ms or None,
                       "gather_runs_ms": gsr["gsr_runs"] if busy_ms else None,
                       "gather_fix_ms": gsr["gsr_fix"] if busy_ms else None,
+                      "gather_owner_ms": gsr["gsr_owner"] if busy_ms else None,
                       "softmax_ms": ssm_ms if busy_ms else None})
         print(f"  typed {family} (heads={n_heads}) on AM: forward_ms="
               f"{fwd_ms:.3f} max_abs_err={err:.3g} peak_alloc_gib="
@@ -4988,10 +5134,11 @@ def main() -> None:
                   f"{1 - busy_ms / wall_ms:.3f}; top device ops:", flush=True)
             for key, ms, _ in rows[:8]:
                 print(f"    {ms:9.3f} ms  {key[:90]}", flush=True)
+            gsr_ms = gsr["gsr_runs"] + gsr["gsr_fix"] + gsr["gsr_owner"]
             print(f"  profiled {family} forward: gather_segment_reduce "
                   f"gsr_runs {gsr['gsr_runs']:.3f} ms + gsr_fix "
-                  f"{gsr['gsr_fix']:.3f} ms = "
-                  f"{gsr['gsr_runs'] + gsr['gsr_fix']:.3f} ms", flush=True)
+                  f"{gsr['gsr_fix']:.3f} ms + gsr_owner "
+                  f"{gsr['gsr_owner']:.3f} ms = {gsr_ms:.3f} ms", flush=True)
             if family == "rgat":
                 print(f"  profiled {family} forward: segment_softmax "
                       f"ssm_runs {gsr['ssm_runs']:.3f} ms + ssm_fix "
@@ -5129,6 +5276,12 @@ def main() -> None:
         k: sum(r.get(k, 0)
                for r in lm_sharded["dropless"]["launches_by_rank"])
         for k in kops.launch_counts()}
+    # by path, summed over the ranks
+    paths_lm_sharded, paths_lm_dropless = (
+        {k: {p: sum(r[k][p] for r in ranks) for p in by}
+         for k, by in ranks[0].items()}
+        for ranks in (lm_sharded["paths_by_rank"],
+                      lm_sharded["dropless"]["paths_by_rank"]))
     lm_sharded.update(phase_s=time.perf_counter() - t_phase, card=card)
     print(f"LM sharded passed ({lm_sharded['phase_s']:.1f} s, backend "
           f"{lm_sharded['backend']}, {card}); launches on the sharded LM "
@@ -5295,10 +5448,16 @@ def main() -> None:
     kernels[3]["typed_bf16"] = {
         f"{k_dim}->{n_dim}": results[("smm typed bf16", k_dim, n_dim)]
         for k_dim, n_dim in ((HIDDEN, HIDDEN), (FEAT, 2 * HIDDEN))}
-    # segment_matmul's launches on the LM paths by the kernel they took
-    kernels[3]["launches_by_kernel_path"] = {
-        "lm": lm_record["segment_matmul_paths"],
-        "lm_train": lm_train["segment_matmul_paths"]}
+    # the launches of the kernels with two paths on the LM paths, by the
+    # path they took; the generic rows' path (the old one, by the rules)
+    for i in (0, 3, 5):
+        name = kernels[i]["name"]
+        kernels[i]["launches_by_kernel_path"] = {
+            "lm": lm_record["kernel_paths"][name],
+            "lm_train": lm_train["kernel_paths"][name],
+            "lm_sharded": paths_lm_sharded[name],
+            "lm_sharded_dropless": paths_lm_dropless[name]}
+    kernels[0]["path"], kernels[5]["path"] = generic_paths
     # the training shapes of phase 3i: the expert products' dX, the
     # combine's dH and the dispatch's dH, the router-weight gradient, the
     # embedding's backward

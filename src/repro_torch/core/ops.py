@@ -135,11 +135,13 @@ def _scatter_dh(order: SourceOrder, g, weight, per_edge: bool, impl):
 
 def _edge_dots(g, h, gather_idx, seg_rows, n: int, num_edges: int, impl):
     """dw[i] = <G[seg_rows[i]], H[gather_idx[i]]> for the first ``n`` (the
-    kept) edges, 0 for the dropped ones: one sddmm launch in fp32."""
+    kept) edges, 0 for the dropped ones: one sddmm launch, fp32 G and
+    products, H read in its own dtype (a bf16 row widened in registers
+    gives the products of an fp32 copy)."""
     dw = torch.zeros(num_edges, dtype=torch.float32, device=h.device)
     if n:
-        dw[:n] = kops.sddmm_rows(g.float(), h.float(), seg_rows[:n],
-                                 gather_idx[:n], impl)
+        dw[:n] = kops.sddmm_rows(g.float(), h, seg_rows[:n], gather_idx[:n],
+                                 impl)
     return dw
 
 

@@ -8,8 +8,12 @@ of ``STAGES`` = 2, 3 and 4 X stages and its wgmma path's tile width
 ``TC_BN`` = 64, 128 and 256, depth ``TC_BK`` = 64 and 128 and ring of
 ``TC_STAGES`` = 3, 4 and 5 stages, of ``fused_transform_reduce.cu`` with ``U`` = 2, 4
 and 8 rows of H in flight a lane group (its product is the tensor-core one
-only; it runs at the default tile, S_b = 64), and of ``sddmm.cu`` with runs of
-``RUN`` = 16, 32 and 64 pairs and ``LPR`` = 4, 8 and 16 lanes a row (each
+only; it runs at the default tile, S_b = 64), of ``sddmm.cu`` with runs of
+``RUN`` = 16, 32 and 64 pairs and ``LPR`` = 4, 8 and 16 lanes a row, and its
+wide-row path's ``WIDE_PAIRS`` = 2, 4 and 8 pairs a warp and
+``WIDE_LOADS`` = 1, 2 and 4 vectors of a row in flight a pair, and of ``gather_segment_reduce.cu``'s owner path
+with ``OWN_ROWS`` = 4, 8 and 16 rows in flight a lane and
+``OWN_VEC_BYTES`` = 4, 8 and 16 bytes of a row a lane owns (each
 constant swept with the others at their shipped values; a variant is
 named ``CONST=value``), each into a library of its own (nvcc with the
 flags of ``kernels/_build.py``, all started together, into the build
@@ -30,8 +34,20 @@ directory), and times each through its C entry point at the shapes
   * fused_transform_reduce: weighted sum fp32 and bf16 32->64, fp32 64->64
     and 64->16, and mean fp32 32->64 at the ogbn-arxiv bucket, weighted
     sum fp32 32->64 at gcn's reddit2 request;
-  * sddmm: fp32 and bf16 F=64 on arxiv's dst-sorted (dst, src) pairs, fp32
-    F=64 on the same pairs shuffled.
+  * sddmm: the runs path (RUN, LPR) at fp32 and bf16 F=64 on arxiv's
+    dst-sorted (dst, src) pairs, fp32 F=64 on the same pairs shuffled; the
+    wide path (WIDE_*) at the MoE combine's router-weight gradient of
+    qwen3-moe-30b-a3b's training step (2048 tokens, top-8: 16,384 pairs of
+    F = 2048, rows token-sorted, columns a permutation) with A and B fp32,
+    A fp32 and B bf16, both bf16; and both paths at their shipped values
+    at widths 64 to 2048 on those pairs, and 64 to 512 on arxiv's, in fp32
+    and bf16 (where the rule's WIDE_MIN_BYTES should lie);
+  * gather_segment_reduce: the owner path (OWN_*) at the MoE combine of a
+    decode step (64 bf16 rows of F = 2048 into 8 tokens, weighted sum)
+    and at a hub of OWNER_MAX_ROWS rows; and both paths at their shipped
+    values (the runs path with the row offsets it builds, and alone) at
+    64 to 4096 rows, eight to a segment or all in one, at bf16 F = 2048
+    and fp32 F = 64 (where the rule's OWNER_MAX_ROWS should lie).
 
 Beside sddmm, and beside the fused kernel's fp32 32->64 at arxiv and
 reddit2, it times the read probe ``csrc/probes/row_reads.cu`` at U = 1,
@@ -50,9 +66,11 @@ CUDA-event timings after 3 warm-ups, each behind a busy-wait kernel so host
 launch time stays out; the median over the rounds is printed, with the
 card's name and power limit. A variant that does not fit (a wgmma
 ring above the 227 KB of shared memory) is reported and left out. The
-shipped values are RUN = 128 (the softmax), RUN = 32 and LPR = 8
-(sddmm), STAGES = 2, TC_BN = 128, TC_BK = 64, TC_STAGES = 5, and U = 4
-(the fused kernel). The gather's and segment_reduce's run length and the fused
+shipped values are RUN = 128 (the softmax), RUN = 32 and LPR = 8,
+WIDE_PAIRS = 4 and WIDE_LOADS = 1 (sddmm), STAGES = 2, TC_BN = 128,
+TC_BK = 64, TC_STAGES = 5, U = 4 (the fused kernel), and OWN_ROWS = 8 and
+OWN_VEC_BYTES = 16 (the gather's owner path). The gather's and
+segment_reduce's run length and the fused
 kernel's tile are no longer build-time variants: each is built for every
 value of its config axis and picked at run time, and
 :func:`repro_torch.core.autotune.tune` sweeps them (``chip_smoke.py``
@@ -86,7 +104,22 @@ VARIANTS = {
                        ("constexpr int TC_STAGES = {};", (3, 4, 5))],
     "fused_transform_reduce": [("constexpr int U = {};", (2, 4, 8))],
     "sddmm": [("constexpr int RUN = {};", (16, 32, 64)),
-              ("constexpr int LPR = {};", (4, 8, 16))]}
+              ("constexpr int LPR = {};", (4, 8, 16)),
+              ("constexpr int WIDE_PAIRS = {};", (2, 4, 8)),
+              ("constexpr int WIDE_LOADS = {};", (1, 2, 4))],
+    "gather_segment_reduce": [("constexpr int OWN_ROWS = {};", (4, 8, 16)),
+                              ("constexpr int OWN_VEC_BYTES = {};",
+                               (4, 8, 16))]}
+# prepended to a variant's source: the gather's variants time the owner path
+# alone, so they build no run length of the runs path
+PREAMBLE = {"gather_segment_reduce": "#define FOR_RUN_LENGTHS(X)\n"}
+# the MoE combine of qwen3-moe-30b-a3b: a training step's 2048 tokens and a
+# decode step's 8, top-8, d_model 2048
+MOE_TOKENS, MOE_DECODE_TOKENS, MOE_TOP_K, MOE_D = 2048, 8, 8, 2048
+# where the shape rules' thresholds are swept: sddmm's row widths, the
+# gather's row counts
+SDDMM_WIDTHS = (64, 128, 192, 256, 384, 512, 1024, 2048)
+GATHER_ROWS = (64, 128, 256, 512, 1024, 2048, 4096)
 # rows in flight of the read probe (csrc/probes/row_reads.cu), and the
 # rows of a lane group's run (sddmm's RUN)
 PROBE_U, PROBE_RUN = (1, 2, 4, 8), 32
@@ -142,8 +175,8 @@ def build_variants(_build, names, probe=False):
             for v in values:
                 stem = f"{name}_{const}{v}"
                 cu = out_dir / f"{stem}.cu"
-                cu.write_text(src.replace(line.format(shipped[const]),
-                                          line.format(v)))
+                cu.write_text(PREAMBLE.get(name, "") + src.replace(
+                    line.format(shipped[const]), line.format(v)))
                 so = out_dir / f"{stem}.so"
                 procs[(name, f"{const}={v}")] = (
                     so, {**shipped, const: v}, _nvcc(_build, cu, so))
@@ -442,7 +475,7 @@ def main() -> None:
         a_dst = torch.from_numpy(g.edge_index[1]).to(dev).int().contiguous()
         a_src = torch.from_numpy(g.edge_index[0]).to(dev).int().contiguous()
     if "sddmm" in names:
-        runs = variant_keys("sddmm")
+        runs = [k for k in variant_keys("sddmm") if not k.startswith("WIDE")]
         print(f"sddmm on arxiv's (dst, src) pairs, variants {runs}:",
               flush=True)
         perm = torch.randperm(a_dst.numel(), generator=gen, device=dev)
@@ -466,6 +499,9 @@ def main() -> None:
             ceiling(ms, "B rows", b, cols)
             ceiling(ms, "A+B rows")
         del perm, sa, sb, a, b, rows, cols
+        sddmm_wide(libs, timed, gen, dev, (g.num_nodes, a_dst, a_src))
+    if "gather_segment_reduce" in names:
+        gather_owner(libs, timed, gen, dev)
     del plan, src, dst
 
     typed = {"segment_softmax", "segment_matmul"}
@@ -533,6 +569,133 @@ def main() -> None:
             del x, w, want
         smm_moe(tc_keys, smm_tc, timed_tc, gen, dev)
     print(card, flush=True)
+
+
+def moe_pairs(gen, tokens, dev):
+    """The MoE combine's (token, row) pairs: tokens sorted, MOE_TOP_K to a
+    token; the rows of the expert outputs a permutation (their order
+    sorted by expert), int32 on ``dev``."""
+    tok = torch.arange(tokens, dtype=torch.int32, device=dev
+                       ).repeat_interleave(MOE_TOP_K)
+    inv = torch.randperm(tok.numel(), generator=gen, device=dev)
+    return tok, inv.to(torch.int32)
+
+
+def _dt(t) -> str:
+    return str(t.dtype)[6:]
+
+
+def sddmm_wide(libs, timed, gen, dev, arxiv):
+    """sddmm's wide-path variants at the combine's router-weight gradient,
+    then both paths at their shipped values across row widths. ``arxiv``:
+    (rows, dst, src) of its pairs."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import sddmm as sdd
+
+    keys = [k for k in variant_keys("sddmm") if k.startswith("WIDE")]
+    tok, inv = moe_pairs(gen, MOE_TOKENS, dev)
+    print(f"sddmm wide path at the MoE combine's router-weight gradient "
+          f"({tok.numel()} pairs of F={MOE_D}, token-sorted rows), variants "
+          f"{keys}:", flush=True)
+    g32 = torch.randn(MOE_TOKENS, MOE_D, generator=gen, device=dev)
+    ys = torch.randn(tok.numel(), MOE_D, generator=gen, device=dev)
+    for a, b in ((g32, ys), (g32, ys.bfloat16()),
+                 (g32.bfloat16(), ys.bfloat16())):
+        timed(f"A {_dt(a)} B {_dt(b)}",
+              {k: (lambda k=k: sdd.c_entry("wide", a, b, tok, inv,
+                                           libs[("sddmm", k)][0]))
+               for k in keys},
+              sdd.sddmm_ref(a.float(), b.float(), tok, inv), a.dtype)
+    del g32, ys, a, b
+    lib = _build.load("sddmm")
+    print("sddmm runs path against wide path, shipped values, by row width "
+          f"(the rule: wide above {sdd.WIDE_MIN_BYTES} bytes a row):",
+          flush=True)
+    rows, a_dst, a_src = arxiv
+    for label, rows_a, row, rows_b, col, widths in (
+            ("MoE combine pairs", MOE_TOKENS, tok, int(tok.numel()), inv,
+             SDDMM_WIDTHS),
+            ("arxiv (dst, src) pairs", rows, a_dst, rows, a_src,
+             [f for f in SDDMM_WIDTHS if f <= 512])):
+        for f in widths:
+            for dtype in (torch.float32, torch.bfloat16):
+                a = torch.randn(rows_a, f, generator=gen, device=dev).to(dtype)
+                b = torch.randn(rows_b, f, generator=gen, device=dev).to(dtype)
+                timed(f"{label} F={f} {_dt(a)} (rule: "
+                      f"{sdd.path(f, dtype)})",
+                      {p: (lambda p=p: sdd.c_entry(p, a, b, row, col, lib))
+                       for p in ("runs", "wide")},
+                      sdd.sddmm_ref(a.float(), b.float(), row, col), dtype)
+                del a, b
+
+
+def gather_owner(libs, timed, gen, dev):
+    """The gather's owner-path variants at the decode combine and at a hub
+    of OWNER_MAX_ROWS rows, then both paths at their shipped values across
+    row counts: the owner path, the runs path with the row offsets it
+    builds without a plan (as the op runs it), and the runs kernel alone
+    on offsets given (a plan's)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import gather_segment_reduce as gsr
+
+    def owner(lib, h, gidx, seg, s, w):
+        return gsr.c_entry("owner", h, gidx, seg, s, w, lib=lib)
+
+    def runs(h, gidx, seg, s, w, row_ptr=None):
+        rp = gsr.row_offsets(seg, s) if row_ptr is None else row_ptr
+        return gsr.c_entry("runs", h, gidx, seg, s, w, row_ptr=rp)
+
+    def case(n, f, dtype, hub):
+        """n rows of F = f into n / 8 segments (at least one), eight to a
+        segment or, ``hub``, all in the first; a permutation gathers them."""
+        s = max(n // MOE_TOP_K, 1)
+        seg = (torch.zeros(n, dtype=torch.int32, device=dev) if hub else
+               torch.arange(s, dtype=torch.int32, device=dev
+                            ).repeat_interleave(MOE_TOP_K)[:n])
+        gidx = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+        h = torch.randn(n, f, generator=gen, device=dev).to(dtype)
+        w = torch.rand(n, generator=gen, device=dev).to(dtype)
+        want = gsr.gather_segment_reduce_ref(h.float(), gidx, seg, s,
+                                             w.float())
+        return h, gidx, seg, s, w, want
+
+    keys = variant_keys("gather_segment_reduce")
+    print(f"gather_segment_reduce owner path, variants {keys}:", flush=True)
+    tok, inv = moe_pairs(gen, MOE_DECODE_TOKENS, dev)
+    n = int(tok.numel())
+    ys = torch.randn(n, MOE_D, generator=gen, device=dev).bfloat16()
+    w = torch.rand(n, generator=gen, device=dev).bfloat16()
+    timed(f"decode combine: {n} bf16 rows of F={MOE_D} into "
+          f"{MOE_DECODE_TOKENS} tokens, weighted sum",
+          {k: (lambda k=k: owner(libs[("gather_segment_reduce", k)][0], ys,
+                                 inv, tok, MOE_DECODE_TOKENS, w))
+           for k in keys},
+          gsr.gather_segment_reduce_ref(ys.float(), inv, tok,
+                                        MOE_DECODE_TOKENS, w.float()),
+          torch.bfloat16)
+    h, gidx, seg, s, w, want = case(gsr.OWNER_MAX_ROWS, MOE_D,
+                                    torch.bfloat16, True)
+    timed(f"a hub of {gsr.OWNER_MAX_ROWS} bf16 rows of F={MOE_D}, weighted "
+          "sum",
+          {k: (lambda k=k: owner(libs[("gather_segment_reduce", k)][0], h,
+                                 gidx, seg, s, w)) for k in keys},
+          want, torch.bfloat16)
+    lib = _build.load("gather_segment_reduce")
+    print("gather_segment_reduce owner path against the runs path, shipped "
+          f"values, by rows (the rule: owner up to {gsr.OWNER_MAX_ROWS}):",
+          flush=True)
+    for f, dtype in ((MOE_D, torch.bfloat16), (64, torch.float32)):
+        for n in GATHER_ROWS:
+            for hub in (False, True):
+                h, gidx, seg, s, w, want = case(n, f, dtype, hub)
+                rp = gsr.row_offsets(seg, s)
+                timed(f"{n} {_dt(h)} rows of F={f} "
+                      f"{'in one segment' if hub else 'eight to a segment'} "
+                      f"(rule: {gsr.path(n)})",
+                      {"owner": lambda: owner(lib, h, gidx, seg, s, w),
+                       "runs with offsets": lambda: runs(h, gidx, seg, s, w),
+                       "runs kernel": lambda: runs(h, gidx, seg, s, w, rp)},
+                      want, dtype)
 
 
 def moe_sizes(gen, rows, groups, active, dev):

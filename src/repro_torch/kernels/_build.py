@@ -64,6 +64,9 @@ SIGNATURES = {
         # num_rows, feat, num_segments, run_rows, stream
         "gsr_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                        _L, _I, _I, _I, _P],
+        # dtype, reduce, weighted, h, gidx, seg, w, out, num_rows, feat,
+        # num_segments, stream (the owner path: no row offsets, no scratch)
+        "gsr_owner_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _L, _I, _I, _P],
     },
     "segment_softmax": {
         # dtype, x, seg, row_ptr, part, out, num_rows, heads, num_segments,
@@ -84,6 +87,9 @@ SIGNATURES = {
     "sddmm": {
         # dtype, a, b, row, col, out, m, n, stream
         "sddmm_launch": [_I, _P, _P, _P, _P, _P, _L, _I, _P],
+        # dtype of A (and the output), dtype of B, a, b, row, col, out, m,
+        # n, stream (the wide-row path)
+        "sddmm_wide_launch": [_I, _I, _P, _P, _P, _P, _P, _L, _I, _P],
     },
     "segment_matmul": {
         # dtype, x, w, offsets, first_group, group_count, out, num_rows,

@@ -47,6 +47,50 @@
 // vector a lane, four pairs' loads together; 4: four vectors, one pair);
 // bf16 0.0404 / 0.0398 / 0.0444 and 0.0489 / 0.0398 / 0.0975, the shuffled
 // pairs alike.
+//
+// The wide-row path (sddmm_wide, C entry sddmm_wide_launch). The MoE
+// combine's router-weight gradient has rows of F = 2048, wider than one
+// stretch of the runs kernel (F > 128 fp32, F > 256 bf16): it took the
+// runs kernel's column stretches one after another, 16 blocks for 16,384
+// pairs at 32 pairs a run, one pair's rows in flight a group, no A-row
+// reuse, 12 % of the byte bound. The wide path gives the card enough
+// loads in flight:
+//  * A warp owns a run of WIDE_PAIRS consecutive pairs: 4,096 warps at
+//    16,384 pairs. Lane u < WIDE_PAIRS loads pair u's indices; shuffles
+//    hand them to the warp.
+//  * The warp walks the columns in steps of WIDE_LOADS 16-byte vectors a
+//    lane (neighbouring lanes on neighbouring addresses). In each step it
+//    loads the vectors of all its pairs' B rows at once, WIDE_PAIRS *
+//    WIDE_LOADS loads in flight a lane, before any product: the combine's
+//    4,096 warps, about 31 an SM, keep some 64 KB of B in flight an SM.
+//  * A-row reuse: a pair whose A row is the previous pair's in the run
+//    loads no A vector; the lanes keep the last one in registers (the
+//    combine's pairs are token-sorted, k = 8 to a token). A run starting
+//    inside a token reads that row again, from L2 (the combine's A is 16.8
+//    MB of the 50 MB L2): registers for the reuse within a run, L2 across
+//    runs, and no shared memory that would cut the warps resident.
+//  * B may be bf16 while A is fp32 (the backward's expert outputs): it is
+//    loaded as bf16, at the vector width of A's 16 bytes, and widened in
+//    registers, which gives bitwise the products of an fp32 copy.
+//  * Products are fp32; each pair's sum is a butterfly over the warp's
+//    lanes in a fixed order, so the result is bitwise the same from run to
+//    run, written once, in A's dtype, by lane u for pair u.
+// kernels/sddmm.py `path` sends a row to this path where it is wider than
+// WIDE_MIN_BYTES; its note gives the measured crossing.
+//
+// WIDE_PAIRS = 4 and WIDE_LOADS = 1 are the sweep's choice (python -m
+// repro_torch.kernel_variants --kernels sddmm; NVIDIA H100 80GB HBM3,
+// 700.00 W), at the combine's 16,384 pairs of F = 2048, each swept with
+// the other at its shipped value: fp32 B 0.0541 / 0.0550 / 0.0552 ms at 2
+// / 4 / 8 pairs, 0.0544 / 0.0552 / 0.0565 at 1 / 2 / 4 loads; bf16 B under
+// fp32 A 0.0331 / 0.0336 / 0.0344, 0.0337 / 0.0366 / 0.0344; both bf16
+// 0.0317 / 0.0305 / 0.0308, 0.0305 / 0.0319 / 0.0339 (a first sweep with 2
+// loads shipped put 1 load ahead by 2-10 %). A pair on half a warp (two
+// runs a warp, 16 lanes a pair) lost in all three: 0.0575 / 0.0550 ms at
+// 16 / 32 lanes with fp32 B, 0.0386 / 0.0336 with bf16 B, 0.0320 / 0.0307
+// both bf16; a run is a whole warp. The runs
+// kernel on the same pairs: 0.3647 (fp32), 0.2063 (bf16). Bound 0.0451 ms
+// with fp32 B, 0.0251 with bf16 B: the fp32 case runs at 0.82 of it.
 #include "common.cuh"
 
 namespace {
@@ -178,6 +222,106 @@ bool by_vec(int v, int nv, cudaStream_t st, const void* a, const void* b, const 
   return false;
 }
 
+constexpr int WIDE_PAIRS = 4;   // consecutive pairs a warp owns
+constexpr int WIDE_LOADS = 1;   // 16-byte vectors of each pair's rows a lane loads at once
+
+template <typename TA, typename TB, int V>
+__global__ void __launch_bounds__(THREADS)
+sddmm_wide(const TA* __restrict__ a, const TB* __restrict__ b, const int* __restrict__ row,
+           const int* __restrict__ col, TA* __restrict__ out, int64_t m, int n,
+           int64_t num_runs) {
+  constexpr int P = WIDE_PAIRS, NL = WIDE_LOADS;
+  static_assert(P <= 32, "a warp's lanes hand out its pairs' indices");
+  constexpr int CW = 32 * V * NL;  // columns one step of the warp covers
+  const int sub = threadIdx.x & 31;
+  const int64_t run = ((int64_t)blockIdx.x * THREADS + threadIdx.x) / 32;
+  if (run >= num_runs) return;  // the whole warp leaves together
+  const int64_t p0 = run * P;
+  const bool mine = sub < P && p0 + sub < m;  // lane sub writes pair p0 + sub
+  const int ri = mine ? row[p0 + sub] : -1;
+  const int ci = mine ? col[p0 + sub] : 0;
+  int r[P], c[P];
+  bool fresh[P];  // pair u loads its A row: the run's first, or another row than u - 1's
+#pragma unroll
+  for (int u = 0; u < P; ++u) {
+    r[u] = __shfl_sync(0xffffffffu, ri, u);
+    c[u] = __shfl_sync(0xffffffffu, ci, u);
+    fresh[u] = r[u] >= 0 && (u == 0 || r[u] != r[u - 1]);
+  }
+  float dot[P];
+#pragma unroll
+  for (int u = 0; u < P; ++u) dot[u] = 0.f;
+  for (int c0 = 0; c0 < n; c0 += CW) {
+    RawVec<TA, V> av[P][NL];
+    RawVec<TB, V> bv[P][NL];
+#pragma unroll
+    for (int u = 0; u < P; ++u) {
+#pragma unroll
+      for (int k = 0; k < NL; ++k) {
+        const int cc = c0 + (k * 32 + sub) * V;
+        av[u][k] = RawVec<TA, V>{};
+        bv[u][k] = RawVec<TB, V>{};
+        if (r[u] >= 0 && cc < n) {
+          if (fresh[u])
+            av[u][k] = __ldg(reinterpret_cast<const RawVec<TA, V>*>(a + (int64_t)r[u] * n + cc));
+          bv[u][k] = __ldg(reinterpret_cast<const RawVec<TB, V>*>(b + (int64_t)c[u] * n + cc));
+        }
+      }
+    }
+    float acur[NL][V];  // the lane's vectors of the last A row loaded
+#pragma unroll
+    for (int k = 0; k < NL; ++k)
+#pragma unroll
+      for (int j = 0; j < V; ++j) acur[k][j] = 0.f;
+#pragma unroll
+    for (int u = 0; u < P; ++u) {
+#pragma unroll
+      for (int k = 0; k < NL; ++k) {
+        if (fresh[u]) unpack<TA, V>(av[u][k], acur[k]);
+        float bf[V];
+        unpack<TB, V>(bv[u][k], bf);
+#pragma unroll
+        for (int j = 0; j < V; ++j) dot[u] += acur[k][j] * bf[j];
+      }
+    }
+  }
+  // a butterfly over the warp's lanes in a fixed order: every lane ends
+  // with every pair's sum, the same bits on each
+  float mine_dot = 0.f;
+#pragma unroll
+  for (int u = 0; u < P; ++u) {
+#pragma unroll
+    for (int o = 16; o >= 1; o >>= 1) dot[u] += __shfl_xor_sync(0xffffffffu, dot[u], o);
+    if (u == sub) mine_dot = dot[u];
+  }
+  if (mine) out[p0 + sub] = from_f<TA>(mine_dot);
+}
+
+template <typename TA, typename TB, int V>
+void launch_wide(cudaStream_t st, const void* a, const void* b, const void* row,
+                 const void* col, void* out, int64_t m, int n) {
+  const int64_t runs = (m + WIDE_PAIRS - 1) / WIDE_PAIRS;
+  const unsigned grid = (unsigned)((runs * 32 + THREADS - 1) / THREADS);
+  sddmm_wide<TA, TB, V><<<grid, THREADS, 0, st>>>((const TA*)a, (const TB*)b, (const int*)row,
+                                                  (const int*)col, (TA*)out, m, n, runs);
+}
+
+template <typename TA, typename TB>
+bool wide_by_vec(int v, cudaStream_t st, const void* a, const void* b, const void* row,
+                 const void* col, void* out, int64_t m, int n) {
+  switch (v) {
+    case 1: launch_wide<TA, TB, 1>(st, a, b, row, col, out, m, n); return true;
+    case 2: launch_wide<TA, TB, 2>(st, a, b, row, col, out, m, n); return true;
+    case 4: launch_wide<TA, TB, 4>(st, a, b, row, col, out, m, n); return true;
+    case 8:
+      if constexpr (sizeof(TA) == 2 && sizeof(TB) == 2) {
+        launch_wide<TA, TB, 8>(st, a, b, row, col, out, m, n);
+        return true;
+      }
+  }
+  return false;
+}
+
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
@@ -198,6 +342,32 @@ extern "C" int sddmm_launch(int dtype, const void* a, const void* b, const void*
   cudaStream_t st = (cudaStream_t)stream;
   const bool ok = dtype == DT_F32 ? by_vec<float>(v, nv, st, a, b, row, col, out, m, n)
                                   : by_vec<__nv_bfloat16>(v, nv, st, a, b, row, col, out, m, n);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// The wide-row path: launches on `stream` and returns cudaGetLastError() (0
+// on success). A and the output in `dtype_a`, B in `dtype_b`: both fp32,
+// both bf16, or an fp32 A with a bf16 B.
+extern "C" int sddmm_wide_launch(int dtype_a, int dtype_b, const void* a, const void* b,
+                                 const void* row, const void* col, void* out, int64_t m,
+                                 int n, void* stream) {
+  cudaGetLastError();  // clear a stale error so the return is this launch's
+  const bool f32_a = dtype_a == DT_F32, f32_b = dtype_b == DT_F32;
+  if (m < 1 || n < 1 || (!f32_a && dtype_a != DT_BF16) || (!f32_b && dtype_b != DT_BF16) ||
+      (!f32_a && f32_b))
+    return (int)cudaErrorInvalidValue;
+  const int ea = f32_a ? 4 : 2, eb = f32_b ? 4 : 2;
+  // widest vector (at most 16 bytes of A) that divides a row and keeps A and B aligned
+  int v = 16 / ea;
+  while (v > 1 && (n % v != 0 || ((uintptr_t)a % (v * ea)) != 0 ||
+                   ((uintptr_t)b % (v * eb)) != 0))
+    v /= 2;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool ok =
+      f32_a ? (f32_b ? wide_by_vec<float, float>(v, st, a, b, row, col, out, m, n)
+                     : wide_by_vec<float, __nv_bfloat16>(v, st, a, b, row, col, out, m, n))
+            : wide_by_vec<__nv_bfloat16, __nv_bfloat16>(v, st, a, b, row, col, out, m, n);
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

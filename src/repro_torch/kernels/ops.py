@@ -47,7 +47,9 @@ by construction (no host check); the softmax backward's per-segment sum is
 
 Accounting: each kernel module keeps a plain-int launch counter
 (:func:`launch_counts`, :func:`reset_launch_counts`), bumped only where
-its kernel launches. :func:`account` / :func:`fusion_scope` record which
+its kernel launches; the kernels with two paths (segment_matmul, the
+gather, sddmm) also count each launch under the path it took
+(:func:`path_launch_counts`). :func:`account` / :func:`fusion_scope` record which
 kernels (``fused:<op>``) or plain versions (``unfused:<op>:<impl>``) a
 block of work ran, so a served step can report what it launched; every
 event is also mirrored into the :mod:`repro_torch.obs` registry
@@ -105,18 +107,26 @@ def launch_counts() -> dict:
     return {name: mod.launches for name, mod in _KERNEL_MODULES.items()}
 
 
+# the kernels with two paths, each picked by its module's ``path`` rule
+_PATH_MODULES = {"segment_matmul": _smm, "gather_segment_reduce": _gsr,
+                 "sddmm": _sdd}
+
+
 def path_launch_counts() -> dict:
-    """segment_matmul's launches since the last reset by the path each
-    took (:func:`~repro_torch.kernels.segment_matmul.path`): ``wgmma``
-    and ``mma_sync``; they sum to its count in :func:`launch_counts`."""
-    return dict(_smm.path_launches)
+    """{kernel: {path: launches}} since the last reset, for the kernels
+    with two paths: segment_matmul (``wgmma``, ``mma_sync``), the gather
+    (``runs``, ``owner``) and sddmm (``runs``, ``wide``); each kernel's
+    paths sum to its count in :func:`launch_counts`."""
+    return {name: dict(mod.path_launches)
+            for name, mod in _PATH_MODULES.items()}
 
 
 def reset_launch_counts() -> None:
     for mod in _KERNEL_MODULES.values():
         mod.launches = 0
-    for which in _smm.path_launches:
-        _smm.path_launches[which] = 0
+    for mod in _PATH_MODULES.values():
+        for which in mod.path_launches:
+            mod.path_launches[which] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -250,7 +260,9 @@ def gather_segment_reduce(h, gather_idx, seg_idx, num_segments: int,
                           impl: Optional[str] = None):
     """Y[s] = reduce_{seg[i]==s} (w[i]·) H[gather_idx[i]], one launch for
     every reduce ∈ {sum, mean, max}, weighted or not. ``seg_idx`` must be
-    sorted non-decreasing. Runs of the config's M_b rows."""
+    sorted non-decreasing. Runs of the config's M_b rows, or, for an input
+    of few rows on the card, the owner path, which needs no row offsets
+    (:func:`~repro_torch.kernels.gather_segment_reduce.path`)."""
     if reduce not in _gsr.REDUCES:
         raise ValueError(f"unknown reduce: {reduce!r}")
     impl = resolve_impl(h, impl)
@@ -263,9 +275,14 @@ def gather_segment_reduce(h, gather_idx, seg_idx, num_segments: int,
         account("unfused", f"{op}:ref")
         return _gsr.gather_segment_reduce_ref(h, gather_idx, seg_idx,
                                               num_segments, weight, reduce)
-    m_b = _segment_config(plan, int(seg_idx.shape[0]), num_segments, config,
+    num_rows = int(seg_idx.shape[0])
+    m_b = _segment_config(plan, num_rows, num_segments, config,
                           int(h.shape[-1])).m_b
-    row_ptr = _row_ptr(plan, seg_idx, num_segments)
+    # the owner path finds each segment's rows itself: without a plan no
+    # row offsets are built for it
+    owner = impl == "cuda" and _gsr.path(num_rows) == "owner"
+    row_ptr = (None if owner and plan is None
+               else _row_ptr(plan, seg_idx, num_segments))
     if impl == "blocked":
         account("unfused", f"{op}:blocked")
         return _gsr.gather_segment_reduce_blocked(
@@ -384,11 +401,16 @@ def segment_reduce(x, idx, num_segments: int, reduce: str = "sum",
 
 def sddmm(a, b, row_idx, col_idx, impl: Optional[str] = None):
     """out[i] = <A[row_idx[i]], B[col_idx[i]]>, one launch; fp32 products,
-    output in ``a.dtype``. An index out of range raises before the launch."""
+    output in ``a.dtype``. On the card A and B are in one dtype; the plain
+    version also takes a mix (its products are fp32 either way). An index
+    out of range raises before the launch."""
     impl = resolve_impl(a, impl, ("cuda", "ref"))
     if impl == "ref":
         account("unfused", "sddmm:ref")
         return _sdd.sddmm_ref(a, b, row_idx, col_idx)
+    if a.dtype != b.dtype:
+        raise TypeError(f"sddmm: a and b must have one dtype, got {a.dtype} "
+                        f"and {b.dtype}")
     account("fused", "sddmm")
     return _sdd.sddmm_cuda(a.contiguous(), b.contiguous(), _index32(row_idx),
                            _index32(col_idx))
@@ -397,11 +419,15 @@ def sddmm(a, b, row_idx, col_idx, impl: Optional[str] = None):
 def sddmm_rows(a, b, row_idx, col_idx, impl: Optional[str] = None):
     """:func:`sddmm` for pairs that are valid by construction (a backward's
     real edges): the launch reads them without the host check and its
-    sync."""
+    sync. B may be bf16 under an fp32 A (a backward's gathered rows in
+    their own dtype): the wide path reads it as it is, and for the runs
+    path, which reads one dtype, it is widened to A's first."""
     impl = resolve_impl(a, impl, ("cuda", "ref", "blocked"))
     if impl != "cuda":
         account("unfused", f"sddmm:{impl}")
         return _sdd.sddmm_ref(a, b, row_idx, col_idx)
+    if _sdd.path(int(a.shape[1]), a.dtype) == "runs":
+        b = b.to(a.dtype)
     account("fused", "sddmm")
     return _sdd.sddmm_cuda(a.contiguous(), b.contiguous(), _index32(row_idx),
                            _index32(col_idx), validate=False)

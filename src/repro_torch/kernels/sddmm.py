@@ -5,8 +5,16 @@
 No sortedness is required (a pure gather). Products are fp32; the output is
 in ``A``'s dtype.
 
-  * :func:`sddmm_cuda` — the hand-written Hopper kernel (``csrc/sddmm.cu``).
-    Replaces the TPU kernel ``repro/kernels/sddmm.py:sddmm_pallas``.
+  * :func:`sddmm_cuda` — the hand-written Hopper kernels (``csrc/sddmm.cu``)
+    behind one op. Replace the TPU kernel
+    ``repro/kernels/sddmm.py:sddmm_pallas``. Two paths, picked by
+    :func:`path` from the row width and dtype alone:
+      - ``"wide"``: rows of more than WIDE_MIN_BYTES (the MoE combine's
+        router-weight gradient, F = 2048) — a warp a short run of pairs,
+        every pair's B row in flight at once (``sddmm_wide_launch``); B may
+        be bf16 under an fp32 A;
+      - ``"runs"``: narrower rows (the GNN's F = 64) — a group of 8 lanes a
+        run of 32 pairs (``sddmm_launch``), A and B in one dtype.
   * :func:`sddmm_ref` — the plain PyTorch version.
 
 An index outside ``[0, rows)`` raises on the host before the launch (the
@@ -19,7 +27,31 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.gather_segment_reduce import DTYPE_CODE
 
-launches = 0    # launches of the CUDA kernel in this process
+launches = 0    # launches of the CUDA kernels in this process, one a call
+# the same launches by path (:func:`path`)
+path_launches = {"runs": 0, "wide": 0}
+
+# rows of more bytes than this take the wide path. The runs kernel keeps a
+# pair's rows in one stretch of 8 lanes up to 512 bytes (128 fp32, 256
+# bf16) and walks wider rows stretch by stretch (csrc/sddmm.cu's note).
+# Measured (python -m repro_torch.kernel_variants --kernels sddmm; NVIDIA
+# H100 80GB HBM3, 700.00 W), runs / wide ms: on ogbn-arxiv's 1,166,243
+# dst-sorted pairs fp32 F = 64 (256 bytes) 0.0692 / 0.1120, F = 128 (512)
+# 0.1710 / 0.1487; bf16 F = 192 (384) 0.1284 / 0.1541, F = 256 (512)
+# 0.1784 / 0.1660; on the MoE combine's 16,384 token-sorted pairs the
+# wide path wins at every width (F = 64 fp32 0.0148 / 0.0066, F = 2048
+# 0.3647 / 0.0548). With many pairs the paths cross between 384 and 512
+# bytes a row in both dtypes; the rule, which sees the width alone, takes
+# that crossing, and keeps the GNN's F = 64 on the runs kernel
+WIDE_MIN_BYTES = 384
+
+
+def path(n: int, dtype) -> str:
+    """Which kernel a launch takes: ``"wide"`` where a row of ``n``
+    elements of A's ``dtype`` holds more than :data:`WIDE_MIN_BYTES`,
+    else ``"runs"``. A pure function of the shape: never a reaction to a
+    build or launch error."""
+    return "wide" if n * dtype.itemsize > WIDE_MIN_BYTES else "runs"
 
 
 def sddmm_ref(a, b, row_idx, col_idx):
@@ -43,21 +75,26 @@ def check_indices(row_idx, col_idx, rows_a: int, rows_b: int) -> None:
 
 
 def sddmm_cuda(a, b, row_idx, col_idx, validate: bool = True):
-    """Check shapes and every index, then launch the Hopper kernel on the
-    current stream (the launch itself is asynchronous). A caller whose
-    pairs are valid by construction passes ``validate=False`` to skip
-    the index check and its host sync."""
+    """Check shapes and every index, then launch the Hopper kernel that
+    :func:`path` picks on the current stream (the launch itself is
+    asynchronous). B is in A's dtype or, on the wide path, bf16 under an
+    fp32 A. A caller whose pairs are valid by construction passes
+    ``validate=False`` to skip the index check and its host sync."""
     if not a.is_cuda:
         raise ValueError(f"sddmm: impl='cuda' needs CUDA tensors, got a on "
                          f"{a.device}")
     if a.dtype not in DTYPE_CODE:
         raise TypeError(f"sddmm: io dtype must be float32 or bfloat16, got "
                         f"{a.dtype}")
-    for label, t in (("a", a), ("b", b)):
-        if (t.device != a.device or t.dtype != a.dtype or t.dim() != 2
+    b_dtypes = ((a.dtype, torch.bfloat16)
+                if path(int(a.shape[1]), a.dtype) == "wide" else (a.dtype,))
+    for label, t, dtypes in (("a", a, (a.dtype,)), ("b", b, b_dtypes)):
+        if (t.device != a.device or t.dtype not in dtypes or t.dim() != 2
                 or t.shape[1] != a.shape[1] or not t.is_contiguous()):
             raise ValueError(f"sddmm: {label} must be a contiguous (rows, "
-                             f"{a.shape[1]}) {a.dtype} tensor on {a.device}")
+                             f"{a.shape[1]}) "
+                             + " or ".join(str(d)[6:] for d in dtypes)
+                             + f" tensor on {a.device}")
     m = int(row_idx.shape[0])
     for label, t in (("row_idx", row_idx), ("col_idx", col_idx)):
         if (t.device != a.device or t.dtype != torch.int32
@@ -84,15 +121,32 @@ def _launch(a: torch.Tensor, b: torch.Tensor, row_idx: torch.Tensor,
     m, n = int(row_idx.shape[0]), int(a.shape[1])
     if m == 0 or n == 0:
         return torch.zeros(m, dtype=a.dtype, device=a.device)
-    out = torch.empty(m, dtype=a.dtype, device=a.device)
-    lib = _build.load("sddmm")
+    which = path(n, a.dtype)
     with torch.cuda.device(a.device):
-        err = lib.sddmm_launch(DTYPE_CODE[a.dtype], _build.ptr(a),
-                               _build.ptr(b), _build.ptr(row_idx),
-                               _build.ptr(col_idx), _build.ptr(out), m, n,
-                               _build.stream_of(a))
-    _build.check(err, "sddmm")
+        out = c_entry(which, a, b, row_idx, col_idx)
     launches += 1
+    path_launches[which] += 1
+    return out
+
+
+def c_entry(which: str, a, b, row_idx, col_idx, lib=None):
+    """One call of path ``which``'s C entry (``sddmm_wide_launch`` or
+    ``sddmm_launch``) on the current stream, from ``lib`` (a loaded
+    ``sddmm`` library; the built one by default): the output. It takes the
+    inputs as given (int32 indices, contiguous rows, at least one pair)
+    and counts no launch: the op's launch, and a timing of a path beside
+    the other on the same inputs, both go through it."""
+    m, n = int(row_idx.shape[0]), int(a.shape[1])
+    out = torch.empty(m, dtype=a.dtype, device=a.device)
+    lib = lib or _build.load("sddmm")
+    ptrs = (_build.ptr(a), _build.ptr(b), _build.ptr(row_idx),
+            _build.ptr(col_idx), _build.ptr(out), m, n, _build.stream_of(a))
+    if which == "wide":
+        err = lib.sddmm_wide_launch(DTYPE_CODE[a.dtype], DTYPE_CODE[b.dtype],
+                                    *ptrs)
+    else:
+        err = lib.sddmm_launch(DTYPE_CODE[a.dtype], *ptrs)
+    _build.check(err, f"sddmm ({which})")
     return out
 
 

@@ -40,7 +40,8 @@ def dev():
 def _close(got, want, dtype):
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     want = want.float()
-    scale = float(want[torch.isfinite(want)].abs().max()) if want.numel() else 0.0
+    finite = want[torch.isfinite(want)]
+    scale = float(finite.abs().max()) if finite.numel() else 0.0
     torch.testing.assert_close(got.float(), want, rtol=tol,
                                atol=tol * max(scale, 1.0), equal_nan=True)
 
@@ -119,6 +120,72 @@ def test_gather_segment_reduce_deterministic(dev, dtype, reduce):
     again = kops.gather_segment_reduce(xi, src, dst, 3000, wi, reduce,
                                        plan=plan, impl="cuda")
     assert torch.equal(first, again)
+
+
+def _owner_case(dev, case):
+    """(h, gather ids, sorted segment ids, segments) of an owner-path
+    input: the MoE combine at decode (64 bf16 rows of F = 2048 into 8
+    tokens, gathered through a permutation), the same at F = 2050 (4-byte
+    vectors), a hub of OWNER_MAX_ROWS rows into one of 40 segments beside
+    empty ones, short segments with dropped rows, every row dropped, and
+    no rows."""
+    from repro_torch.kernels import gather_segment_reduce as gsr
+    rng = np.random.default_rng(len(case))
+    t = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)  # noqa: E731
+    if case in ("decode_combine", "decode_2050"):
+        f = 2048 if case == "decode_combine" else 2050
+        seg, s = np.repeat(np.arange(8), 8), 8
+        gidx, dtype = rng.permutation(64), torch.bfloat16
+    elif case == "hub":
+        n, s, f, dtype = gsr.OWNER_MAX_ROWS, 40, 300, torch.float32
+        seg, gidx = np.full(n, 17), rng.integers(0, n, n)
+    elif case == "dropped":
+        n = gsr.OWNER_MAX_ROWS
+        seg = np.concatenate([np.sort(rng.integers(0, 30, n - n // 4)),
+                              np.full(n // 4, 30)])
+        s, f, dtype = 30, 40, torch.float32
+        gidx = rng.integers(0, n, n)
+    else:
+        n = 0 if case == "no_rows" else 50
+        seg, s, f, dtype = np.full(n, 12), 12, 24, torch.float32
+        gidx = rng.integers(0, 50, n)
+    h = torch.randn(max(len(gidx), 1), f, device=dev).to(dtype)
+    return h, t(gidx), t(seg), s
+
+
+@pytest.mark.parametrize("case", ["decode_combine", "decode_2050", "hub",
+                                  "dropped", "all_dropped", "no_rows"])
+@pytest.mark.parametrize("reduce", ["sum", "mean", "max"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_gather_owner_path(dev, monkeypatch, case, reduce, weighted):
+    """Inputs of at most OWNER_MAX_ROWS rows take the owner path, one launch
+    that builds no row offsets (the op would call row_offsets for the runs
+    path), against the fp32 plain version and bitwise over two calls."""
+    from repro_torch.kernels import gather_segment_reduce as gsr
+    h, gidx, seg, s = _owner_case(dev, case)
+    w = torch.rand(gidx.numel(), device=dev).to(h.dtype) if weighted \
+        else None
+
+    def no_offsets(*args):
+        raise AssertionError("the owner path built row offsets")
+    monkeypatch.setattr(gsr, "row_offsets", no_offsets)
+    kops.reset_launch_counts()
+    got = kops.gather_segment_reduce(h, gidx, seg, s, weight=w, reduce=reduce,
+                                     impl="cuda")
+    again = kops.gather_segment_reduce(h, gidx, seg, s, weight=w,
+                                       reduce=reduce, impl="cuda")
+    torch.cuda.synchronize()
+    assert kops.path_launch_counts()["gather_segment_reduce"] == {
+        "runs": 0, "owner": 2}
+    assert got.dtype == h.dtype and got.shape == (s, h.shape[1])
+    assert torch.equal(got, again)
+    monkeypatch.undo()
+    want = kops.gather_segment_reduce(
+        h.float(), gidx, seg, s, weight=None if w is None else w.float(),
+        reduce=reduce, impl="ref")
+    _close(got, want, h.dtype)
+    if case in ("all_dropped", "no_rows"):
+        assert bool((got == (float("-inf") if reduce == "max" else 0)).all())
 
 
 def test_gather_segment_reduce_empty_graph(dev):
@@ -409,12 +476,13 @@ def test_segment_matmul_kernel(dev, case, dtype, with_plan, w_transposed):
     plan = make_relation_plan(sizes, num_rows=m, feat=c["n"]) \
         if with_plan else None
     before = kops.launch_counts()["segment_matmul"]
-    paths = kops.path_launch_counts()
+    paths = kops.path_launch_counts()["segment_matmul"]
     got = kops.segment_matmul(x, sizes, wc, plan=plan, impl="cuda",
                               w_transposed=w_transposed)
     torch.cuda.synchronize()
     assert kops.launch_counts()["segment_matmul"] == before + 1
-    took = {k: v - paths[k] for k, v in kops.path_launch_counts().items()}
+    took = {k: v - paths[k] for k, v in
+            kops.path_launch_counts()["segment_matmul"].items()}
     want_path = smm.path(dtype, m, c["k"], c["n"], sizes.numel())
     assert took == {p: int(p == want_path) for p in took}
     assert got.dtype == dtype and got.shape == (m, c["n"])
@@ -499,18 +567,57 @@ def test_sddmm_pairs(dev, dtype, n, order):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n", [8, 64, 300])
+@pytest.mark.parametrize("n", [8, 64, 96, 97, 192, 193, 300, 2048, 2050])
 def test_sddmm_kernel(dev, dtype, n):
+    """Random pairs on the path the rule names (the runs kernel up to 384
+    bytes a row, the wide path past it: the fp32 and bf16 borders, the
+    combine's F = 2048, and 2050, which takes 8-byte vectors), against the
+    fp32 plain version and bitwise over two calls."""
+    from repro_torch.kernels import sddmm as sdd
     a = torch.randn(900, n, device=dev).to(dtype)
     b = torch.randn(700, n, device=dev).to(dtype)
     row = torch.randint(0, 900, (20000,), device=dev, dtype=torch.int32)
     col = torch.randint(0, 700, (20000,), device=dev, dtype=torch.int32)
+    kops.reset_launch_counts()
     got = kops.sddmm(a, b, row, col, impl="cuda")
     torch.cuda.synchronize()
+    want_path = sdd.path(n, dtype)
+    assert kops.path_launch_counts()["sddmm"] == {
+        p: int(p == want_path) for p in ("runs", "wide")}
     assert got.dtype == dtype and got.shape == (20000,)
     _close(got, kops.sddmm(a.float(), b.float(), row, col, impl="ref"), dtype)
+    assert torch.equal(got, kops.sddmm(a, b, row, col, impl="cuda"))
     with pytest.raises(ValueError, match="sddmm"):
         kops.sddmm(a, b, row, col.clone().fill_(700), impl="cuda")
+
+
+@pytest.mark.parametrize("b_dtype", DTYPES)
+@pytest.mark.parametrize("n", [64, 2048, 2050])
+def test_sddmm_rows_reads_b_in_its_own_dtype(dev, b_dtype, n):
+    """The combine's router-weight gradient as the backward runs it: an
+    fp32 A (the cotangent, a row a token, eight pairs to a token in order)
+    and B (the expert outputs, gathered through a permutation) in fp32 or
+    bf16. A bf16 B is read as it is on the wide path and widened first on
+    the runs path; either way the products are an fp32 copy's, so the
+    result equals the call on B.float() bit for bit."""
+    from repro_torch.kernels import sddmm as sdd
+    t, k = 512, 8
+    a = torch.randn(t, n, device=dev)
+    b = torch.randn(t * k, n, device=dev).to(b_dtype)
+    row = torch.arange(t, dtype=torch.int32, device=dev).repeat_interleave(k)
+    col = torch.randperm(t * k, device=dev).to(torch.int32)
+    kops.reset_launch_counts()
+    got = kops.sddmm_rows(a, b, row, col, impl="cuda")
+    torch.cuda.synchronize()
+    want_path = sdd.path(n, torch.float32)
+    assert kops.path_launch_counts()["sddmm"][want_path] == 1
+    assert got.dtype == torch.float32
+    assert torch.equal(got, kops.sddmm_rows(a, b.float(), row, col,
+                                            impl="cuda"))
+    _close(got, kops.sddmm_rows(a, b, row, col, impl="ref"), torch.float32)
+    assert torch.equal(got, kops.sddmm_rows(a, b, row, col, impl="cuda"))
+    with pytest.raises(TypeError, match="one dtype"):
+        kops.sddmm(a, b.bfloat16(), row, col, impl="cuda")
 
 
 def test_plan_on_the_host_is_refused_for_card_data(dev):

@@ -264,6 +264,44 @@ def test_index_weight_segment_reduce_grad(dtype, reduce, f, impl):
     _check("iwsr", dtype, impl, reduce, f)
 
 
+def test_weight_grad_reads_bf16_h_in_its_own_dtype(monkeypatch):
+    """The MoE combine's router-weight gradient with bf16 expert outputs
+    (T = 16 tokens, top-4, F = 2048; the rows gathered through a
+    permutation, fp32 weights): the port's sddmm reads H in bf16, the
+    reference widens it to fp32 (``sum(f32(H[g]) * f32(g_msg))``); the
+    same products, summed in another order, within the fp32 tier. On the
+    CPU the dots run on the plain version."""
+    t, k, f = 16, 4, 2048
+    rng = np.random.default_rng(41)
+    seg = np.repeat(np.arange(t), k).astype(np.int32)
+    gidx = rng.permutation(t * k).astype(np.int32)
+    h, ho = _round(_normal((t * k, f), 42), "bfloat16")
+    w = _normal((t * k,), 43)
+    ct, cto = _round(_normal((t, f), 44), "bfloat16")
+    _, vjp = jax.vjp(lambda w: jops.index_weight_segment_reduce(
+        jnp.asarray(ho, jnp.bfloat16), jnp.asarray(gidx), w,
+        jnp.asarray(seg), t, "sum", "ref"), jnp.asarray(w))
+    want = np.asarray(vjp(jnp.asarray(cto, jnp.bfloat16))[0], np.float32)
+    seen = []
+    rows = kops.sddmm_rows
+
+    def spy(a, b, *args):
+        seen.append((a.dtype, b.dtype))
+        return rows(a, b, *args)
+    monkeypatch.setattr(kops, "sddmm_rows", spy)
+    wt = torch.from_numpy(w).requires_grad_()
+    with kops.fusion_scope() as fusion:     # the backward records here too
+        y = rt.index_weight_segment_reduce(h, torch.from_numpy(gidx), wt,
+                                           torch.from_numpy(seg), t, "sum",
+                                           impl="ref")
+        y.backward(ct)
+    assert y.dtype == torch.bfloat16
+    assert fusion["unfused:sddmm:ref"] == 1
+    assert seen == [(torch.float32, torch.bfloat16)]    # H not widened
+    assert wt.grad.dtype == torch.float32
+    _assert_close(wt.grad.numpy(), want, "float32")
+
+
 @pytest.mark.parametrize("impl", [None, "blocked"])
 @pytest.mark.parametrize("f", FEATS)
 @pytest.mark.parametrize("weighted", [False, True])

@@ -35,6 +35,7 @@ from repro_torch.kernels import fused_transform_reduce as tftr  # noqa: E402
 from repro_torch.kernels.fused_transform_reduce import (  # noqa: E402
     fusable, fused_transform_reduce_cuda)
 from repro_torch.kernels import gather_segment_reduce as tgsr  # noqa: E402
+from repro_torch.kernels import sddmm as tsdd  # noqa: E402
 from repro_torch.kernels import segment_reduce as tsrd  # noqa: E402
 from repro_torch.kernels import segment_softmax as tssm  # noqa: E402
 from repro_torch.kernels.gather_segment_reduce import (  # noqa: E402
@@ -192,7 +193,7 @@ _GRAPHS = {"windowed": _windowed_graph, "hub": _hub_graph}
 @functools.lru_cache(maxsize=None)
 def _pallas_gather(graph, reduce, weighted):
     """The reference's gather kernel (interpret mode) on the same inputs."""
-    src, dst, x, w, v = _GRAPHS[graph]()
+    src, dst, x, w, v = _OWNER_GRAPHS[graph]()
     if weighted:
         out = jops.index_weight_segment_reduce(_j(x), _j(src), _j(w), _j(dst),
                                                v, reduce, "pallas", JCFG)
@@ -523,13 +524,18 @@ def test_row_run_length_matches_kernel_source(kernel, module):
 def test_sweep_lines_match_kernel_source(kernel):
     """Every source line the sweep module rewrites stands once in the
     kernel's source, at one of the values it sweeps; a variant is named
-    CONST=value. The gather and segment_reduce have no line left to
-    rewrite: their run length is a run-time axis of the config."""
+    CONST=value. segment_reduce has no line left to rewrite: its run
+    length is a run-time axis of the config, as the gather's is; the
+    gather's lines are its owner path's, whose variants build no run
+    length."""
     from repro_torch import kernel_variants as kv
     src = (ROOT / f"src/repro_torch/kernels/csrc/{kernel}.cu").read_text()
-    if kernel in ("gather_segment_reduce", "segment_reduce"):
+    if kernel == "segment_reduce":
         assert kernel not in kv.VARIANTS and "FOR_RUN_LENGTHS" in src
         return
+    if kernel == "gather_segment_reduce":
+        assert "FOR_RUN_LENGTHS" in src
+        assert kv.PREAMBLE[kernel] == "#define FOR_RUN_LENGTHS(X)\n"
     keys = []
     for line, values in kv.VARIANTS[kernel]:
         assert sum(src.count(line.format(v)) for v in values) == 1, line
@@ -537,6 +543,116 @@ def test_sweep_lines_match_kernel_source(kernel):
     assert kv.variant_keys(kernel) == keys
     assert (ROOT / "src/repro_torch/kernels/csrc/probes/row_reads.cu"
             ).is_file()
+
+
+# ---------------------------------------------------------------------------
+# the gather's and sddmm's two paths: their shape rules, and the owner
+# schedule against the reference's gather
+# ---------------------------------------------------------------------------
+
+# (rows, the path): the MoE combine at a decode step of 8 tokens (64 rows,
+# chip_smoke.py 3h) and of the batcher's 4 slots (32), the crossing, the
+# combine at 4096 tokens (3h) and at a training step's 2048 (3i, 16,384
+# rows), ogbn-arxiv's real and bucketed edges
+_GSR_PATHS = {"empty": (0, "owner"), "decode_batcher": (32, "owner"),
+              "decode_3h": (64, "owner"),
+              "at_threshold": (tgsr.OWNER_MAX_ROWS, "owner"),
+              "past_threshold": (tgsr.OWNER_MAX_ROWS + 1, "runs"),
+              "train_3i": (16_384, "runs"), "prefill_3h": (32_768, "runs"),
+              "arxiv": (1_166_243, "runs"), "arxiv_bucket": (2_097_152, "runs")}
+
+
+@pytest.mark.parametrize("case", list(_GSR_PATHS))
+def test_gather_path_rule(case):
+    """The owner path for inputs of at most OWNER_MAX_ROWS rows, the runs
+    path above, from the row count alone."""
+    rows, want = _GSR_PATHS[case]
+    assert tgsr.path(rows) == want
+
+
+# (row width, A's dtype, the path): the GNN's F = 64 (the arxiv pairs), the
+# crossing at 384 bytes a row either side in both dtypes, the combine's
+# router-weight gradient (3i, F = 2048) and an odd width
+_SDDMM_PATHS = {"gnn_f64": (64, torch.float32, "runs"),
+                "gnn_f64_bf16": (64, torch.bfloat16, "runs"),
+                "fp32_border": (96, torch.float32, "runs"),
+                "fp32_past": (97, torch.float32, "wide"),
+                "bf16_border": (192, torch.bfloat16, "runs"),
+                "bf16_past": (193, torch.bfloat16, "wide"),
+                "train_3i": (2048, torch.float32, "wide"),
+                "odd_2050": (2050, torch.bfloat16, "wide")}
+
+
+@pytest.mark.parametrize("case", list(_SDDMM_PATHS))
+def test_sddmm_path_rule(case):
+    """The wide path for rows of more than WIDE_MIN_BYTES, the runs path
+    for narrower ones: one rule on the width in A's dtype."""
+    n, dtype, want = _SDDMM_PATHS[case]
+    assert tsdd.path(n, dtype) == want
+    assert tsdd.path(n, dtype) == (
+        "wide" if n * dtype.itemsize > tsdd.WIDE_MIN_BYTES else "runs")
+
+
+def _decode_graph():
+    """The MoE combine at decode, narrowed: 64 rows into 8 segments of 8
+    (tokens, sorted), gathered through a permutation (the expert order)."""
+    rng = np.random.default_rng(17)
+    dst = np.repeat(np.arange(8), 8).astype(np.int32)
+    src = rng.permutation(64).astype(np.int32)
+    x = rng.standard_normal((64, 24)).astype(np.float32)
+    w = rng.random(64).astype(np.float32)
+    return src, dst, x, w, 8
+
+
+_OWNER_GRAPHS = {**_GRAPHS, "decode": _decode_graph}
+
+
+@pytest.mark.parametrize("graph", list(_OWNER_GRAPHS))
+@pytest.mark.parametrize("reduce", ["sum", "mean", "max"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_owner_schedule_matches_pallas(graph, reduce, weighted):
+    """The owner path's schedule (each segment's rows found by the lower
+    bounds of s and s + 1, walked in row order in fp32, no row offsets)
+    against the reference's Pallas gather and the plain version: empty
+    segments and dropped rows (windowed, hub), one hub segment of 300 rows
+    (hub), the decode combine's eight rows a token (decode)."""
+    src, dst, x, w, v = _OWNER_GRAPHS[graph]()
+    wt = _t(w) if weighted else None
+    for s in range(v + 1):
+        assert tgsr.lower_bound(_t(dst), s) == int(
+            np.searchsorted(dst, s, side="left"))
+    got = tgsr.gather_segment_reduce_owner(_t(x), _t(src), _t(dst), v, wt,
+                                           reduce)
+    np.testing.assert_allclose(_np(got), _pallas_gather(graph, reduce,
+                                                        weighted),
+                               **_tol("float32"))
+    want = kops.gather_segment_reduce(_t(x), _t(src), _t(dst), v, weight=wt,
+                                      reduce=reduce, impl="ref")
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    empty = np.searchsorted(dst, np.arange(v), "left") == np.searchsorted(
+        dst, np.arange(v), "right")
+    if empty.any():
+        assert bool((got[empty] == (float("-inf") if reduce == "max" else 0)
+                     ).all())
+
+
+@pytest.mark.parametrize("rows", ["none", "all_dropped"])
+@pytest.mark.parametrize("reduce", ["sum", "mean", "max"])
+def test_owner_schedule_without_rows(rows, reduce):
+    """No rows, or every row dropped (seg = num_segments): each segment is
+    empty, 0 for a sum or mean and -inf for a max, as the plain version
+    gives; a dropped row's H row is never read (here it lies out of
+    range)."""
+    v, f = 6, 5
+    n = 0 if rows == "none" else 9
+    dst = torch.full((n,), v, dtype=torch.int32)
+    src = torch.full((n,), 10_000, dtype=torch.int32)
+    x = torch.randn(4, f)
+    got = tgsr.gather_segment_reduce_owner(x, src, dst, v, None, reduce)
+    assert got.shape == (v, f)
+    assert bool((got == (float("-inf") if reduce == "max" else 0)).all())
+    assert torch.equal(got, kops.gather_segment_reduce(
+        x, src.clamp_max(3), dst, v, reduce=reduce, impl="ref"))
 
 
 # ---------------------------------------------------------------------------
@@ -692,7 +808,8 @@ def test_segment_matmul_offsets_alone_match_the_metadata(dtype):
     assert torch.equal(off, tsmm.group_metadata(sizes, 20, 64)[0])
     tsmm.path_launches["wgmma"] += 1
     kops.reset_launch_counts()
-    assert kops.path_launch_counts() == {"wgmma": 0, "mma_sync": 0}
+    assert kops.path_launch_counts()["segment_matmul"] == {"wgmma": 0,
+                                                           "mma_sync": 0}
 
 
 def test_segment_matmul_tile_matches_kernel_source():

@@ -118,6 +118,23 @@ def test_sddmm_plain_matches_pallas(dtype, n):
     np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
 
 
+def test_sddmm_plain_takes_mixed_dtypes():
+    """The public op's plain version takes an fp32 A with a bf16 B, as the
+    reference's does (its jnp product promotes to fp32); the card path
+    wants one dtype."""
+    rng = np.random.default_rng(7)
+    a = rng.standard_normal((30, 40)).astype(np.float32)
+    b = rng.standard_normal((25, 40)).astype(np.float32)
+    row = rng.integers(0, 30, 200).astype(np.int32)
+    col = rng.integers(0, 25, 200).astype(np.int32)
+    want = jops.sddmm(jnp.asarray(a), jnp.asarray(b, jnp.bfloat16),
+                      jnp.asarray(row), jnp.asarray(col), "ref")
+    got = kops.sddmm(torch.from_numpy(a), torch.from_numpy(b).bfloat16(),
+                     torch.from_numpy(row), torch.from_numpy(col), impl="ref")
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
+
+
 def test_sddmm_checks_every_index_on_the_host():
     i = torch.tensor([0, 3, 1], dtype=torch.int32)
     check_indices(i, i, 4, 4)
