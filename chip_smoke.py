@@ -649,11 +649,19 @@ def library(what: str, call):
         return None, reason
 
 
+def _annotation(evt) -> bool:
+    """Whether a profiler event is a range's copy on the device timeline
+    (``record_function``, and every ``repro_torch.obs`` span while the
+    profiler records): it spans the kernels launched inside the range, so
+    counting it would count their time again."""
+    return bool(getattr(evt, "is_user_annotation", False))
+
+
 def profiled(torch, fn):
     """(wall ms, device-busy ms, device ops by time as (name, ms, calls))
     of one call of ``fn`` under ``torch.profiler``: device events only
-    (kernels and copies), so a host op's attributed device time is not
-    counted twice."""
+    (kernels and copies, not the ranges' copies), so a host op's
+    attributed device time is not counted twice."""
     from torch.autograd import DeviceType
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
@@ -665,7 +673,7 @@ def profiled(torch, fn):
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
+        if evt.device_type != DeviceType.CUDA or _annotation(evt):
             continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
@@ -2182,7 +2190,8 @@ def profiled_lm_step(torch, fn, layers_mod, moe_mod) -> dict:
     busy = moe_k = 0.0
     names = port_kernel_names(*LM_KERNEL_SOURCES)
     for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA or evt.key.startswith("lm."):
+        if evt.device_type != DeviceType.CUDA or _annotation(evt) \
+                or evt.key.startswith("lm."):
             continue
         ms = dev_ms(evt, "self_device_time_total")
         busy += ms
@@ -2737,7 +2746,8 @@ def profiled_train_step(torch, fn, task, trainer_mod) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and not _annotation(e))
     busy, reach = 0.0, -math.inf
     for lo, hi in spans:
         if hi > reach:

@@ -30,12 +30,14 @@ sys.path.insert(0, str(ROOT / "src"))
 
 def device_busy_us(prof):
     """(total device µs, [(name, µs), ...] top 6) from a profiler run:
-    the device-side events only (kernels and copies), so a CPU op's
+    the device-side events only (kernels and copies, not the device-side
+    copies of profiler ranges such as the port's spans), so a CPU op's
     attributed device time is not counted a second time."""
     from torch.autograd import DeviceType
     rows = []
     for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
+        if evt.device_type != DeviceType.CUDA \
+                or getattr(evt, "is_user_annotation", False):
             continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:

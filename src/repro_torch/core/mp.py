@@ -22,6 +22,11 @@
   transforms of every edge as one grouped ``segment_matmul`` launch, then
   one gather-reduce whose gather operand is the inverse type permutation.
 
+Spans (:mod:`repro_torch.obs.trace`): ``mp.order`` is the host's choice of
+order; ``mp.aggregate`` holds exactly the gather, fused, grouped and
+segment launches of each call, whatever kernel implements them, and never
+the dense ``x @ w`` of a two-launch order.
+
 ``reduce="max"`` fills empty-neighbourhood rows with 0 (exactly the rows
 the kernel reports as ``-inf``) rather than the segment-max identity.
 """
@@ -35,6 +40,7 @@ from repro_torch.core import ops as geot
 from repro_torch.core.config_space import KernelConfig
 from repro_torch.kernels.fused_transform_reduce import fusable
 from repro_torch.kernels.ops import resolve_impl
+from repro_torch.obs.trace import span
 
 __all__ = ["mp", "mp_transform", "mp_typed", "type_permutation",
            "choose_order", "resolve_order"]
@@ -126,6 +132,27 @@ def _drop_empty_max(y):
     return torch.where(y == float("-inf"), torch.zeros_like(y), y)
 
 
+def _aggregate(x, edge_index, num_nodes: int, reduce: str, edge_weight,
+               plan, impl: Optional[str], config: Optional[KernelConfig],
+               **attrs):
+    """The gather-reduce of :func:`mp` and of :func:`mp_transform`'s
+    two-launch orders, as the span ``mp.aggregate`` (``attrs``: the
+    order, where there is one)."""
+    if reduce not in ("sum", "mean", "max"):
+        raise ValueError(f"unknown reduce: {reduce!r}")
+    src, dst = edge_index[0], edge_index[1]
+    with span("mp.aggregate", reduce=reduce, width=int(x.shape[-1]),
+              **attrs):
+        if edge_weight is None:
+            y = geot.index_segment_reduce(x, src, dst, num_nodes, reduce,
+                                          impl, config, plan)
+        else:
+            y = geot.index_weight_segment_reduce(x, src, edge_weight, dst,
+                                                 num_nodes, reduce, impl,
+                                                 config, plan)
+    return _drop_empty_max(y) if reduce == "max" else y
+
+
 def mp(x, edge_index, num_nodes: int, *, reduce: str = "sum",
        edge_weight=None, plan=None, impl: Optional[str] = None,
        config: Optional[KernelConfig] = None):
@@ -133,17 +160,8 @@ def mp(x, edge_index, num_nodes: int, *, reduce: str = "sum",
 
     ``edge_index``: (2, E) with ``edge_index[1]`` sorted non-decreasing;
     ``plan``: SegmentPlan over the destinations, shared by every layer."""
-    if reduce not in ("sum", "mean", "max"):
-        raise ValueError(f"unknown reduce: {reduce!r}")
-    src, dst = edge_index[0], edge_index[1]
-    if edge_weight is None:
-        y = geot.index_segment_reduce(x, src, dst, num_nodes, reduce, impl,
-                                      config, plan)
-    else:
-        y = geot.index_weight_segment_reduce(x, src, edge_weight, dst,
-                                             num_nodes, reduce, impl, config,
-                                             plan)
-    return _drop_empty_max(y) if reduce == "max" else y
+    return _aggregate(x, edge_index, num_nodes, reduce, edge_weight, plan,
+                      impl, config)
 
 
 def mp_transform(x, w, edge_index, num_nodes: int, *, reduce: str = "sum",
@@ -151,25 +169,30 @@ def mp_transform(x, w, edge_index, num_nodes: int, *, reduce: str = "sum",
                  config: Optional[KernelConfig] = None, order: str = "auto"):
     """Message passing with a dense transform: aggregate(X·W),
     aggregate(X)·W, or the one-launch fused SpMM+GEMM (``order="auto"``
-    applies :func:`choose_order`)."""
+    applies :func:`choose_order`, as the span ``mp.order``). The dense
+    product of the two-launch orders stays outside ``mp.aggregate``."""
     impl = resolve_impl(x, impl)
     if config is None and plan is not None:
         config = plan.config
-    order = resolve_order(reduce, order, int(x.shape[-1]), int(w.shape[-1]),
-                          plan=plan, num_edges=int(edge_index.shape[-1]),
-                          num_nodes=num_nodes, config=config,
-                          allow_fused=(impl == "cuda"), dtype=x.dtype)
+    with span("mp.order") as chosen:
+        order = resolve_order(reduce, order, int(x.shape[-1]),
+                              int(w.shape[-1]), plan=plan,
+                              num_edges=int(edge_index.shape[-1]),
+                              num_nodes=num_nodes, config=config,
+                              allow_fused=(impl == "cuda"), dtype=x.dtype)
+        chosen.set(order=order)
     if order == "fused":
         src, dst = edge_index[0], edge_index[1]
-        return geot.fused_transform_reduce(x, w, src, edge_weight, dst,
-                                           num_nodes, reduce, impl, config,
-                                           plan)
+        with span("mp.aggregate", reduce=reduce, width=int(x.shape[-1]),
+                  order=order):
+            return geot.fused_transform_reduce(x, w, src, edge_weight, dst,
+                                               num_nodes, reduce, impl,
+                                               config, plan)
     if order == "aggregate_first":
-        agg = mp(x, edge_index, num_nodes, reduce=reduce,
-                 edge_weight=edge_weight, plan=plan, impl=impl, config=config)
-        return agg @ w
-    return mp(x @ w, edge_index, num_nodes, reduce=reduce,
-              edge_weight=edge_weight, plan=plan, impl=impl, config=config)
+        return _aggregate(x, edge_index, num_nodes, reduce, edge_weight,
+                          plan, impl, config, order=order) @ w
+    return _aggregate(x @ w, edge_index, num_nodes, reduce, edge_weight,
+                      plan, impl, config, order=order)
 
 
 def type_permutation(edge_type, num_types: int, type_perm=None,
@@ -216,13 +239,16 @@ def mp_typed(x, w, edge_index, edge_type, num_nodes: int, *,
     # the reduce gathers by inv_type_perm, not by the sources a graph
     # plan's source order was built for
     plan = None if plan is None else plan.without_source_order()
-    msg = geot.gather(x, src.index_select(0, type_perm))
-    msg = geot.grouped_segment_matmul(msg, type_counts, w, impl, None, rplan)
-    if edge_weight is None:
-        y = geot.index_segment_reduce(msg, inv_type_perm, dst, num_nodes,
-                                      reduce, impl, config, plan)
-    else:
-        y = geot.index_weight_segment_reduce(msg, inv_type_perm, edge_weight,
-                                             dst, num_nodes, reduce, impl,
-                                             config, plan)
+    typed_src = src.index_select(0, type_perm)
+    with span("mp.aggregate", reduce=reduce, width=int(x.shape[-1])):
+        msg = geot.gather(x, typed_src)
+        msg = geot.grouped_segment_matmul(msg, type_counts, w, impl, None,
+                                          rplan)
+        if edge_weight is None:
+            y = geot.index_segment_reduce(msg, inv_type_perm, dst, num_nodes,
+                                          reduce, impl, config, plan)
+        else:
+            y = geot.index_weight_segment_reduce(msg, inv_type_perm,
+                                                 edge_weight, dst, num_nodes,
+                                                 reduce, impl, config, plan)
     return _drop_empty_max(y) if reduce == "max" else y

@@ -42,6 +42,7 @@ from repro_torch.core.config_space import KernelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels.gather_segment_reduce import row_offsets
 from repro_torch.kernels.segment_matmul import group_metadata
+from repro_torch.obs.trace import span
 
 __all__ = ["SegmentStats", "SegmentPlan", "SourceOrder", "PartitionedPlan",
            "RelationPlan", "segment_stats", "source_order", "make_plan",
@@ -197,21 +198,42 @@ def make_plan(idx, num_segments: int, feat: int = 128,
     features: ``tune=True`` (or ``REPRO_AUTOTUNE=1`` with ``tune=None``)
     sweeps the built instances on the card once per shape class and reuses
     the measured winner from the PerfDB; else the generated rules decide
-    (:func:`repro_torch.core.heuristics.select_plan_config`)."""
+    (:func:`repro_torch.core.heuristics.select_plan_config`).
+
+    The build is the span ``plan.build`` (``kind="segment"``), with the
+    stages ``plan.host_index``, ``plan.stats`` and ``plan.row_ptr``."""
     device = resolve_device(device, "make_plan")
-    idx_np = _host_index(idx)
-    if idx_np.ndim != 1:
-        raise ValueError(f"idx must be 1-D, got shape {idx_np.shape}")
-    if idx_np.size and np.any(idx_np[1:] < idx_np[:-1]):
-        raise ValueError("idx must be sorted non-decreasing")
-    stats = segment_stats(idx_np, num_segments)
-    if config is None:
-        from repro_torch.core.heuristics import select_plan_config
-        config = select_plan_config(max(int(idx_np.size), 1),
-                                    max(stats.live_segments, 1), feat,
-                                    tune=tune)
+    with span("plan.build", kind="segment", segments=int(num_segments),
+              feat=int(feat)) as build:
+        with span("plan.host_index"):
+            idx_np = _host_index(idx)
+        if idx_np.ndim != 1:
+            raise ValueError(f"idx must be 1-D, got shape {idx_np.shape}")
+        build.set(rows=int(idx_np.size))
+        return _plan_of_host_index(idx_np, num_segments, feat, config,
+                                   device, tune)
+
+
+def _plan_of_host_index(idx_np: np.ndarray, num_segments: int, feat: int,
+                        config: Optional[KernelConfig], device,
+                        tune: Optional[bool]) -> SegmentPlan:
+    """:func:`make_plan`'s stages after the copy to the host: the sorted
+    check, the statistics and the config (``plan.stats``), then the row
+    offsets on ``device`` (``plan.row_ptr``)."""
+    with span("plan.stats"):
+        if idx_np.size and np.any(idx_np[1:] < idx_np[:-1]):
+            raise ValueError("idx must be sorted non-decreasing")
+        stats = segment_stats(idx_np, num_segments)
+        if config is None:
+            from repro_torch.core.heuristics import select_plan_config
+            config = select_plan_config(max(int(idx_np.size), 1),
+                                        max(stats.live_segments, 1), feat,
+                                        tune=tune)
+    with span("plan.row_ptr"):
+        row_ptr = row_offsets(torch.from_numpy(idx_np),
+                              num_segments).to(device)
     return SegmentPlan(
-        row_ptr=row_offsets(torch.from_numpy(idx_np), num_segments).to(device),
+        row_ptr=row_ptr,
         num_rows=int(idx_np.size),
         num_segments=int(num_segments),
         config=config,
@@ -226,16 +248,29 @@ def make_graph_plan(edge_index, num_nodes: int, feat: int = 128,
     ``edge_index[1]`` (destinations) sorted non-decreasing, on ``device``
     (as :func:`make_plan`, config selected the same way), with the
     :class:`SourceOrder` of its sources built there. One plan serves every
-    layer of a model on the same graph, forward and backward."""
-    edge_index = _host_index(edge_index)
-    if edge_index.ndim != 2 or edge_index.shape[0] != 2:
-        raise ValueError(f"edge_index must be (2, E), got {edge_index.shape}")
-    plan = make_plan(edge_index[1], num_nodes, feat=feat, config=config,
-                     device=device, tune=tune)
-    src, dst = (torch.from_numpy(a).to(plan.device) for a in edge_index)
-    order = source_order(src, dst, num_nodes, num_nodes,
-                         num_real=int(np.sum(edge_index[1] < num_nodes)))
-    return dataclasses.replace(plan, src_order=order)
+    layer of a model on the same graph, forward and backward.
+
+    The build is one span ``plan.build`` (``kind="graph"``): one copy of
+    both rows to the host (``plan.host_index``), :func:`make_plan`'s
+    ``plan.stats`` and ``plan.row_ptr`` on the destinations, then
+    ``plan.source_order``."""
+    device = resolve_device(device, "make_plan")
+    with span("plan.build", kind="graph", segments=int(num_nodes),
+              feat=int(feat)) as build:
+        with span("plan.host_index"):
+            edge_index = _host_index(edge_index)
+        if edge_index.ndim != 2 or edge_index.shape[0] != 2:
+            raise ValueError(
+                f"edge_index must be (2, E), got {edge_index.shape}")
+        build.set(rows=int(edge_index.shape[1]))
+        plan = _plan_of_host_index(edge_index[1], num_nodes, feat, config,
+                                   device, tune)
+        with span("plan.source_order"):
+            src, dst = (torch.from_numpy(a).to(device) for a in edge_index)
+            order = source_order(
+                src, dst, num_nodes, num_nodes,
+                num_real=int(np.sum(edge_index[1] < num_nodes)))
+        return dataclasses.replace(plan, src_order=order)
 
 
 @dataclasses.dataclass(frozen=True)

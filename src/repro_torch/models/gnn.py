@@ -40,6 +40,7 @@ from torch import nn
 from repro_torch.core import ops as geot
 from repro_torch.core.device import resolve_device
 from repro_torch.core.mp import mp, mp_transform, mp_typed, type_permutation
+from repro_torch.obs.trace import span
 
 __all__ = ["GCNLayer", "GINLayer", "SAGELayer", "GATLayer", "RGCNLayer",
            "RGATLayer", "GNN", "MODELS", "TYPED_MODELS", "init", "forward",
@@ -307,7 +308,9 @@ _LAYER = {"gcn": GCNLayer, "gin": GINLayer, "sage": SAGELayer,
 
 class GNN(nn.Module):
     """A stack of one family's layers with ReLU between them (paper §V-F:
-    node classification, 3 layers). ``dims`` = [d_in, hidden..., classes]."""
+    node classification, 3 layers). ``dims`` = [d_in, hidden..., classes].
+    A forward is the span ``gnn.forward``, each layer (its aggregation,
+    self transform, bias and ReLU) a ``gnn.layer`` under it."""
 
     def __init__(self, family: str, dims: Sequence[int], *, heads: int = 1,
                  num_relations: int = 4, generator=None,
@@ -335,16 +338,21 @@ class GNN(nn.Module):
             typed = dict(edge_type=edge_type, type_perm=type_perm,
                          inv_type_perm=inv_type_perm,
                          type_counts=type_counts, rplan=rplan)
-        if partition is not None and plan is None \
-                and self.family not in TYPED_MODELS:
-            plan = partition.make_plan(feat=max(self.dims))
-        h = x
-        for i, layer in enumerate(self.layers):
-            h = layer(h, edge_index, num_nodes, deg_inv_sqrt, impl=impl,
-                      plan=plan, mesh=mesh, partition=partition, **typed)
-            if i < len(self.layers) - 1:
-                h = torch.relu(h)
-        return h
+        last = len(self.layers) - 1
+        with span("gnn.forward", family=self.family, layers=last + 1):
+            if partition is not None and plan is None \
+                    and self.family not in TYPED_MODELS:
+                plan = partition.make_plan(feat=max(self.dims))
+            h = x
+            for i, layer in enumerate(self.layers):
+                with span("gnn.layer", index=i, d_in=self.dims[i],
+                          d_out=self.dims[i + 1]):
+                    h = layer(h, edge_index, num_nodes, deg_inv_sqrt,
+                              impl=impl, plan=plan, mesh=mesh,
+                              partition=partition, **typed)
+                    if i < last:
+                        h = torch.relu(h)
+            return h
 
 
 def init(family: str, d_in: int, hidden: int, num_classes: int,

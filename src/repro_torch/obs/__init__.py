@@ -8,7 +8,9 @@ stdlib only.
     (:mod:`repro_torch.obs.export`).
   * **tracing spans** (:mod:`repro_torch.obs.trace`) — ``span("serve.step")``
     context managers building per-request / per-step span trees, with a
-    ring-buffer trace log and Chrome ``trace_event`` export.
+    ring-buffer trace log and Chrome ``trace_event`` export. While a
+    ``torch.profiler`` session records, each span is also a
+    ``record_function`` range of its name, on the profiler's clock.
   * **attribution hooks** (:mod:`repro_torch.obs.hooks`) — every bucket
     build, plan-cache miss or eviction, autotuner consult and bucket probe
     records a
@@ -67,6 +69,19 @@ entry, so its compile pair is dropped. ``autotune.tunes`` counts
 named ``*.compile``:
 ``serve.execute`` and ``train.execute`` carry ``new_bucket=True`` on a
 bucket's first run.
+
+The spans of the GNN request and of the plan build, and the benchmark
+metric each feeds (``bench/metrics``; the full table is in
+:mod:`repro_torch.obs.trace`):
+
+    gnn.forward > gnn.layer > mp.order    (names the trace's idle gaps)
+    gnn.layer > mp.aggregate               mp_ms.gnn_infer: device time of
+                                           the kernels launched inside
+    plan.build > plan.host_index,          plan_s.gnn_infer: the newest
+      plan.stats, plan.row_ptr,            root plan.build's seconds
+      plan.source_order
+
+No span is named ``bench.*`` or ``repro_torch::*``.
 
 Environment:
 

@@ -2,20 +2,61 @@
 trace log and Chrome ``trace_event`` export, as the reference's
 (``repro/obs/trace.py``).
 
-``span("serve.step", bucket=str(b))`` opens a timed stage; nested
-``span(...)`` calls in the same thread/context attach as children, so one
-served request or training step yields one tree covering its stages
-(batch → pad → plan_cache → copy → stamp → execute → fetch for a served
-step; sample → prepare → execute for a training step; sample → pad →
-plan_cache → stamp → copy for a produced mini-batch). Completed **root**
-spans land in a bounded ring buffer (old traces fall off; memory is
-bounded by construction). A span times the host: the device work a stage
-enqueues may finish after the span closes.
+``with span("serve.step", bucket=str(b)):`` opens a timed stage; nested
+``span(...)`` calls in the same thread attach as children, so one served
+request, training step or plan build yields one tree covering its stages.
+Completed **root** spans land in a bounded ring buffer (old traces fall
+off; memory is bounded by construction). A span times the host: the
+device work a stage enqueues may finish after the span closes.
 
-Context propagation uses :mod:`contextvars`: threads have independent
-span stacks, so a prefetch producer's ``pipeline.produce`` tree never
-interleaves with the consumer's ``train.step`` tree — each thread's
-roots enter the ring independently.
+Each thread keeps its own stack of open spans (a ``threading.local``), so
+a prefetch producer's ``pipeline.produce`` tree never interleaves with the
+consumer's ``train.step`` tree — each thread's roots enter the ring
+independently. A span records its thread's id; the thread's name is looked
+up when the span is exported (:meth:`Span.as_dict`).
+
+**The profiler's clock.** While a ``torch.profiler`` session records
+(``torch.autograd._profiler_enabled()``), a span also holds a
+``torch.profiler.record_function`` range of its own name open for its
+whole life. The span then lands in the profiler's Chrome trace as a
+``user_annotation`` event, on the clock of the kernels and tied to their
+launches by thread and time, with the same nesting. torch is reached
+through ``sys.modules``: this module imports nothing but the standard
+library, and without a profiler no range is entered.
+
+The port's spans (no name begins with ``bench.``, which a benchmark keeps
+for its own ranges, or ``repro_torch::``, the custom ops' prefix):
+
+    span                    opened in                     read by
+    ----------------------  ----------------------------  -----------------
+    gnn.forward             models/gnn.py GNN.forward     -
+    gnn.layer               one a layer, under it         -
+    mp.order                core/mp.py mp_transform       -
+    mp.aggregate            core/mp.py mp, mp_transform,  mp_ms.gnn_infer
+                            mp_typed: the segment-op
+                            launches, no dense matmul
+    plan.build              core/plan.py make_plan,       plan_s.gnn_infer
+                            make_graph_plan
+    plan.host_index         its stages: the copy to the   -
+    plan.stats              host and int32 cast; sorted
+    plan.row_ptr            check, stats and config;
+    plan.source_order       row offsets; source order
+    serve.step (batch, pad, serve/engine.py               ServedResult.stages
+      plan_cache, copy,
+      stamp, execute, fetch)
+    train.step (sample,     train/trainer.py              -
+      prepare, execute)
+    pipeline.produce        data/pipeline.py              -
+      (sample, pad,
+      plan_cache, copy,
+      stamp)
+    autotune.tune           core/autotune.py              -
+
+``mp_ms.gnn_infer`` and ``plan_s.gnn_infer`` are per-layer metrics of the
+port's benchmark (``bench/metrics``): the first sums the device time of
+the kernels launched inside the profiler's ``mp.aggregate`` ranges, the
+second reads the newest root ``plan.build`` in the ring. The other spans
+name the profiler trace's idle gaps and the stages of a tree.
 
 Export: :func:`chrome_trace` renders the ring as Chrome
 ``trace_event`` JSON ("X" complete events, µs timestamps relative to
@@ -23,16 +64,16 @@ process start) loadable in ``chrome://tracing`` / Perfetto;
 :func:`write_chrome_trace` writes it to disk (also wired to
 ``REPRO_TRACE_PATH`` at process exit by :mod:`repro_torch.obs`).
 
-Disabled mode (``repro_torch.obs.disable()``): ``span`` yields a shared
-no-op span and records nothing — the per-call cost is one flag check.
+Disabled mode (``repro_torch.obs.disable()``): ``span`` returns a shared
+no-op span and records nothing, neither a span nor a profiler range — the
+per-call cost is one flag check.
 """
 from __future__ import annotations
 
 import collections
-import contextlib
-import contextvars
 import json
 import os
+import sys
 import threading
 import time
 from typing import Dict, List, Optional
@@ -42,31 +83,60 @@ from repro_torch.obs import registry as _registry
 __all__ = ["Span", "span", "current_span", "spans", "reset_spans",
            "chrome_trace", "write_chrome_trace"]
 
-_T0 = time.perf_counter()         # process-relative timestamp origin
+_clock = time.perf_counter
+_get_ident = threading.get_ident
+_T0 = _clock()                    # process-relative timestamp origin
 
 _RING_CAP = int(os.environ.get("REPRO_TRACE_RING", "512"))
+# deque's append, copy and clear are atomic: the ring needs no lock
 _RING: collections.deque = collections.deque(maxlen=_RING_CAP)
-_RING_LOCK = threading.Lock()
 
-_CURRENT: contextvars.ContextVar = contextvars.ContextVar(
-    "repro_torch_obs_span", default=None)
+# each thread's innermost open span (``span``: absent until its first)
+_LOCAL = threading.local()
 
 
 class Span:
-    """One timed stage. ``attrs`` carry structured context (bucket, step,
-    cause, ...); ``children`` make the tree."""
+    """One timed stage, and its own context manager: ``with`` opens it in
+    this thread's context (under the span open there, if any) and closes
+    it. ``attrs`` carry structured context (bucket, step, cause, ...);
+    ``children`` make the tree. While a ``torch.profiler`` session records,
+    the span also holds a ``record_function`` range of its name open."""
 
     __slots__ = ("name", "attrs", "t0", "dur_s", "children", "tid",
-                 "thread")
+                 "_parent", "_range")
 
     def __init__(self, name: str, attrs: Dict):
         self.name = name
         self.attrs = attrs
-        self.t0 = time.perf_counter() - _T0
         self.dur_s = 0.0
         self.children: List["Span"] = []
-        self.tid = threading.get_ident()
-        self.thread = threading.current_thread().name
+        self.tid = _get_ident()
+
+    def __enter__(self) -> "Span":
+        if (_profiler_enabled or _find_profiler)():
+            self._range = sys.modules["torch"].autograd.profiler \
+                .record_function(self.name)
+            self._range.__enter__()
+        else:
+            self._range = None
+        local = _LOCAL
+        self._parent = getattr(local, "span", None)
+        local.span = self
+        self.t0 = _clock() - _T0
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.dur_s = (_clock() - _T0) - self.t0
+        parent = self._parent
+        _LOCAL.span = parent
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
+        self._parent = None
+        if parent is not None:
+            parent.children.append(self)
+        else:
+            _RING.append(self)
 
     def set(self, **attrs) -> None:
         """Attach attributes mid-span (e.g. the bucket once known)."""
@@ -95,10 +165,15 @@ class Span:
         for c in self.children:
             yield from c.walk()
 
-    def as_dict(self) -> dict:
+    def as_dict(self, _names: Optional[Dict[int, str]] = None) -> dict:
+        """The subtree as plain data; ``thread`` is the name of the thread
+        that ran the span, looked up now (its id as text once that thread
+        has ended)."""
+        names = _thread_names() if _names is None else _names
         return {"name": self.name, "t0_s": self.t0, "dur_s": self.dur_s,
-                "attrs": dict(self.attrs), "thread": self.thread,
-                "children": [c.as_dict() for c in self.children]}
+                "attrs": dict(self.attrs),
+                "thread": names.get(self.tid, str(self.tid)),
+                "children": [c.as_dict(names) for c in self.children]}
 
     def __repr__(self):
         return (f"Span({self.name!r}, {self.dur_s * 1e3:.2f}ms, "
@@ -111,6 +186,12 @@ class _NullSpan:
     name = None
     attrs: Dict = {}
     children: List = []
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        pass
 
     def set(self, **attrs) -> None:
         pass
@@ -125,45 +206,48 @@ class _NullSpan:
 _NULL = _NullSpan()
 
 
-@contextlib.contextmanager
+def _thread_names() -> Dict[int, str]:
+    return {t.ident: t.name for t in threading.enumerate()}
+
+
+# torch's "is a profiler session recording" flag, once torch is loaded
+_profiler_enabled = None
+
+
+def _find_profiler() -> bool:
+    """The profiler's flag, found through ``sys.modules`` (and kept) once
+    torch is loaded: a process without torch never imports it."""
+    global _profiler_enabled
+    torch = sys.modules.get("torch")
+    if torch is None or not hasattr(torch, "autograd"):
+        return False
+    _profiler_enabled = torch.autograd._profiler_enabled
+    return _profiler_enabled()
+
+
 def span(name: str, **attrs):
-    """Open one timed stage; yields the live :class:`Span` (a shared
-    no-op when observability is disabled)."""
-    if not _registry._is_enabled():
-        yield _NULL
-        return
-    s = Span(name, attrs)
-    parent = _CURRENT.get()
-    token = _CURRENT.set(s)
-    try:
-        yield s
-    finally:
-        s.dur_s = (time.perf_counter() - _T0) - s.t0
-        _CURRENT.reset(token)
-        if parent is not None:
-            parent.children.append(s)
-        else:
-            with _RING_LOCK:
-                _RING.append(s)
+    """One timed stage as a context manager that yields the live
+    :class:`Span` (a shared no-op when observability is disabled)."""
+    if not _registry._ENABLED:
+        return _NULL
+    return Span(name, attrs)
 
 
 def current_span() -> Optional[Span]:
-    return _CURRENT.get()
+    return getattr(_LOCAL, "span", None)
 
 
 def spans(name: Optional[str] = None) -> List[Span]:
     """Completed root spans in the ring (oldest first); ``name`` filters
     by root-span name."""
-    with _RING_LOCK:
-        roots = list(_RING)
+    roots = list(_RING)
     if name is not None:
         roots = [r for r in roots if r.name == name]
     return roots
 
 
 def reset_spans() -> None:
-    with _RING_LOCK:
-        _RING.clear()
+    _RING.clear()
 
 
 # ---------------------------------------------------------------------------

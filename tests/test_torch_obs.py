@@ -556,3 +556,247 @@ def test_report_smoke():
     text = rt.obs.report()
     assert "serve.requests" in text and "serve.builds" in text
     assert "builds recorded" in text
+
+
+# ---------------------------------------------------------------------------
+# spans on the profiler's clock
+# ---------------------------------------------------------------------------
+
+def _profile():
+    return torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+def _trace_events(prof, tmp_path) -> list:
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    return [e for e in json.loads(path.read_text())["traceEvents"]
+            if e.get("ph") == "X"]
+
+
+def _ranges(events, prefixes=("t.", "gnn.", "mp.", "plan.")) -> list:
+    """[(name, start, end, tid)] of the program's ``user_annotation``
+    ranges in a trace."""
+    return [(e["name"], e["ts"], e["ts"] + e["dur"], e["tid"])
+            for e in events if e.get("cat") == "user_annotation"
+            and e["name"].startswith(prefixes)]
+
+
+def _range_edges(ranges) -> list:
+    """Sorted (name, name of the innermost range holding it) pairs."""
+    out = []
+    for r in ranges:
+        holders = [h for h in ranges if h is not r and h[3] == r[3]
+                   and h[1] <= r[1] and r[2] <= h[2]]
+        parent = min(holders, key=lambda h: h[2] - h[1], default=None)
+        out.append((r[0], None if parent is None else parent[0]))
+    return sorted(out, key=str)
+
+
+def _span_edges(roots) -> list:
+    out = []
+    for root in roots:
+        out.append((root.name, None))
+        for s in root.walk():
+            out += [(c.name, s.name) for c in s.children]
+    return sorted(out, key=str)
+
+
+def _inside(e, ranges) -> bool:
+    return any(r[1] <= e["ts"] and e["ts"] + e["dur"] <= r[2]
+               and r[3] == e["tid"] for r in ranges)
+
+
+def _small_tree(fail: bool = False):
+    with obs.span("t.root", step=1):
+        with obs.span("t.child.a"):
+            with obs.span("t.leaf"):
+                if fail:
+                    raise RuntimeError("inside t.leaf")
+        with obs.span("t.child.b"):
+            pass
+
+
+@pytest.mark.parametrize("mode", ["profiler", "profiler_raises",
+                                  "no_profiler", "disabled"])
+def test_spans_mirror_into_a_recording_profiler(mode, monkeypatch, tmp_path):
+    """Under a profiler a span tree is the same tree of ``user_annotation``
+    ranges (also when a stage raises); without one no ``record_function``
+    is entered; disabled, neither a span nor a range is recorded."""
+    entered = []
+
+    class Counting(torch.autograd.profiler.record_function):
+        def __enter__(self):
+            entered.append(self.name)
+            return super().__enter__()
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", Counting)
+    if mode == "disabled":
+        obs.disable()
+    events = []
+    if mode == "no_profiler":
+        _small_tree()
+    else:
+        with _profile() as prof:
+            if mode == "profiler_raises":
+                with pytest.raises(RuntimeError, match="inside t.leaf"):
+                    _small_tree(fail=True)
+            else:
+                _small_tree()
+        events = _trace_events(prof, tmp_path)
+    roots = obs.spans("t.root")
+    ranges = _ranges(events)
+    if mode == "disabled":
+        assert roots == [] and ranges == [] and entered == []
+        return
+    (root,) = roots
+    assert root.as_dict()["thread"] == threading.current_thread().name
+    if mode == "no_profiler":
+        assert entered == [] and root.stages() == {
+            "t.root", "t.child.a", "t.leaf", "t.child.b"}
+        return
+    assert _range_edges(ranges) == _span_edges(roots)
+    assert entered == [s.name for s in root.walk()]
+    assert obs.current_span() is None
+
+
+SAGE_DIMS = [16, 8, 8, 4]
+
+
+def _sage_forward_on_fake_cuda(monkeypatch):
+    """One GraphSAGE forward with a plan through the CUDA path's custom
+    ops, on fake CUDA tensors (their fakes give shapes; nothing is built
+    or launched). A CPU build cannot index a fake CUDA tensor by an int
+    in Python (``t[0]``), so that index runs as the ``select`` it is."""
+    import dataclasses
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    g = synth_graph("fake", 64, 256, feat=SAGE_DIMS[0])
+    edge_index = torch.from_numpy(g.edge_index)
+    plan = gnn.make_model_plan(edge_index, g.num_nodes, feat=max(SAGE_DIMS),
+                               device="cpu")
+    obs.reset()
+    getitem = torch.Tensor.__getitem__
+
+    def select_int(t, key):
+        return t.select(0, key) if isinstance(key, int) else getitem(t, key)
+    monkeypatch.setattr(torch.Tensor, "__getitem__", select_int)
+    with torch.no_grad(), FakeTensorMode(allow_non_fake_inputs=True):
+        def fake(t):
+            return torch.empty(t.shape, dtype=t.dtype, device="cuda")
+        so = plan.src_order
+        plan = dataclasses.replace(
+            plan, row_ptr=fake(plan.row_ptr),
+            src_order=dataclasses.replace(
+                so, perm=fake(so.perm), src=fake(so.src), dst=fake(so.dst),
+                row_ptr=fake(so.row_ptr)))
+        with torch.device("meta"):
+            model = gnn.GNN("sage", SAGE_DIMS)
+        model.load_state_dict({k: fake(v) for k, v in
+                               model.state_dict().items()}, assign=True)
+        out = model(fake(torch.from_numpy(g.x)), fake(edge_index),
+                    g.num_nodes, plan=plan)
+    assert out.shape == (g.num_nodes, SAGE_DIMS[-1])
+
+
+def _sage_forward_on_cpu():
+    g = synth_graph("cpu", 64, 256, feat=SAGE_DIMS[0])
+    edge_index = torch.from_numpy(g.edge_index)
+    plan = gnn.make_model_plan(edge_index, g.num_nodes, feat=max(SAGE_DIMS),
+                               device="cpu")
+    model = gnn.GNN("sage", SAGE_DIMS)
+    obs.reset()
+    with torch.no_grad():
+        model(torch.from_numpy(g.x), edge_index, g.num_nodes, plan=plan)
+
+
+@pytest.mark.parametrize("order", ["auto_cpu", "fused", "transform_first",
+                                   "aggregate_first"])
+def test_gnn_forward_spans_and_their_ranges(order, monkeypatch, tmp_path):
+    """A GraphSAGE forward with a plan: ``gnn.forward`` ⊃ 3 × ``gnn.layer``
+    ⊃ ``mp.order``, ``mp.aggregate``, as spans and as the profiler's
+    ranges; every ``repro_torch::`` call lies inside ``mp.aggregate``,
+    every dense product of a layer outside it (the CPU's plain versions,
+    and each order of the CUDA path on fake tensors)."""
+    from repro_torch.core import mp as mp_mod
+    if order != "auto_cpu":
+        monkeypatch.setattr(mp_mod, "choose_order", lambda *a, **k: order)
+    with _profile() as prof:
+        if order == "auto_cpu":
+            _sage_forward_on_cpu()
+        else:
+            _sage_forward_on_fake_cuda(monkeypatch)
+    (root,) = obs.spans("gnn.forward")
+    assert root.attrs == {"family": "sage", "layers": 3}
+    assert [c.name for c in root.children] == ["gnn.layer"] * 3
+    for i, layer in enumerate(root.children):
+        assert layer.attrs == {"index": i, "d_in": SAGE_DIMS[i],
+                               "d_out": SAGE_DIMS[i + 1]}
+        chosen, agg = layer.children
+        assert (chosen.name, agg.name) == ("mp.order", "mp.aggregate")
+        assert agg.attrs["reduce"] == "mean"
+        assert agg.attrs["order"] == chosen.attrs["order"]
+        if order != "auto_cpu":
+            assert chosen.attrs["order"] == order
+        width = SAGE_DIMS[i + (chosen.attrs["order"] == "transform_first")]
+        assert agg.attrs["width"] == width
+    events = _trace_events(prof, tmp_path)
+    ranges = _ranges(events, ("gnn.", "mp."))    # the plan's apart
+    assert _range_edges(ranges) == _span_edges([root])
+    aggregate = [r for r in ranges if r[0] == "mp.aggregate"]
+    calls = [e for e in events if e.get("cat") == "cpu_op"
+             and e["name"].startswith("repro_torch::")]
+    assert len(calls) == (0 if order == "auto_cpu" else 3)
+    assert all(_inside(c, aggregate) for c in calls)
+    dense = [e for e in events if e.get("cat") == "cpu_op"
+             and e["name"] == "aten::mm"]
+    assert dense and not any(_inside(d, aggregate) for d in dense)
+    assert all(_inside(d, [r for r in ranges if r[0] == "gnn.layer"])
+               for d in dense)
+
+
+@pytest.mark.parametrize("kind", ["graph", "segment"])
+def test_plan_build_is_one_root_span_with_its_stages(kind):
+    g = synth_graph("plan", 64, 256, feat=8)
+    if kind == "graph":
+        from repro_torch.core.plan import make_graph_plan
+        plan = make_graph_plan(torch.from_numpy(g.edge_index), g.num_nodes,
+                               feat=8, device="cpu")
+        stages = ["plan.host_index", "plan.stats", "plan.row_ptr",
+                  "plan.source_order"]
+    else:
+        from repro_torch.core.plan import make_plan
+        plan = make_plan(g.edge_index[1], g.num_nodes, feat=8, device="cpu")
+        stages = ["plan.host_index", "plan.stats", "plan.row_ptr"]
+    (root,) = obs.spans("plan.build")
+    assert obs.spans() == [root]
+    assert root.attrs == {"kind": kind, "rows": plan.num_rows,
+                          "segments": g.num_nodes, "feat": 8}
+    assert [c.name for c in root.children] == stages
+    assert all(not c.children for c in root.children)
+    assert root.dur_s >= sum(c.dur_s for c in root.children) > 0.0
+
+
+SPAN_NAME = re.compile(r'(?:\bspan\(|_stage\([^,()]+,\s*"[^"]*",)\s*"([^"]+)"')
+
+
+def test_span_names_of_the_port():
+    """No span of the port is named like a benchmark's own range
+    (``bench.*``) or a custom op (``repro_torch::*``), and each one on the
+    GNN request and the plan build is opened where the trace module's
+    table says."""
+    from pathlib import Path
+
+    from repro_torch.obs import trace
+    src = Path(rt.__file__).parent
+    names = {n for f in src.rglob("*.py")
+             for n in SPAN_NAME.findall(f.read_text())}
+    assert not {n for n in names if n.startswith(("bench.",
+                                                  "repro_torch::"))}
+    ours = {"gnn.forward", "gnn.layer", "mp.order", "mp.aggregate",
+            "plan.build", "plan.host_index", "plan.stats", "plan.row_ptr",
+            "plan.source_order"}
+    assert ours <= names
+    assert {"serve.step", "serve.fetch", "train.step",
+            "pipeline.produce", "autotune.tune"} <= names
+    table = trace.__doc__
+    assert all(n in table for n in ours)
