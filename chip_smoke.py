@@ -33,7 +33,11 @@ Phases (any failure exits non-zero before the result line):
       at the GCN/SAGE layer widths (32->64, 64->64, 64->16), in fp32 and
       bf16, weighted sum and mean, on the hub (32->64), on gcn's reddit2
       request padded to its bucket (its largest fused launch, timed beside
-      its bound), plus an empty graph and num_segments % 64 != 0 (the
+      its bound), the mean of GraphSAGE's last layer over Reddit2's real
+      edges at fp32 F = 41 and 47 (class widths that narrow the 16-byte
+      vector: each must launch one whole-row walk and equal the column
+      tiles' launch bitwise, timed beside the tiles, ``torch.sparse.mm``
+      and its bound), plus an empty graph and num_segments % 64 != 0 (the
       kernel's tile). Yardsticks: ``torch.sparse.mm`` of a CSR for the
       weighted sum, the same followed by ``torch.matmul`` by W for the fused
       kernel (two calls: no single PyTorch call computes both),
@@ -374,6 +378,10 @@ Phases (any failure exits non-zero before the result line):
    segment_matmul's ``moe_products``, the MoE shapes of 3h, each with its
    path, ms, plain ms, bound and library ms (the combine at 8 tokens with
    ``runs_path_ms``, the runs path with its offsets in the same call);
+   the gather's ``sage_class_mean``, GraphSAGE's last-layer mean over
+   Reddit2 at F = 41 and 47 fp32 (its schedule, ms, ``tiled_ms`` of the
+   column tiles, plain ms, ``library_ms`` of ``torch.sparse.mm`` and
+   ``bound_ms``);
    segment_matmul's ``typed_bf16`` (the path the rule takes at the bf16
    typed widths, beside ``mma_sync_ms``, today's mma_sync kernel in the
    same call); the gather's, segment_matmul's and sddmm's
@@ -418,6 +426,10 @@ TF32_FLOPS = 495e12            # H100 SXM tensor cores, TF32 dense
 BF16_FLOPS = 989e12            # H100 SXM tensor cores, bf16 dense
 FEAT, HIDDEN, CLASSES = 32, 64, 16
 SEED = 0
+# the GraphSAGE benchmark cell on Reddit2: its widest layer (the 602 input
+# features) and the class widths of its last layer's mean gather (Reddit2's
+# 41, ogbn-products' 47), which narrow the 16-byte vector
+SAGE_IN, SAGE_CLASS_WIDTHS = 602, (41, 47)
 # the AM graph of the R-GCN paper (Schlichtkrull et al. 2018, Table 1)
 AM_NODES, AM_EDGES, AM_RELATIONS = 1_666_764, 5_988_321, 133
 RGAT_HEADS = 2
@@ -600,6 +612,79 @@ def gsr_runs_call(torch, h, gidx, seg, num_segments, weight):
         return gsr.c_entry("runs", h, g32, s32, num_segments, weight,
                            row_ptr=gsr.row_offsets(s32, num_segments))
     return call
+
+
+def sage_class_gather(torch, kops, dev, gen, graph) -> dict:
+    """SAGE's last-layer mean gather as the benchmark cell runs it: fp32
+    rows of :data:`SAGE_CLASS_WIDTHS` columns over ``graph``'s real edges
+    (Reddit2's), through the op with a plan made for the cell's widest
+    layer. Each width must launch one whole-row walk (the schedule
+    counter), agree with the plain version at the fp32 tolerance, and equal
+    the column tiles' launch of the same inputs (``c_entry("tiled")``)
+    bitwise; then the op is timed beside the tiles, the plain version,
+    ``torch.sparse.mm`` of the mean's CSR and its bound. {"F=<f>": {...}}."""
+    from repro_torch.core.plan import make_plan
+    from repro_torch.kernels import gather_segment_reduce as gsr
+    v, e = graph.num_nodes, graph.num_edges
+    src = torch.from_numpy(graph.edge_index[0]).to(dev).int().contiguous()
+    dst = torch.from_numpy(graph.edge_index[1]).to(dev).int().contiguous()
+    plan = make_plan(dst, v, feat=SAGE_IN, device=dev)
+    deg = plan.row_ptr.diff()
+    csr = torch.sparse_csr_tensor(
+        plan.row_ptr, src.long(),
+        (1.0 / deg.clamp_min(1).float()).repeat_interleave(deg), (v, v))
+    h_rows = int(torch.unique(src).numel())
+    out = {}
+    for f in SAGE_CLASS_WIDTHS:
+        h = torch.randn(v, f, generator=gen, device=dev)
+        what = (f"gather_segment_reduce mean F={f} float32 over reddit2 "
+                f"({v} nodes, {e} edges)")
+
+        def kernel(h=h):
+            return kops.gather_segment_reduce(h, src, dst, v, None, "mean",
+                                              plan=plan, impl="cuda")
+
+        def tiled(h=h):
+            return gsr.c_entry("tiled", h, src, dst, v, None, "mean",
+                               row_ptr=plan.row_ptr, run_rows=plan.config.m_b)
+
+        def plain(h=h):
+            return kops.gather_segment_reduce(h, src, dst, v, None, "mean",
+                                              impl="ref")
+
+        def library(h=h):
+            return torch.sparse.mm(csr, h)
+
+        before = kops.schedule_launch_counts()
+        got = kernel()
+        took = count_diff(kops.schedule_launch_counts(),
+                          before)["gather_segment_reduce"]
+        if took != {"tiled": 0, "whole_row": 1}:
+            fail(f"{what}: launches by schedule {took}, expected one "
+                 "whole_row")
+        want = plain()
+        err = compare(torch, what, got, want, torch.float32)
+        if not torch.equal(got, tiled()):
+            fail(f"{what}: not bitwise the column tiles' output")
+        compare(torch, f"torch.sparse.mm yardstick F={f}", library(), want,
+                torch.float32)
+        del got, want
+        row = {"schedule": "whole_row", "max_abs_err": err,
+               "ms": time_ms(torch, kernel), "tiled_ms": time_ms(torch, tiled),
+               "plain_ms": time_ms(torch, plain),
+               "library_ms": time_ms(torch, library)}
+        # the two int32 indices, the int64 row offsets, the distinct rows
+        # of H, the output; an add a row element and a divide an output one
+        row["bound_ms"], row["bound_by"] = bound(
+            e * (4 + 4) + (v + 1) * 8 + h_rows * f * 4 + v * f * 4,
+            e * f + v * f)
+        print(f"  {what}: whole_row {row['ms']:.4f} ms, column tiles "
+              f"{row['tiled_ms']:.4f}, plain {row['plain_ms']:.4f}, "
+              f"torch.sparse.mm {row['library_ms']:.4f}, bound "
+              f"{row['bound_ms']:.4f}; bitwise the tiles", flush=True)
+        out[f"F={f}"] = row
+        del h
+    return out
 
 
 def sddmm_runs_call(torch, a, b, row, col):
@@ -4597,6 +4682,9 @@ def main() -> None:
         + FEAT * HIDDEN * 4 + r2_v * HIDDEN * 4,
         2 * r2.num_edges * FEAT + 2 * r2_v * FEAT * HIDDEN)
     del r2_pad, r2_src, r2_dst, r2_plan, r2_w, r2_h, r2_wm
+    # SAGE's class rows on Reddit2, walked whole in one column tile
+    results["sage class gather"] = sage_class_gather(torch, kops, dev, gen,
+                                                     r2)
 
     # edge cases: an empty graph, and num_segments % s_b != 0 (and % the
     # fused kernel's tile) with padding rows
@@ -5450,6 +5538,8 @@ def main() -> None:
                                               torch.float32)][2]
     kernels[2]["reddit2_bound_ms"] = results["fused reddit2 bound"][0]
     kernels[2]["reddit2_row_read_tb_s"] = results["fused reddit2 rows"][1]
+    # the gather at SAGE's class widths over Reddit2 (the whole-row walk)
+    kernels[0]["sage_class_mean"] = results["sage class gather"]
     # the MoE shapes of phase 3h: the combine, and the three expert products
     kernels[0]["moe_combine"] = lm_record["gather_moe"]
     kernels[3]["moe_products"] = lm_record["segment_matmul_moe"]

@@ -15,7 +15,11 @@ wide-row path's ``WIDE_PAIRS`` = 2, 4 and 8 pairs a warp and
 with ``OWN_ROWS`` = 4, 8 and 16 rows in flight a lane and
 ``OWN_VEC_BYTES`` = 4, 8 and 16 bytes of a row a lane owns (each
 constant swept with the others at their shipped values; a variant is
-named ``CONST=value``), each into a library of its own (nvcc with the
+named ``CONST=value``), and of its runs path's whole-row schedule
+(``csrc/row_runs.cuh``) with ``WHOLE_LPR`` = 8, 16 and 32 lanes a row, each
+at the register budget ``WHOLE_WORDS`` that lets it hold SAGE's class rows
+whole (:data:`WHOLE_SWEEP`, built at the default run length alone), each
+into a library of its own (nvcc with the
 flags of ``kernels/_build.py``, all started together, into the build
 directory), and times each through its C entry point at the shapes
 ``chip_smoke.py`` uses:
@@ -47,7 +51,12 @@ directory), and times each through its C entry point at the shapes
     and at a hub of OWNER_MAX_ROWS rows; and both paths at their shipped
     values (the runs path with the row offsets it builds, and alone) at
     64 to 4096 rows, eight to a segment or all in one, at bf16 F = 2048
-    and fp32 F = 64 (where the rule's OWNER_MAX_ROWS should lie).
+    and fp32 F = 64 (where the rule's OWNER_MAX_ROWS should lie); the
+    whole-row variants (WHOLE_LPR) at the mean of fp32 rows of F = 41 and
+    47 (Reddit2's and ogbn-products' classes) over Reddit2's 23.2 M edges,
+    beside the column tiles (``gsr_tiled_launch``) and the shipped rule,
+    each bitwise against the tiles; at F = 41 also the plain version,
+    ``torch.sparse.mm`` of the mean's CSR and the byte bound.
 
 Beside sddmm, and beside the fused kernel's fp32 32->64 at arxiv and
 reddit2, it times the read probe ``csrc/probes/row_reads.cu`` at U = 1,
@@ -113,6 +122,11 @@ VARIANTS = {
 # prepended to a variant's source: the gather's variants time the owner path
 # alone, so they build no run length of the runs path
 PREAMBLE = {"gather_segment_reduce": "#define FOR_RUN_LENGTHS(X)\n"}
+# the gather's whole-row variants, (WHOLE_LPR, WHOLE_WORDS): each lane count
+# with the registers a lane needs to hold a row of F = 41 or 47 fp32 whole
+# (6 scalars at 8 lanes), at the widths of SAGE's last layer
+WHOLE_SWEEP = ((8, 6), (16, 4), (32, 4))
+WHOLE_WIDTHS = (41, 47)
 # the MoE combine of qwen3-moe-30b-a3b: a training step's 2048 tokens and a
 # decode step's 8, top-8, d_model 2048
 MOE_TOKENS, MOE_DECODE_TOKENS, MOE_TOP_K, MOE_D = 2048, 8, 8, 2048
@@ -180,6 +194,18 @@ def build_variants(_build, names, probe=False):
                 so = out_dir / f"{stem}.so"
                 procs[(name, f"{const}={v}")] = (
                     so, {**shipped, const: v}, _nvcc(_build, cu, so))
+    if "gather_segment_reduce" in names:
+        from repro_torch.core.config_space import DEFAULT_M_B
+        src = (_build.CSRC / "gather_segment_reduce.cu").read_text()
+        for lpr, words in WHOLE_SWEEP:
+            cu = out_dir / f"gather_segment_reduce_WHOLE_LPR{lpr}.cu"
+            cu.write_text(f"#define FOR_RUN_LENGTHS(X) X({DEFAULT_M_B})\n"
+                          f"#define WHOLE_LPR {lpr}\n"
+                          f"#define WHOLE_WORDS {words}\n" + src)
+            so = cu.with_suffix(".so")
+            procs[("gather_segment_reduce", f"WHOLE_LPR={lpr}")] = (
+                so, {"WHOLE_LPR": lpr, "WHOLE_WORDS": words},
+                _nvcc(_build, cu, so))
     if probe:
         so = out_dir / "row_reads.so"
         procs[("probe", "")] = (so, {}, _nvcc(
@@ -502,6 +528,7 @@ def main() -> None:
         sddmm_wide(libs, timed, gen, dev, (g.num_nodes, a_dst, a_src))
     if "gather_segment_reduce" in names:
         gather_owner(libs, timed, gen, dev)
+        gather_whole_rows(libs, timed, gen, dev)
     del plan, src, dst
 
     typed = {"segment_softmax", "segment_matmul"}
@@ -696,6 +723,60 @@ def gather_owner(libs, timed, gen, dev):
                        "runs with offsets": lambda: runs(h, gidx, seg, s, w),
                        "runs kernel": lambda: runs(h, gidx, seg, s, w, rp)},
                       want, dtype)
+
+
+def gather_whole_rows(libs, timed, gen, dev):
+    """The gather's whole-row variants (:data:`WHOLE_SWEEP`) at the mean of
+    SAGE's class rows (fp32, :data:`WHOLE_WIDTHS`) over Reddit2's edges,
+    beside the column tiles and the shipped rule, each bitwise against the
+    tiles; at the first width also the plain version, ``torch.sparse.mm``
+    of the mean's CSR, and the byte bound."""
+    from repro_torch.data.graphs import dataset
+    from repro_torch.kernels import gather_segment_reduce as gsr
+
+    r2 = dataset("reddit2", feat=1, seed=SEED)
+    v, e = r2.num_nodes, r2.num_edges
+    src = torch.from_numpy(r2.edge_index[0]).to(dev).int().contiguous()
+    dst = torch.from_numpy(r2.edge_index[1]).to(dev).int().contiguous()
+    row_ptr = gsr.row_offsets(dst, v)
+    deg = row_ptr.diff()
+    csr = torch.sparse_csr_tensor(
+        row_ptr, src.long(),
+        (1.0 / deg.clamp_min(1).float()).repeat_interleave(deg), (v, v))
+    keys = [f"WHOLE_LPR={lpr}" for lpr, _ in WHOLE_SWEEP]
+    print(f"gather_segment_reduce whole-row variants {keys} at the mean "
+          f"over reddit2 ({v} nodes, {e} edges):", flush=True)
+    for f in WHOLE_WIDTHS:
+        h = torch.randn(v, f, generator=gen, device=dev)
+
+        def call(which, lib=None, h=h):
+            return gsr.c_entry(which, h, src, dst, v, None, "mean",
+                               row_ptr=row_ptr, lib=lib)
+        calls = {"tiled": lambda: call("tiled"),
+                 "shipped": lambda: call("runs"),
+                 **{k: (lambda k=k: call(
+                     "runs", libs[("gather_segment_reduce", k)][0]))
+                    for k in keys}}
+        tiled = call("tiled")
+        for k, fn in calls.items():
+            if not torch.equal(fn(), tiled):
+                sys.exit(f"kernel_variants: F={f} {k} is not bitwise the "
+                         "column tiles' output")
+        want = gsr.gather_segment_reduce_ref(h, src, dst, v, None, "mean")
+        beside = {}
+        if f == WHOLE_WIDTHS[0]:
+            check(f"torch.sparse.mm F={f}", torch.sparse.mm(csr, h), want,
+                  torch.float32)
+            beside = {"plain": lambda: gsr.gather_segment_reduce_ref(
+                          h, src, dst, v, None, "mean"),
+                      "torch.sparse.mm": lambda: torch.sparse.mm(csr, h)}
+        timed(f"mean float32 F={f} (rule: "
+              f"{gsr.schedule(f, torch.float32)}), bitwise the tiles",
+              calls, want, torch.float32, beside)
+        nbytes = 8 * e + 8 * (v + 1) + 2 * v * f * 4
+        print(f"    bytes {nbytes}: bound {nbytes / 3.35e12 * 1e3:.4f} ms "
+              "at 3.35 TB/s", flush=True)
+        del h, want
 
 
 def moe_sizes(gen, rows, groups, active, dev):

@@ -64,6 +64,9 @@ SIGNATURES = {
         # num_rows, feat, num_segments, run_rows, stream
         "gsr_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                        _L, _I, _I, _I, _P],
+        # the same arguments (the runs path in column tiles at any width)
+        "gsr_tiled_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                             _L, _I, _I, _I, _P],
         # dtype, reduce, weighted, h, gidx, seg, w, out, num_rows, feat,
         # num_segments, stream (the owner path: no row offsets, no scratch)
         "gsr_owner_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _L, _I, _I, _P],

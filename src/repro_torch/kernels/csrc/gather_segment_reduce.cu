@@ -18,7 +18,8 @@
 // templates segment_reduce.cu shares with an identity gather). Pass 1 cuts
 // the sorted rows into runs of RUN rows (the config's M_b, chosen at run
 // time among the built lengths), a lane group a run spanning an H row with
-// 16-byte vector loads, and writes every segment that lies wholly
+// 16-byte vector loads (a row that narrows them walked whole, not in column
+// tiles: row_runs.cuh), and writes every segment that lies wholly
 // inside its run; the segments cut by a run's ends leave fp32 partials.
 // Pass 2, one lane group per output row from the plan's row_ptr, writes the
 // empty segments and folds the partials in run order. No walk is longer
@@ -201,6 +202,23 @@ extern "C" int gsr_launch(int dtype, int reduce, int weighted, const void* h,
                                     num_segments, stream);
   switch (run_rows) { FOR_RUN_LENGTHS(GSR_RUN) }
 #undef GSR_RUN
+  return (int)cudaErrorInvalidValue;
+}
+
+// The runs path in column tiles whatever the width: gsr_launch without the
+// whole-row schedule (row_runs.cuh), its reference for tests and the sweep.
+extern "C" int gsr_tiled_launch(int dtype, int reduce, int weighted, const void* h,
+                                const void* gidx, const void* seg, const void* w,
+                                const void* row_ptr, void* part, void* out,
+                                int64_t num_rows, int feat, int num_segments,
+                                int run_rows, void* stream) {
+#define GSR_TILED_RUN(R)                                                        \
+  case R:                                                                       \
+    return row_runs_launch<R, true>(dtype, reduce, weighted, h, gidx, seg, w,   \
+                                    row_ptr, part, out, num_rows, feat,         \
+                                    num_segments, stream, true);
+  switch (run_rows) { FOR_RUN_LENGTHS(GSR_TILED_RUN) }
+#undef GSR_TILED_RUN
   return (int)cudaErrorInvalidValue;
 }
 

@@ -16,7 +16,9 @@
 // gather and no weight, X read in place. Pass 1 cuts the sorted rows into
 // runs of RUN rows (the config's M_b, chosen at run time), a lane group a
 // run spanning an X row with 16-byte vector loads (8-, 4- or 2-byte ones
-// for widths off the vector), 8 rows in flight, and writes every segment
+// for widths off the vector, with the whole row in one walk where the
+// narrower vector would cut it into column tiles: the same rule as the
+// gather's), 8 rows in flight, and writes every segment
 // that lies wholly inside its run; the one or two segments cut by the
 // run's ends leave fp32 partials in two scratch slots of the run. Pass 2,
 // one lane group per segment from the plan's int64 row_ptr, writes an empty segment as 0 (-inf for max), folds a cut

@@ -17,7 +17,10 @@ the io dtype of ``h``):
         segment's rows by a binary search of ``seg_idx`` and walks them in
         one launch, with no row offsets (``gsr_owner_launch``);
       - ``"runs"``: everything else — runs of the config's M_b rows, then
-        a pass over the row offsets (``gsr_launch``).
+        a pass over the row offsets (``gsr_launch``). A row walks in column
+        tiles or, where the width narrows the 16-byte vector and the tiles
+        would cut it, whole in one walk: :func:`schedule` (``"tiled"``,
+        ``"whole_row"``) mirrors the launch's rule.
   * :func:`gather_segment_reduce_ref` — the plain PyTorch version
     (``index_select`` + ``index_add_`` / ``scatter_reduce_`` in fp32).
   * :func:`gather_segment_reduce_blocked` — the runs path's schedule in
@@ -37,6 +40,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.config_space import DEFAULT_M_B, RUN_LENGTHS
 from repro_torch.kernels import _build
 
@@ -47,6 +51,13 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0    # the op's launches in this process, one a call
 # the same launches by path (:func:`path`)
 path_launches = {"runs": 0, "owner": 0}
+# the runs path's launches by column schedule (:func:`schedule`)
+schedule_launches = {"tiled": 0, "whole_row": 0}
+
+# the whole-row schedule's lanes a row to start from and the 32-bit
+# registers of a row a lane may hold: WHOLE_LPR and WHOLE_WORDS of
+# csrc/row_runs.cuh, whose note gives the sweep behind them
+WHOLE_LPR, WHOLE_WORDS = 16, 4
 
 # the owner path takes inputs of at most this many rows: a lane walks all
 # its segment's rows, so this bounds the longest walk however skewed the
@@ -111,6 +122,60 @@ def path(num_rows: int) -> str:
     pure function of the shape: never a reaction to a build or launch
     error."""
     return "owner" if num_rows <= OWNER_MAX_ROWS else "runs"
+
+
+def alignment(*tensors) -> int:
+    """The largest power of two up to 16 that divides every tensor's
+    address: the bytes a row-run launch may read and write a vector at."""
+    align = 16
+    for t in tensors:
+        while t.data_ptr() % align:
+            align //= 2
+    return align
+
+
+def schedule(feat: int, dtype, align: int = 16) -> str:
+    """How the runs path walks rows of ``feat`` columns of ``dtype`` whose
+    data lies at addresses divisible by ``align`` bytes (the row-run
+    launch's rule in ``csrc/row_runs.cuh``, for the gather and
+    segment_reduce alike): ``"whole_row"`` where the widest vector that
+    divides a row and keeps the data aligned is below 16 bytes, the
+    column tiles of 32 such vectors would cut the row, and a lane group of
+    at most 32 lanes covers it holding at most :data:`WHOLE_WORDS` 32-bit
+    registers a lane; else ``"tiled"``. A pure function of the shape and
+    the alignment."""
+    es = dtype.itemsize
+    v = 16 // es
+    while v > 1 and (feat % v or align % (v * es)):
+        v //= 2
+    if v * es == 16 or feat <= 32 * v:
+        return "tiled"
+    cmax = WHOLE_WORDS // max(v * es // 4, 1)
+    lanes = WHOLE_LPR
+    while lanes < 32 and -(-feat // (lanes * v)) > cmax:
+        lanes *= 2
+    return "whole_row" if -(-feat // (lanes * v)) <= cmax else "tiled"
+
+
+_SCHEDULE_METRIC = None
+
+
+def schedule_metric():
+    """The :mod:`repro_torch.obs` mirror of the runs path's launches by
+    schedule: ``kernel.schedule_launches``, labels op and schedule."""
+    global _SCHEDULE_METRIC
+    if _SCHEDULE_METRIC is None:
+        _SCHEDULE_METRIC = obs.get_registry().counter(
+            "kernel.schedule_launches", labels=("op", "schedule"),
+            help="row-run launches by column schedule (tiled/whole_row)")
+    return _SCHEDULE_METRIC
+
+
+def count_schedule(op: str, counts: dict, which: str) -> None:
+    """One launch of ``op`` under schedule ``which``: in the op module's
+    ``counts`` and in the obs mirror."""
+    counts[which] += 1
+    schedule_metric().inc(op=op, schedule=which)
 
 
 def lower_bound(seg_idx, key: int) -> int:
@@ -301,6 +366,9 @@ def _launch(h: torch.Tensor, gather_idx: torch.Tensor, seg_idx: torch.Tensor,
                       reduce, row_ptr, run_rows)
     launches += 1
     path_launches[which] += 1
+    if which == "runs":
+        count_schedule("gather_segment_reduce", schedule_launches,
+                       schedule(feat, h.dtype, alignment(h, out)))
     return out
 
 
@@ -309,12 +377,13 @@ def c_entry(which: str, h, gather_idx, seg_idx, num_segments: int, weight,
             lib=None):
     """One call of path ``which``'s C entry on the current stream: the
     owner path's ``gsr_owner_launch``, or the runs path's ``gsr_launch``
-    (with its partials' scratch) on ``row_ptr``, from ``lib`` (a loaded
-    library; by default the built one for the path and ``run_rows``): the
-    output. It takes the inputs as given (int32 indices, contiguous rows,
-    at least one segment and one column) and counts no launch: the op's
-    launch, and a timing of a path beside the other on the same inputs,
-    both go through it."""
+    (with its partials' scratch) on ``row_ptr`` — ``"tiled"``: its
+    ``gsr_tiled_launch``, the column tiles whatever :func:`schedule` says
+    — from ``lib`` (a loaded library; by default the built one for the
+    path and ``run_rows``): the output. It takes the inputs as given
+    (int32 indices, contiguous rows, at least one segment and one column)
+    and counts no launch: the op's launch, and a timing of a path beside
+    the other on the same inputs, both go through it."""
     num_rows, feat = int(seg_idx.shape[0]), int(h.shape[1])
     out = torch.empty((num_segments, feat), dtype=h.dtype, device=h.device)
     args = (DTYPE_CODE[h.dtype], _REDUCE_CODE[reduce], int(weight is not None),
@@ -329,9 +398,10 @@ def c_entry(which: str, h, gather_idx, seg_idx, num_segments: int, weight,
         part = torch.empty((2 * runs, feat), dtype=torch.float32,
                            device=h.device)
         lib = lib or _build.load("gather_segment_reduce", run_rows)
-        err = lib.gsr_launch(*args, _build.ptr(row_ptr), _build.ptr(part),
-                             _build.ptr(out), num_rows, feat, num_segments,
-                             run_rows, _build.stream_of(h))
+        entry = lib.gsr_tiled_launch if which == "tiled" else lib.gsr_launch
+        err = entry(*args, _build.ptr(row_ptr), _build.ptr(part),
+                    _build.ptr(out), num_rows, feat, num_segments, run_rows,
+                    _build.stream_of(h))
     _build.check(err, f"gather_segment_reduce ({which})")
     return out
 

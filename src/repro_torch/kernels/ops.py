@@ -49,7 +49,11 @@ Accounting: each kernel module keeps a plain-int launch counter
 (:func:`launch_counts`, :func:`reset_launch_counts`), bumped only where
 its kernel launches; the kernels with two paths (segment_matmul, the
 gather, sddmm) also count each launch under the path it took
-(:func:`path_launch_counts`). :func:`account` / :func:`fusion_scope` record which
+(:func:`path_launch_counts`), and the row-run kernels (the gather's runs
+path, segment_reduce) under the column schedule they took
+(:func:`schedule_launch_counts`, mirrored into the :mod:`repro_torch.obs`
+registry as ``kernel.schedule_launches``, labels op and schedule).
+:func:`account` / :func:`fusion_scope` record which
 kernels (``fused:<op>``) or plain versions (``unfused:<op>:<impl>``) a
 block of work ran, so a served step can report what it launched; every
 event is also mirrored into the :mod:`repro_torch.obs` registry
@@ -121,12 +125,29 @@ def path_launch_counts() -> dict:
             for name, mod in _PATH_MODULES.items()}
 
 
+# the kernels whose runs path walks rows in column tiles or whole, by the
+# rule :func:`~repro_torch.kernels.gather_segment_reduce.schedule`
+_SCHEDULE_MODULES = {"gather_segment_reduce": _gsr, "segment_reduce": _srd}
+
+
+def schedule_launch_counts() -> dict:
+    """{kernel: {schedule: launches}} since the last reset, for the
+    row-run kernels (``tiled``, ``whole_row``): the gather's sum to its
+    ``runs`` path's launches, segment_reduce's to its count in
+    :func:`launch_counts`."""
+    return {name: dict(mod.schedule_launches)
+            for name, mod in _SCHEDULE_MODULES.items()}
+
+
 def reset_launch_counts() -> None:
     for mod in _KERNEL_MODULES.values():
         mod.launches = 0
     for mod in _PATH_MODULES.values():
         for which in mod.path_launches:
             mod.path_launches[which] = 0
+    for mod in _SCHEDULE_MODULES.values():
+        for which in mod.schedule_launches:
+            mod.schedule_launches[which] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +174,7 @@ def _launch_metric():
         _LAUNCH_METRIC = obs.get_registry().counter(
             "kernel.launches", labels=("kind", "op"),
             help="kernel launch accounting (fused/unfused)")
+        _gsr.schedule_metric()  # the launch mirrors register together
     return _LAUNCH_METRIC
 
 

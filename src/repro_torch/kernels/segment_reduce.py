@@ -24,10 +24,14 @@ import torch
 from repro_torch.core.config_space import DEFAULT_M_B
 from repro_torch.kernels import _build
 from repro_torch.kernels.gather_segment_reduce import (
-    DTYPE_CODE, REDUCES, _REDUCE_CODE, _reduce_rows, check_row_ptr,
-    check_run_rows, gather_segment_reduce_blocked)
+    DTYPE_CODE, REDUCES, _REDUCE_CODE, _reduce_rows, alignment,
+    check_row_ptr, check_run_rows, count_schedule,
+    gather_segment_reduce_blocked, schedule)
 
 launches = 0    # wrapper launches in this process (each is two kernels)
+# the same launches by column schedule (the gather's rule,
+# gather_segment_reduce.schedule)
+schedule_launches = {"tiled": 0, "whole_row": 0}
 
 
 def segment_reduce_ref(x, idx, num_segments: int, reduce: str = "sum"):
@@ -99,6 +103,8 @@ def _launch(x: torch.Tensor, idx: torch.Tensor, num_segments: int,
             _build.stream_of(x))
     _build.check(err, "segment_reduce")
     launches += 1
+    count_schedule("segment_reduce", schedule_launches,
+                   schedule(feat, x.dtype, alignment(x, out)))
     return out
 
 

@@ -26,11 +26,13 @@ with the card.
 The port has no XLA compile, so the reference's instruments that count
 compiles are renamed, not faked: a *build* is the first run of a shape
 bucket's entry (its plan, its kernels' first launches). ``OBS_SCHEMA``
-is the reference's with these changes (``=``: the same name):
+is the reference's with these changes (``=``: the same name; ``-``: none,
+the port's own):
 
     metric                          labels        reference name
     ------------------------------  ------------  --------------------------
     kernel.launches                 kind, op      =
+    kernel.schedule_launches        op, schedule  -
     serve.requests                  engine        =
     serve.batches                   engine        =
     serve.serve_s                   engine        =
@@ -58,6 +60,9 @@ is the reference's with these changes (``=``: the same name):
     -                                             serve.plan_cache.compiles
     -                                             serve.plan_cache.compile_s
 
+``kernel.schedule_launches`` counts the row-run kernels' launches (the
+gather's runs path, segment_reduce) by column schedule, ``tiled`` or
+``whole_row`` (:func:`repro_torch.kernels.ops.schedule_launch_counts`);
 ``serve.builds`` counts the first run of a bucket's entry;
 ``train.buckets`` the first step on a new ``GraphStatic``;
 ``build.events`` is filled by :func:`record_build` (the reference's
@@ -129,8 +134,10 @@ __all__ = [
 
 # the documented metric schema (the table above; tests pin both)
 OBS_SCHEMA = {
-    # kernel launch accounting (mirrors fusion_counts)
+    # kernel launch accounting (mirrors fusion_counts, and the row-run
+    # kernels' launches by column schedule)
     "kernel.launches":            ("kind", "op"),
+    "kernel.schedule_launches":   ("op", "schedule"),
     # serving engine (one label value per GNNServer instance)
     "serve.requests":             ("engine",),
     "serve.batches":              ("engine",),

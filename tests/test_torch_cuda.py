@@ -19,6 +19,7 @@ import repro_torch as rt  # noqa: E402
 from repro_torch.core.config_space import KernelConfig  # noqa: E402
 from repro_torch.core.plan import make_plan  # noqa: E402
 from repro_torch.data.graphs import dataset  # noqa: E402
+from repro_torch.kernels import gather_segment_reduce as gsr  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.fused_transform_reduce import fusable  # noqa: E402
 from repro_torch.models import gnn  # noqa: E402
@@ -79,6 +80,21 @@ SHAPES = [
          gapped=True, pad=50),
     dict(v=2000, e=15000, f=3, cfg=KernelConfig("SR", 32, 128, 256, 1),
          pad=5),
+    # rows the whole-row schedule walks in one go (row_runs.cuh): SAGE's
+    # classes on Reddit2 (41) and ogbn-products (47) with gapped ids,
+    # padding rows and a hub, PPI's 121 (32 lanes of 4 scalars), 66 (8-byte
+    # fp32 and 4-byte bf16 vectors); 132 takes 8-byte bf16 vectors whole
+    # and 16-byte fp32 ones in two tiles
+    dict(v=2000, e=15000, f=41, cfg=KernelConfig("SR", 32, 128, 64, 1),
+         gapped=True, pad=50, hub=20_000),
+    dict(v=2000, e=15000, f=47, cfg=KernelConfig("SR", 32, 128, 128, 1),
+         gapped=True, pad=33, hub=20_000),
+    dict(v=1500, e=12000, f=121, cfg=KernelConfig("SR", 32, 128, 256, 1),
+         pad=7),
+    dict(v=1500, e=12000, f=66, cfg=KernelConfig("SR", 32, 128, 64, 1),
+         gapped=True, hub=3000),
+    dict(v=1500, e=12000, f=132, cfg=KernelConfig("SR", 32, 128, 128, 1),
+         pad=11),
 ]
 
 
@@ -95,10 +111,14 @@ def test_gather_segment_reduce_kernel(dev, shape, dtype, reduce, weighted):
     xi = x.to(dtype)
     wi = w.to(dtype) if weighted else None
     before = kops.launch_counts()["gather_segment_reduce"]
+    walks = kops.schedule_launch_counts()["gather_segment_reduce"]
     got = kops.gather_segment_reduce(xi, src, dst, s["v"], weight=wi,
                                      reduce=reduce, plan=plan, impl="cuda")
     torch.cuda.synchronize()
     assert kops.launch_counts()["gather_segment_reduce"] == before + 1
+    took = gsr.schedule(s["f"], dtype, gsr.alignment(xi, got))
+    assert kops.schedule_launch_counts()["gather_segment_reduce"] == {
+        **walks, took: walks[took] + 1}
     assert got.dtype == dtype and got.shape == (s["v"], s["f"])
     want = kops.gather_segment_reduce(
         xi.float(), src, dst, s["v"], weight=None if wi is None else wi.float(),
@@ -120,6 +140,57 @@ def test_gather_segment_reduce_deterministic(dev, dtype, reduce):
     again = kops.gather_segment_reduce(xi, src, dst, 3000, wi, reduce,
                                        plan=plan, impl="cuda")
     assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("f", [41, 47, 121, 66])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("reduce", ["sum", "mean", "max"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_whole_row_schedule_is_bitwise_the_column_tiles(dev, f, dtype, reduce,
+                                                        weighted):
+    """Where the rule walks rows whole, the output is bitwise the column
+    tiles' (gsr_tiled_launch) on the same inputs: each column combines the
+    same rows in the same order, the partials fold in run order. Gapped
+    ids, padding rows and a hub of 20,000 rows cut segments across runs."""
+    src, dst, x, w = _graph(dev, 2000, 15000, f, seed=f, gapped=True,
+                            pad=50, hub=20_000)
+    xi = x.to(dtype)
+    wi = w.to(dtype) if weighted else None
+    row_ptr = gsr.row_offsets(dst, 2000)
+    whole = gsr.c_entry("runs", xi, src, dst, 2000, wi, reduce,
+                        row_ptr=row_ptr)
+    tiled = gsr.c_entry("tiled", xi, src, dst, 2000, wi, reduce,
+                        row_ptr=row_ptr)
+    torch.cuda.synchronize()
+    assert gsr.schedule(f, dtype, gsr.alignment(xi, whole)) == "whole_row"
+    assert torch.equal(whole, tiled)
+    _close(whole, kops.gather_segment_reduce(
+        xi.float(), src, dst, 2000, weight=None if wi is None else wi.float(),
+        reduce=reduce, impl="ref"), dtype)
+
+
+def test_schedule_counts_sum_to_the_row_run_launches(dev):
+    """A SAGE forward with 41 classes on the card: the row-run kernels'
+    launches by schedule sum to the gather's runs-path launches and
+    segment_reduce's, and its class-wide gathers walk whole rows."""
+    src, dst, x, _ = _graph(dev, 3000, 40000, 64, seed=5)
+    model = gnn.init("sage", 64, 64, 41, device=dev)
+    plan = make_plan(dst, 3000)
+    kops.reset_launch_counts()
+    with torch.no_grad():
+        gnn.forward(model, x, torch.stack([src, dst]), 3000, plan=plan)
+    torch.cuda.synchronize()
+    sched = kops.schedule_launch_counts()
+    assert sum(sched["gather_segment_reduce"].values()) == \
+        kops.path_launch_counts()["gather_segment_reduce"]["runs"]
+    assert sum(sched["segment_reduce"].values()) == \
+        kops.launch_counts()["segment_reduce"]
+    kops.reset_launch_counts()
+    got = kops.gather_segment_reduce(x[:, :41].contiguous(), src, dst, 3000,
+                                     reduce="mean", plan=plan, impl="cuda")
+    assert kops.schedule_launch_counts()["gather_segment_reduce"] == {
+        "tiled": 0, "whole_row": 1}
+    assert got.shape == (3000, 41)
 
 
 def _owner_case(dev, case):
@@ -522,8 +593,12 @@ def test_segment_reduce_kernel(dev, dtype, reduce, shape):
     x = torch.randn(dst.numel(), s["f"], device=dev).to(dtype)
     plan = make_plan(dst, s["v"], config=s["cfg"])
     for p in (plan, None):
+        walks = kops.schedule_launch_counts()["segment_reduce"]
         got = kops.segment_reduce(x, dst, s["v"], reduce, plan=p, impl="cuda")
         torch.cuda.synchronize()
+        took = gsr.schedule(s["f"], dtype, gsr.alignment(x, got))
+        assert kops.schedule_launch_counts()["segment_reduce"] == {
+            **walks, took: walks[took] + 1}
         assert got.dtype == dtype and got.shape == (s["v"], s["f"])
         _close(got, kops.segment_reduce(x.float(), dst, s["v"], reduce,
                                         impl="ref"), dtype)

@@ -570,6 +570,127 @@ def test_gather_path_rule(case):
     assert tgsr.path(rows) == want
 
 
+# (row width, dtype, bytes the data is aligned to, the runs path's column
+# schedule): SAGE's class rows (Reddit2 41, ogbn-products 47, PPI 121),
+# odd bf16 widths, 8-byte vectors of either dtype, the widest whole rows of
+# each vector and the first past them; the rows the 16-byte vector covers
+# (the GNN's 64, the test's 40 and 300, the MoE's 2048 bf16), the rows one
+# tile already spans (3, 32 fp32, 66 fp32 at 8-byte vectors) and an
+# aligned F = 64 against one read at 4 and 8 bytes
+_SCHEDULES = {
+    "reddit2_41": (41, torch.float32, 16, "whole_row"),
+    "products_47": (47, torch.float32, 16, "whole_row"),
+    "ppi_121": (121, torch.float32, 16, "whole_row"),
+    "bf16_33": (33, torch.bfloat16, 16, "whole_row"),
+    "bf16_41": (41, torch.bfloat16, 16, "whole_row"),
+    "fp32_66": (66, torch.float32, 16, "whole_row"),
+    "bf16_66": (66, torch.bfloat16, 16, "whole_row"),
+    "bf16_132": (132, torch.bfloat16, 16, "whole_row"),
+    "fp32_127": (127, torch.float32, 16, "whole_row"),
+    "fp32_129": (129, torch.float32, 16, "tiled"),
+    "fp32_126": (126, torch.float32, 16, "whole_row"),
+    "fp32_130": (130, torch.float32, 16, "tiled"),
+    "bf16_252": (252, torch.bfloat16, 16, "whole_row"),
+    "bf16_260": (260, torch.bfloat16, 16, "tiled"),
+    "gnn_64": (64, torch.float32, 16, "tiled"),
+    "test_40": (40, torch.float32, 16, "tiled"),
+    "test_300": (300, torch.float32, 16, "tiled"),
+    "moe_2048": (2048, torch.bfloat16, 16, "tiled"),
+    "moe_2048_fp32": (2048, torch.float32, 16, "tiled"),
+    "one_tile_3": (3, torch.float32, 16, "tiled"),
+    "one_tile_32": (32, torch.float32, 4, "tiled"),
+    "one_tile_fp32_62": (62, torch.float32, 16, "tiled"),
+    "f64_at_4_bytes": (64, torch.float32, 4, "whole_row"),
+    "f64_at_8_bytes": (64, torch.float32, 8, "tiled"),
+    "f128_at_4_bytes": (128, torch.float32, 4, "whole_row"),
+    "f2048_bf16_at_2_bytes": (2048, torch.bfloat16, 2, "tiled"),
+}
+
+
+@pytest.mark.parametrize("case", list(_SCHEDULES))
+def test_row_run_schedule_rule(case):
+    """Whole rows where the vector narrowed below 16 bytes and the column
+    tiles would cut the row, up to what a lane group of 32 holds in
+    WHOLE_WORDS registers a lane; the tiles elsewhere. The rule in words:
+    the widest vector v that divides F and the alignment; whole_row iff
+    v is below 16 bytes, F > 32 v, and F <= 32 v times the vectors a lane
+    may hold."""
+    feat, dtype, align, want = _SCHEDULES[case]
+    assert tgsr.schedule(feat, dtype, align) == want
+    es = dtype.itemsize
+    v = 16 // es
+    while v > 1 and (feat % v or align % (v * es)):
+        v //= 2
+    cmax = tgsr.WHOLE_WORDS // max(v * es // 4, 1)
+    assert want == ("whole_row" if v * es < 16 and 32 * v < feat
+                    <= 32 * v * cmax else "tiled")
+
+
+def test_row_run_schedule_matches_kernel_source():
+    """The rule's constants are the kernel header's, and the sweep of
+    WHOLE_LPR builds the shipped pair among its variants."""
+    from repro_torch import kernel_variants as kv
+    hdr = (ROOT / "src/repro_torch/kernels/csrc/row_runs.cuh").read_text()
+    (lpr,) = re.findall(r"#define WHOLE_LPR (\d+)", hdr)
+    (words,) = re.findall(r"#define WHOLE_WORDS (\d+)", hdr)
+    assert (int(lpr), int(words)) == (tgsr.WHOLE_LPR, tgsr.WHOLE_WORDS)
+    assert (tgsr.WHOLE_LPR, tgsr.WHOLE_WORDS) in kv.WHOLE_SWEEP
+    assert f"WHOLE_LPR = {tgsr.WHOLE_LPR} is the sweep's choice" in \
+        " ".join(ln.lstrip("/ ") for ln in hdr.splitlines())
+    src = (ROOT / "src/repro_torch/kernels/csrc/gather_segment_reduce.cu"
+           ).read_text()
+    assert 'extern "C" int gsr_tiled_launch(' in src
+
+
+def test_alignment_of_row_data():
+    """The bytes a launch may read a vector at: the largest power of two up
+    to 16 dividing every address (a row slice moves the address)."""
+    x = torch.zeros(10, 41)
+    assert tgsr.alignment(x) == 16
+    assert tgsr.alignment(x[1:]) == 4
+    assert tgsr.alignment(x, x[2:]) == 8
+    assert tgsr.alignment(torch.zeros(10, 8, dtype=torch.bfloat16)[1:]) == 16
+    assert tgsr.alignment(torch.zeros(10, 3, dtype=torch.bfloat16)[1:]) == 2
+
+
+def test_schedule_counter_and_its_obs_mirror():
+    """The row-run kernels count their launches by schedule apart from
+    their paths: a SAGE forward on the plain path counts nothing and its
+    counts still sum to the kernels' runs-path launches; a counted launch
+    bumps its op's schedule and the obs mirror; a reset zeroes every
+    counter."""
+    from repro_torch import obs
+    from repro_torch.models import gnn
+    kops.reset_launch_counts()
+    model = gnn.init("sage", 8, 16, 41, device="cpu")
+    src, dst, x, _, v = _graph(v=70, e=340, f=8)
+    with torch.no_grad():
+        out = gnn.forward(model, _t(x), torch.stack([_t(src), _t(dst)]), v)
+    assert out.shape == (v, 41)
+
+    def runs_launches():
+        return (kops.path_launch_counts()["gather_segment_reduce"]["runs"],
+                kops.launch_counts()["segment_reduce"])
+    sched = kops.schedule_launch_counts()
+    assert sched == {k: {"tiled": 0, "whole_row": 0}
+                     for k in ("gather_segment_reduce", "segment_reduce")}
+    assert tuple(sum(sched[k].values()) for k in sched) == runs_launches()
+    kops.account("unfused", "probe")  # registers the launch mirrors
+    assert obs.get_registry().schema()["kernel.schedule_launches"] == (
+        "op", "schedule")
+    mirror = obs.get_registry().get("kernel.schedule_launches")
+    before = mirror.value(op="segment_reduce", schedule="whole_row")
+    tgsr.count_schedule("segment_reduce", tsrd.schedule_launches,
+                        "whole_row")
+    assert kops.schedule_launch_counts()["segment_reduce"] == {
+        "tiled": 0, "whole_row": 1}
+    assert mirror.value(op="segment_reduce", schedule="whole_row") == \
+        before + 1
+    kops.reset_launch_counts()
+    assert all(n == 0 for by in kops.schedule_launch_counts().values()
+               for n in by.values())
+
+
 # (row width, A's dtype, the path): the GNN's F = 64 (the arxiv pairs), the
 # crossing at 384 bytes a row either side in both dtypes, the combine's
 # router-weight gradient (3i, F = 2048) and an odd width

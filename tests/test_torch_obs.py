@@ -408,11 +408,11 @@ def test_server_stats_count_with_obs_disabled():
 # ---------------------------------------------------------------------------
 
 def _documented_table():
-    """(port name -> labels, reference name -> port name or None) from the
-    table in repro_torch.obs's docstring."""
+    """(port name -> labels, reference name -> port name or None, the port's
+    own names) from the table in repro_torch.obs's docstring."""
     doc = obs.__doc__
     body = doc[doc.index("-----"):].split("\n\n")[0].splitlines()[1:]
-    schema, renames = {}, {}
+    schema, renames, own = {}, {}, set()
     for line in body:
         cols = re.split(r"\s{2,}", line.strip())
         if cols[0] == "-":
@@ -420,17 +420,22 @@ def _documented_table():
             continue
         name, labels, ref = cols
         schema[name] = tuple(x.strip() for x in labels.split(","))
-        renames[name if ref == "=" else ref] = name
-    return schema, renames
+        if ref == "-":
+            own.add(name)
+        else:
+            renames[name if ref == "=" else ref] = name
+    return schema, renames, own
 
 
 def test_schema_is_the_documented_table_and_the_reference_renamed():
-    schema, renames = _documented_table()
+    schema, renames, own = _documented_table()
     assert schema == obs.OBS_SCHEMA
     ref = repro.obs.OBS_SCHEMA
     assert set(renames) == set(ref)
+    assert own == {"kernel.schedule_launches"}
     assert {renames[k]: v for k, v in ref.items()
-            if renames[k] is not None} == obs.OBS_SCHEMA
+            if renames[k] is not None} == {
+        k: v for k, v in obs.OBS_SCHEMA.items() if k not in own}
     assert {k for k, v in renames.items() if v is None} == {
         "serve.plan_cache.compiles", "serve.plan_cache.compile_s"}
 
