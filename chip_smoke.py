@@ -37,10 +37,18 @@ Phases (any failure exits non-zero before the result line):
       edges at fp32 F = 41 and 47 (class widths that narrow the 16-byte
       vector: each must launch one whole-row walk and equal the column
       tiles' launch bitwise, timed beside the tiles, ``torch.sparse.mm``
-      and its bound), plus an empty graph and num_segments % 64 != 0 (the
-      kernel's tile). Yardsticks: ``torch.sparse.mm`` of a CSR for the
-      weighted sum, the same followed by ``torch.matmul`` by W for the fused
-      kernel (two calls: no single PyTorch call computes both),
+      and its bound), GAT's aggregations as its benchmark cell runs them
+      over Reddit2's real edges plus a self-loop a node, through the ops
+      with the model's plan: the fp32 softmax of (E', 4) and (E', 6)
+      logits (its head tile, 4 and 2, read from the profiler's kernel
+      names) and a head's alpha-weighted sum at F = 256 (the runs path's
+      column tiles) and F = 41 (one whole-row walk), each sum's path and
+      schedule counted and its output bitwise the column tiles' launch,
+      each timed beside the plain version, the library and its bound,
+      plus an empty graph and num_segments % 64 != 0 (the kernel's
+      tile). Yardsticks: ``torch.sparse.mm`` of a CSR for the weighted
+      sum, the same followed by ``torch.matmul`` by W for the fused kernel
+      (two calls: no single PyTorch call computes both),
       ``torch.sparse.softmax`` of a COO.
    b. segment_matmul at the typed rows of the AM graph (M = 5,988,321
       edges in 133 zipf-skewed relation groups) at K->N = 64->64, 32->128,
@@ -381,7 +389,10 @@ Phases (any failure exits non-zero before the result line):
    the gather's ``sage_class_mean``, GraphSAGE's last-layer mean over
    Reddit2 at F = 41 and 47 fp32 (its schedule, ms, ``tiled_ms`` of the
    column tiles, plain ms, ``library_ms`` of ``torch.sparse.mm`` and
-   ``bound_ms``);
+   ``bound_ms``); the gather's ``gat_weighted_sum`` and the softmax's
+   ``gat_softmax``, GAT's on Reddit2 with self-loops (F = 256 and 41; 4 and
+   6 heads), each with its path and schedule or head tile, ms, plain ms,
+   library ms and ``bound_ms``;
    segment_matmul's ``typed_bf16`` (the path the rule takes at the bf16
    typed widths, beside ``mma_sync_ms``, today's mma_sync kernel in the
    same call); the gather's, segment_matmul's and sddmm's
@@ -430,6 +441,12 @@ SEED = 0
 # features) and the class widths of its last layer's mean gather (Reddit2's
 # 41, ogbn-products' 47), which narrow the 16-byte vector
 SAGE_IN, SAGE_CLASS_WIDTHS = 602, (41, 47)
+# the GAT benchmark cell on Reddit2 with a self-loop a node: (heads of its
+# softmax, width of a head's alpha-weighted sum, the row-run schedule that
+# sum takes) for layers 1-2 (4 concatenated heads of 256, column tiles) and
+# layer 3 (6 averaged heads of Reddit2's 41 classes, one whole-row walk;
+# 6 fp32 heads are 24 bytes, so the softmax takes tiles of 2 heads)
+GAT_AGGREGATIONS = ((4, 256, "tiled"), (6, 41, "whole_row"))
 # the AM graph of the R-GCN paper (Schlichtkrull et al. 2018, Table 1)
 AM_NODES, AM_EDGES, AM_RELATIONS = 1_666_764, 5_988_321, 133
 RGAT_HEADS = 2
@@ -684,6 +701,160 @@ def sage_class_gather(torch, kops, dev, gen, graph) -> dict:
               f"{row['bound_ms']:.4f}; bitwise the tiles", flush=True)
         out[f"F={f}"] = row
         del h
+    return out
+
+
+def softmax_head_tile(torch, fn):
+    """The head tile V of the ``ssm_runs<T, V>`` instance that a call of
+    ``fn`` launched, read from the profiler's device kernel names; None
+    where the profiler recorded no device events."""
+    names = [row[0] for row in profiled(torch, fn)[2]]
+    if not names:
+        return None
+    # demangled ("ssm_runs<float, 2>(") or mangled ("8ssm_runsIfLi2EE")
+    pat = re.compile(r"ssm_runs(?:<[^,>]+, (\d+)>|I\w+?Li(\d+)E)")
+    tiles = {int(m.group(1) or m.group(2)) for n in names
+             for m in [pat.search(n)] if m}
+    if len(tiles) != 1:
+        fail(f"segment_softmax: ssm_runs instances {sorted(tiles)} among "
+             f"the call's kernels {names}")
+    return tiles.pop()
+
+
+def gat_aggregations(torch, kops, dev, gen, graph) -> dict:
+    """GAT's attention softmax and alpha-weighted sums as the benchmark cell
+    ``gat-reddit2.infer`` runs them: over ``graph``'s real edges
+    (Reddit2's) with a self-loop a node (``add_self_loops``), through the
+    ops with the model's plan (``make_model_plan`` at its widest head).
+    For each row of :data:`GAT_AGGREGATIONS`: the fp32 softmax of (E', K)
+    logits, which must launch the widest head tile of at most 4 that
+    divides K (the profiler's ``ssm_runs<float, V>``); then the sum of one
+    head's (V, F) fp32 rows weighted by a head of that softmax, which must
+    take the runs path and the schedule named there (the counters) and
+    equal the column tiles' launch (``c_entry("tiled")``) bitwise. Each
+    agrees with the plain version at the fp32 tolerance and is timed beside
+    it, the library (``torch.sparse.softmax`` of a (V, E', K) COO,
+    ``torch.sparse.mm`` of a CSR whose values are the weights) and its
+    bound. {"softmax": {"heads=<k>": {...}}, "weighted_sum":
+    {"F=<f>": {...}}}."""
+    from repro_torch.data.graphs import add_self_loops
+    from repro_torch.kernels import gather_segment_reduce as gsr
+    from repro_torch.models.gnn import make_model_plan
+    v = graph.num_nodes
+    ei = add_self_loops(torch.from_numpy(graph.edge_index).to(dev).int(), v)
+    src, dst = ei[0].contiguous(), ei[1].contiguous()
+    e = int(dst.numel())
+    plan = make_model_plan(ei, v, feat=max(f for _, f, _ in GAT_AGGREGATIONS),
+                           device=dev)
+    h_rows = int(torch.unique(src).numel())
+    # row i of the library's (V, E') COO holds the edges into node i, in
+    # the rows' order (destinations sorted), so its values line up
+    coo_idx = torch.stack([dst.long(), torch.arange(e, device=dev)])
+    where = f"over reddit2 with self-loops ({v} nodes, {e} rows)"
+    out = {"softmax": {}, "weighted_sum": {}}
+    for heads, f, sched in GAT_AGGREGATIONS:
+        x = torch.randn(e, heads, generator=gen, device=dev)
+        what = f"segment_softmax heads={heads} float32 {where}"
+
+        def soft(x=x):
+            return kops.segment_softmax(x, dst, v, plan=plan, impl="cuda")
+
+        def soft_plain(x=x):
+            return kops.segment_softmax(x, dst, v, impl="ref")
+
+        coo = torch.sparse_coo_tensor(coo_idx, x, (v, e, heads)).coalesce()
+
+        def soft_library(coo=coo):
+            return torch.sparse.softmax(coo, 1)
+
+        alpha = soft()
+        want = soft_plain()
+        err = compare(torch, what, alpha, want, torch.float32)
+        lib = soft_library()
+        if not torch.equal(lib.indices(), coo_idx):
+            fail("torch.sparse.softmax yardstick reordered its entries")
+        compare(torch, f"torch.sparse.softmax yardstick heads={heads}",
+                lib.values(), want, torch.float32)
+        del want, lib
+        tile = softmax_head_tile(torch, soft)
+        want_tile = max(t for t in (1, 2, 4) if heads % t == 0)
+        if tile not in (None, want_tile):
+            fail(f"{what}: ssm_runs<float, {tile}> launched, expected a "
+                 f"tile of {want_tile} heads")
+        row = {"head_tile": tile, "max_abs_err": err,
+               "ms": time_ms(torch, soft), "plain_ms": time_ms(torch,
+                                                              soft_plain),
+               "library_ms": time_ms(torch, soft_library)}
+        # the segment ids and logits read once, the output written once
+        row["bound_ms"], row["bound_by"] = bound(
+            e * (4 + 2 * heads * 4), 4 * e * heads)
+        print(f"  {what}: ssm_runs<float, {tile}> {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f}, torch.sparse.softmax "
+              f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f}",
+              flush=True)
+        out["softmax"][f"heads={heads}"] = row
+        del coo, x
+
+        # a head's weights, taken out as the model takes them
+        w = alpha[:, 0].contiguous()
+        del alpha
+        h = torch.randn(v, f, generator=gen, device=dev)
+        what = (f"gather_segment_reduce sum weighted F={f} float32 {where}")
+
+        def gather(h=h, w=w):
+            return kops.gather_segment_reduce(h, src, dst, v, w, "sum",
+                                              plan=plan, impl="cuda")
+
+        def gather_tiled(h=h, w=w):
+            return gsr.c_entry("tiled", h, src, dst, v, w, "sum",
+                               row_ptr=plan.row_ptr, run_rows=plan.config.m_b)
+
+        def gather_plain(h=h, w=w):
+            return kops.gather_segment_reduce(h, src, dst, v, w, "sum",
+                                              impl="ref")
+
+        csr = torch.sparse_csr_tensor(plan.row_ptr, src.long(), w, (v, v))
+
+        def gather_library(h=h, csr=csr):
+            return torch.sparse.mm(csr, h)
+
+        paths, scheds = kops.path_launch_counts(), kops.schedule_launch_counts()
+        got = gather()
+        took = count_diff(kops.path_launch_counts(),
+                          paths)["gather_segment_reduce"]
+        took_sched = count_diff(kops.schedule_launch_counts(),
+                                scheds)["gather_segment_reduce"]
+        if took.get("runs") != 1 or sum(took.values()) != 1:
+            fail(f"{what}: launches by path {took}, expected one runs")
+        if took_sched.get(sched) != 1 or sum(took_sched.values()) != 1:
+            fail(f"{what}: launches by schedule {took_sched}, expected one "
+                 f"{sched}")
+        torch.cuda.empty_cache()
+        want = gather_plain()
+        err = compare(torch, what, got, want, torch.float32)
+        if not torch.equal(got, gather_tiled()):
+            fail(f"{what}: not bitwise the column tiles' output")
+        compare(torch, f"torch.sparse.mm yardstick weighted F={f}",
+                gather_library(), want, torch.float32)
+        del got, want
+        row = {"path": "runs", "schedule": sched, "max_abs_err": err,
+               "ms": time_ms(torch, gather),
+               "plain_ms": time_ms(torch, gather_plain),
+               "library_ms": time_ms(torch, gather_library)}
+        torch.cuda.empty_cache()
+        # the two int32 indices and the fp32 weight of each row, the int64
+        # row offsets, the distinct rows of H, the output; a multiply and
+        # an add a row element
+        row["bound_ms"], row["bound_by"] = bound(
+            e * (4 + 4 + 4) + (v + 1) * 8 + h_rows * f * 4 + v * f * 4,
+            2 * e * f)
+        print(f"  {what}: runs {sched} {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f}, torch.sparse.mm "
+              f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f}; "
+              f"bitwise the column tiles", flush=True)
+        out["weighted_sum"][f"F={f}"] = row
+        del h, w, csr
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4685,6 +4856,8 @@ def main() -> None:
     # SAGE's class rows on Reddit2, walked whole in one column tile
     results["sage class gather"] = sage_class_gather(torch, kops, dev, gen,
                                                      r2)
+    # GAT's softmax and alpha-weighted sums on Reddit2 with self-loops
+    results["gat aggregations"] = gat_aggregations(torch, kops, dev, gen, r2)
 
     # edge cases: an empty graph, and num_segments % s_b != 0 (and % the
     # fused kernel's tile) with padding rows
@@ -5540,6 +5713,10 @@ def main() -> None:
     kernels[2]["reddit2_row_read_tb_s"] = results["fused reddit2 rows"][1]
     # the gather at SAGE's class widths over Reddit2 (the whole-row walk)
     kernels[0]["sage_class_mean"] = results["sage class gather"]
+    # GAT's alpha-weighted sums and softmax on Reddit2 with self-loops
+    kernels[0]["gat_weighted_sum"] = results["gat aggregations"][
+        "weighted_sum"]
+    kernels[1]["gat_softmax"] = results["gat aggregations"]["softmax"]
     # the MoE shapes of phase 3h: the combine, and the three expert products
     kernels[0]["moe_combine"] = lm_record["gather_moe"]
     kernels[3]["moe_products"] = lm_record["segment_matmul_moe"]

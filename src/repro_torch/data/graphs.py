@@ -2,9 +2,10 @@
 (Table II stats).
 
 Degree distributions are power-law; edges come out sorted by destination
-(``edge_index[1]`` non-decreasing). Everything here is numpy and draws
+(``edge_index[1]`` non-decreasing). The generators are numpy and draw
 from the same seeded generator calls as the reference package, so the
-same seed gives bitwise-identical graphs.
+same seed gives bitwise-identical graphs; :func:`add_self_loops` works on
+a torch ``edge_index`` on its device.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 # Table II of the paper (name, |V|, |E|)
 TABLE_II = [
@@ -213,6 +215,30 @@ def synth_typed_graph(name: str, num_nodes: int, num_edges: int,
         name=g.name, edge_index=g.edge_index, num_nodes=g.num_nodes,
         x=g.x, labels=g.labels, deg_inv_sqrt=g.deg_inv_sqrt,
         edge_type=et, num_relations=num_relations)
+
+
+def add_self_loops(edge_index, num_nodes: int):
+    """``edge_index`` (2, E), destinations sorted, with a self-loop (i, i)
+    added for each of the ``num_nodes`` nodes as the first of node i's
+    rows, so the destinations stay sorted: a (2, E + num_nodes) tensor on
+    its device. Drop-id rows (``dst = num_nodes``) stay last, and a
+    self-edge already in ``edge_index`` stays too, beside the new loop
+    (as PyG's ``add_self_loops`` keeps it; its ``GATConv`` removes it
+    first). GAT's attention over a node and its neighbours, made once
+    where the graph is held."""
+    dst, dev = edge_index[1], edge_index.device
+    nodes = torch.arange(num_nodes, dtype=edge_index.dtype, device=dev)
+    # an edge's row moves down by the loops of its destination and every
+    # node below it; node i's loop lands at its first row plus i
+    rows = (torch.arange(dst.numel(), device=dev)
+            + (dst.long() + 1).clamp_(max=num_nodes))
+    loops = (torch.searchsorted(dst.contiguous(), nodes)
+             + torch.arange(num_nodes, device=dev))
+    out = torch.empty((2, dst.numel() + num_nodes), dtype=edge_index.dtype,
+                      device=dev)
+    out[:, rows] = edge_index
+    out[:, loops] = nodes
+    return out
 
 
 def pad_graph(g: Graph, num_nodes: int, num_edges: int) -> Graph:

@@ -32,11 +32,12 @@ its per-relation transforms as one grouped ``segment_matmul`` launch.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import torch
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.core import ops as geot
 from repro_torch.core.device import resolve_device
 from repro_torch.core.mp import mp, mp_transform, mp_typed, type_permutation
@@ -50,6 +51,12 @@ __all__ = ["GCNLayer", "GINLayer", "SAGELayer", "GATLayer", "RGCNLayer",
 # relation-typed families need a TypedGraph and are listed apart
 MODELS = ("gcn", "gin", "sage", "gat")
 TYPED_MODELS = ("rgcn", "rgat")
+
+# GAT's attention scores (edges × heads) by layer, registered with the
+# module so that the obs schema holds it before a GAT runs
+_SCORES = obs.get_registry().counter(
+    "gat.scores", labels=("layer",),
+    help="GAT attention scores computed (edges x heads), by layer")
 
 
 def _dense(d_in: int, d_out: int, generator, dtype):
@@ -156,50 +163,76 @@ class SAGELayer(nn.Module):
 
 
 class GATLayer(nn.Module):
-    """Multi-head GAT: attention by one multi-head ``segment_softmax``
-    launch, then one α-weighted sum per head; head outputs are averaged,
-    so the output width is ``d_out`` for any number of heads."""
+    """Multi-head GAT (Veličković et al., ICLR 2018): attention by one
+    multi-head ``segment_softmax`` launch, then one α-weighted sum per head.
+
+    ``concat``: the heads' outputs side by side, so ``d_out`` is the
+    heads' widths together (``d_out // heads`` a head); otherwise they are
+    averaged and a head is ``d_out`` wide. ``bias``: a bias added after
+    the concat or mean. ``skip``: a linear skip connection, ``x @ w_skip +
+    b_skip`` added to the output (PyG's ``examples/ppi.py``). The defaults
+    are the reference's layer: averaged heads, no bias, no skip. The
+    attention (the scores, their per-edge rows and the softmax) is the span
+    ``gat.attention``; the weighted sums stay under ``mp.aggregate``."""
 
     def __init__(self, d_in: int, d_out: int, *, heads: int = 1,
-                 generator=None, dtype=torch.float32):
+                 concat: bool = False, bias: bool = False,
+                 skip: bool = False, generator=None, dtype=torch.float32):
         super().__init__()
-        self.heads, self.d_out = heads, d_out
-        scale = 1.0 / math.sqrt(d_out)
-        self.w = _dense(d_in, heads * d_out, generator, dtype)
+        if concat and d_out % heads:
+            raise ValueError(f"GATLayer: concatenated heads need d_out "
+                             f"({d_out}) to be a multiple of heads ({heads})")
+        self.heads, self.concat = heads, concat
+        self.head_dim = d_out // heads if concat else d_out
+        self.index = 0          # the layer's place in its stack: a label
+        scale = 1.0 / math.sqrt(self.head_dim)
+        self.w = _dense(d_in, heads * self.head_dim, generator, dtype)
         self.a_src = nn.Parameter(torch.randn(
-            heads, d_out, generator=generator, dtype=dtype) * scale)
+            heads, self.head_dim, generator=generator, dtype=dtype) * scale)
         self.a_dst = nn.Parameter(torch.randn(
-            heads, d_out, generator=generator, dtype=dtype) * scale)
+            heads, self.head_dim, generator=generator, dtype=dtype) * scale)
+        self.register_parameter("b", _zeros((d_out,), dtype) if bias
+                                else None)
+        self.register_parameter(
+            "w_skip", _dense(d_in, d_out, generator, dtype) if skip else None)
+        self.register_parameter("b_skip", _zeros((d_out,), dtype) if skip
+                                else None)
 
     def forward(self, x, edge_index, num_nodes: int, deg_inv_sqrt=None, *,
                 impl=None, plan=None, mesh=None, partition=None):
         src, dst = edge_index[0], edge_index[1]
         h = x @ self.w                                       # (V, heads*d)
-        hh = h.reshape(h.shape[0], self.heads, self.d_out)
-        logit_src = torch.einsum("vhd,hd->vh", hh, self.a_src)
-        logit_dst = torch.einsum("vhd,hd->vh", hh, self.a_dst)
-        # per-edge rows through geot.gather, whose backward is the
-        # deterministic sort-and-reduce (not an atomic scatter)
-        e = nn.functional.leaky_relu(
-            geot.gather(logit_src, src)
-            + geot.gather(logit_dst, _node_ids(dst, num_nodes)),
-            0.2)                                             # (E, heads)
-        if partition is None:
-            alpha = geot.segment_softmax(e.contiguous(), dst, num_nodes, impl,
-                                         None, plan)
-        else:
-            # the rank's (E_pad, heads) block, fed to the weighted sums as
-            # it is, never gathered back to global edge order
-            from repro_torch.core.dist_mp import segment_softmax_sharded
-            alpha = segment_softmax_sharded(e.contiguous(), partition,
-                                            pplan=plan, mesh=mesh, impl=impl)
-        out = 0.0
-        for i in range(self.heads):
-            out = out + _mp(hh[:, i, :].contiguous(), edge_index, num_nodes,
-                            reduce="sum", edge_weight=alpha[:, i].contiguous(),
-                            plan=plan, impl=impl, mesh=mesh,
-                            partition=partition)
-        return out / self.heads
+        hh = h.reshape(h.shape[0], self.heads, self.head_dim)
+        with span("gat.attention", heads=self.heads, width=self.head_dim):
+            logit_src = torch.einsum("vhd,hd->vh", hh, self.a_src)
+            logit_dst = torch.einsum("vhd,hd->vh", hh, self.a_dst)
+            # per-edge rows through geot.gather, whose backward is the
+            # deterministic sort-and-reduce (not an atomic scatter)
+            e = nn.functional.leaky_relu(
+                geot.gather(logit_src, src)
+                + geot.gather(logit_dst, _node_ids(dst, num_nodes)),
+                0.2)                                         # (E, heads)
+            _SCORES.inc(e.numel(), layer=str(self.index))
+            if partition is None:
+                alpha = geot.segment_softmax(e.contiguous(), dst, num_nodes,
+                                             impl, None, plan)
+            else:
+                # the rank's (E_pad, heads) block, fed to the weighted sums
+                # as it is, never gathered back to global edge order
+                from repro_torch.core.dist_mp import segment_softmax_sharded
+                alpha = segment_softmax_sharded(e.contiguous(), partition,
+                                                pplan=plan, mesh=mesh,
+                                                impl=impl)
+        outs = [_mp(hh[:, i, :].contiguous(), edge_index, num_nodes,
+                    reduce="sum", edge_weight=alpha[:, i].contiguous(),
+                    plan=plan, impl=impl, mesh=mesh, partition=partition)
+                for i in range(self.heads)]
+        out = torch.cat(outs, 1) if self.concat else sum(outs) / self.heads
+        if self.b is not None:
+            out = out + self.b
+        if self.w_skip is not None:
+            out = out + x @ self.w_skip + self.b_skip
+        return out
 
 
 def _require_typed(name: str, edge_type, partition=None) -> None:
@@ -306,28 +339,64 @@ _LAYER = {"gcn": GCNLayer, "gin": GINLayer, "sage": SAGELayer,
           "gat": GATLayer, "rgcn": RGCNLayer, "rgat": RGATLayer}
 
 
-class GNN(nn.Module):
-    """A stack of one family's layers with ReLU between them (paper §V-F:
-    node classification, 3 layers). ``dims`` = [d_in, hidden..., classes].
-    A forward is the span ``gnn.forward``, each layer (its aggregation,
-    self transform, bias and ReLU) a ``gnn.layer`` under it."""
+_ACTIVATIONS = {"relu": torch.relu, "elu": nn.functional.elu}
 
-    def __init__(self, family: str, dims: Sequence[int], *, heads: int = 1,
-                 num_relations: int = 4, generator=None,
-                 dtype=torch.float32):
+
+def _per_layer(value, n: int, what: str) -> list:
+    """``value`` for each of ``n`` layers: one value for all, or a
+    sequence of ``n``."""
+    if isinstance(value, (list, tuple)):
+        if len(value) != n:
+            raise ValueError(f"{what}: {len(value)} values for {n} layers")
+        return list(value)
+    return [value] * n
+
+
+class GNN(nn.Module):
+    """A stack of one family's layers with ``activation`` (ReLU, or ELU as
+    in GAT's paper) between them (paper §V-F: node classification, 3
+    layers). ``dims`` = [d_in, hidden..., classes], each the width of a
+    layer's output. GAT's options: ``heads`` and ``concat`` one value for
+    every layer or one a layer (a concatenating layer's output is its
+    heads' widths together), ``bias`` and ``skip`` (:class:`GATLayer`). A
+    forward is the span ``gnn.forward``, each layer (its aggregation, self
+    transform, bias and activation) a ``gnn.layer`` under it."""
+
+    def __init__(self, family: str, dims: Sequence[int], *,
+                 heads: Union[int, Sequence[int]] = 1,
+                 concat: Union[bool, Sequence[bool]] = False,
+                 bias: bool = False, skip: bool = False,
+                 activation: str = "relu", num_relations: int = 4,
+                 generator=None, dtype=torch.float32):
         super().__init__()
         if family not in _LAYER:
             raise ValueError(f"unknown model {family!r}; one of "
                              f"{MODELS + TYPED_MODELS}")
-        self.family = family
+        if activation not in _ACTIVATIONS:
+            raise ValueError(f"unknown activation {activation!r}; one of "
+                             f"{tuple(_ACTIVATIONS)}")
+        n = len(dims) - 1
+        heads, concat = _per_layer(heads, n, "heads"), \
+            _per_layer(concat, n, "concat")
+        if family != "gat" and (any(concat) or bias or skip):
+            raise ValueError("concat, bias and skip are GAT's options")
+        self.family, self.activation = family, activation
         self.dims = [int(d) for d in dims]
-        kw = {"heads": heads} if family in ("gat", "rgat") else {}
-        if family in TYPED_MODELS:
-            kw["num_relations"] = num_relations
+        kws = [{} for _ in range(n)]
+        for i, kw in enumerate(kws):
+            if family in ("gat", "rgat"):
+                kw["heads"] = heads[i]
+            if family == "gat":
+                kw.update(concat=concat[i], bias=bias, skip=skip)
+            if family in TYPED_MODELS:
+                kw["num_relations"] = num_relations
         self.layers = nn.ModuleList(
             _LAYER[family](self.dims[i], self.dims[i + 1], generator=generator,
-                           dtype=dtype, **kw)
-            for i in range(len(self.dims) - 1))
+                           dtype=dtype, **kws[i])
+            for i in range(n))
+        if family == "gat":
+            for i, layer in enumerate(self.layers):
+                layer.index = i
 
     def forward(self, x, edge_index, num_nodes: int, deg_inv_sqrt=None, *,
                 impl: Optional[str] = None, plan=None, mesh=None,
@@ -338,6 +407,7 @@ class GNN(nn.Module):
             typed = dict(edge_type=edge_type, type_perm=type_perm,
                          inv_type_perm=inv_type_perm,
                          type_counts=type_counts, rplan=rplan)
+        act = _ACTIVATIONS[self.activation]
         last = len(self.layers) - 1
         with span("gnn.forward", family=self.family, layers=last + 1):
             if partition is not None and plan is None \
@@ -351,7 +421,7 @@ class GNN(nn.Module):
                               impl=impl, plan=plan, mesh=mesh,
                               partition=partition, **typed)
                     if i < last:
-                        h = torch.relu(h)
+                        h = act(h)
             return h
 
 

@@ -33,6 +33,7 @@ the port's own):
     ------------------------------  ------------  --------------------------
     kernel.launches                 kind, op      =
     kernel.schedule_launches        op, schedule  -
+    gat.scores                      layer         -
     serve.requests                  engine        =
     serve.batches                   engine        =
     serve.serve_s                   engine        =
@@ -63,6 +64,8 @@ the port's own):
 ``kernel.schedule_launches`` counts the row-run kernels' launches (the
 gather's runs path, segment_reduce) by column schedule, ``tiled`` or
 ``whole_row`` (:func:`repro_torch.kernels.ops.schedule_launch_counts`);
+``gat.scores`` counts the attention scores a GAT layer computes (edges ×
+heads), by the layer's index in its stack;
 ``serve.builds`` counts the first run of a bucket's entry;
 ``train.buckets`` the first step on a new ``GraphStatic``;
 ``build.events`` is filled by :func:`record_build` (the reference's
@@ -82,6 +85,8 @@ metric each feeds (``bench/metrics``; the full table is in
     gnn.forward > gnn.layer > mp.order    (names the trace's idle gaps)
     gnn.layer > mp.aggregate               mp_ms.gnn_infer: device time of
                                            the kernels launched inside
+    gnn.layer > gat.attention              attn_ms.gnn_infer: the same, for
+                                           GAT's scores and softmax
     plan.build > plan.host_index,          plan_s.gnn_infer: the newest
       plan.stats, plan.row_ptr,            root plan.build's seconds
       plan.source_order
@@ -138,6 +143,8 @@ OBS_SCHEMA = {
     # kernels' launches by column schedule)
     "kernel.launches":            ("kind", "op"),
     "kernel.schedule_launches":   ("op", "schedule"),
+    # GAT's attention scores (edges x heads) by layer
+    "gat.scores":                 ("layer",),
     # serving engine (one label value per GNNServer instance)
     "serve.requests":             ("engine",),
     "serve.batches":              ("engine",),

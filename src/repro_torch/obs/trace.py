@@ -35,6 +35,10 @@ for its own ranges, or ``repro_torch::``, the custom ops' prefix):
     mp.aggregate            core/mp.py mp, mp_transform,  mp_ms.gnn_infer
                             mp_typed: the segment-op
                             launches, no dense matmul
+    gat.attention           models/gnn.py GATLayer: the   attn_ms.gnn_infer
+                            scores, their per-edge rows
+                            and segment_softmax, not the
+                            transform or the weighted sums
     plan.build              core/plan.py make_plan,       plan_s.gnn_infer
                             make_graph_plan
     plan.host_index         its stages: the copy to the   -
@@ -52,10 +56,11 @@ for its own ranges, or ``repro_torch::``, the custom ops' prefix):
       stamp)
     autotune.tune           core/autotune.py              -
 
-``mp_ms.gnn_infer`` and ``plan_s.gnn_infer`` are per-layer metrics of the
-port's benchmark (``bench/metrics``): the first sums the device time of
-the kernels launched inside the profiler's ``mp.aggregate`` ranges, the
-second reads the newest root ``plan.build`` in the ring. The other spans
+``mp_ms.gnn_infer``, ``attn_ms.gnn_infer`` and ``plan_s.gnn_infer`` are
+per-layer metrics of the port's benchmark (``bench/metrics``): the first
+two sum the device time of the kernels launched inside the profiler's
+``mp.aggregate`` and ``gat.attention`` ranges, the third reads the newest
+root ``plan.build`` in the ring. The other spans
 name the profiler trace's idle gaps and the stages of a tree.
 
 Export: :func:`chrome_trace` renders the ring as Chrome

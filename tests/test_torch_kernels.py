@@ -593,6 +593,7 @@ _SCHEDULES = {
     "bf16_252": (252, torch.bfloat16, 16, "whole_row"),
     "bf16_260": (260, torch.bfloat16, 16, "tiled"),
     "gnn_64": (64, torch.float32, 16, "tiled"),
+    "gat_head_256": (256, torch.float32, 16, "tiled"),
     "test_40": (40, torch.float32, 16, "tiled"),
     "test_300": (300, torch.float32, 16, "tiled"),
     "moe_2048": (2048, torch.bfloat16, 16, "tiled"),

@@ -432,7 +432,7 @@ def test_schema_is_the_documented_table_and_the_reference_renamed():
     assert schema == obs.OBS_SCHEMA
     ref = repro.obs.OBS_SCHEMA
     assert set(renames) == set(ref)
-    assert own == {"kernel.schedule_launches"}
+    assert own == {"kernel.schedule_launches", "gat.scores"}
     assert {renames[k]: v for k, v in ref.items()
             if renames[k] is not None} == {
         k: v for k, v in obs.OBS_SCHEMA.items() if k not in own}
